@@ -1,0 +1,32 @@
+"""euclider_tpu_torch: the PyTorch + CUDA port of euclider_tpu.
+
+The JAX package ``euclider_tpu`` beside it is the reference.  This package
+imports torch and never jax: it carries its own copy of the numpy scene front
+end (``scene/``), a plain batched-torch version of the trace loop
+(``ops/trace.py``) and the hand-written CUDA kernel that replaces the Pallas
+forward megakernel (``ops/cuda_kernel.py`` + ``csrc/trace_fwd.cu``).
+
+    import euclider_tpu_torch as et
+    sc = et.get_scene("config2_mirror_glass")
+    static, tables = et.compile_scene(sc)
+    tables = et.tables_to_torch(tables, "cuda")
+    cam = et.camera_to_torch(et.compile_camera(sc.camera), "cuda")
+    img = et.render_image(static, tables, cam, 720, 1280)   # [720, 1280, 3]
+"""
+from .scene import ir
+from .scene.compile import (CameraParams, SceneStatic, SceneTables,
+                            camera_to_torch, compile_camera, compile_scene,
+                            tables_to_torch)
+from .scene.library import ACCEPTANCE, get_scene
+
+
+def render_image(static, tables, cam, H: int, W: int, time=0.0, y0: int = 0,
+                 rows: int | None = None):
+    """Render rows [y0, y0 + rows) of the H x W frame -> [rows or H, W, 3]
+    float32 on the tables' device.  CUDA tensors go through the CUDA kernel,
+    CPU tensors through the plain torch version."""
+    if tables.surf_color.device.type == "cuda":
+        from .ops.cuda_kernel import render_image_cuda
+        return render_image_cuda(static, tables, cam, H, W, time, y0, rows)
+    from .ops.trace import render_image as render_plain
+    return render_plain(static, tables, cam, H, W, time, y0, rows)

@@ -1,0 +1,202 @@
+"""The forward render as a hand-written CUDA kernel (``csrc/trace_fwd.cu``).
+
+Counterpart of ``euclider_tpu/ops/pallas_kernel.py`` (``_kernel`` launched
+by ``render_image_pallas``).  The kernel is compiled with nvcc for
+``sm_90a`` into a shared library with a plain C entry point, on first use,
+into ``euclider_tpu_torch/build/`` (rebuilt when the source or the flags
+change), and called through ctypes on PyTorch's current stream.
+
+The scene is passed as data: ``encode_scene`` flattens the static topology
+into int32 arrays (the node encoding of ``oracle/native_oracle.py``, so the
+kernel and the C++ oracle read one scene encoding), and the float tables
+go in as the device tensors of ``tables_to_torch``.  Features the kernel
+does not render raise ``NotImplementedError`` before any launch; nothing is
+approximated.  Its plain version is ``ops/trace.render_image``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import torch
+
+from ..oracle.native_oracle import SURF_KINDS, _encode_nodes
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "trace_fwd.cu")
+BUILD_DIR = os.path.join(_PKG, "build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+MAX_SLOTS = 16     # the kernel's DFS stack capacity (trace_fwd.cu)
+
+LAUNCHES = 0       # kernel launches made by render_image_cuda
+
+# float tables the kernel reads, in its argument order
+_FLOAT_FIELDS = ("shape_vec", "shape_sc", "mat_ior", "surf_color",
+                 "surf_color2", "surf_refl", "surf_fresnel", "surf_uv_scale",
+                 "background")
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
+    return nvcc
+
+
+def build() -> str:
+    """Compile ``csrc/trace_fwd.cu`` if needed; returns the library path.
+
+    The library's name carries a hash of the source and the flags, so an
+    edit builds anew and never loads a stale library."""
+    with open(SOURCE, "rb") as f:
+        tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
+                             ).hexdigest()
+    lib = os.path.join(BUILD_DIR, f"libtrace_fwd-{tag[:16]}.so")
+    if not os.path.exists(lib):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = os.path.join(BUILD_DIR, f"tmp-{os.getpid()}-{tag[:16]}.so")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
+        os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The kernel's C entry point, built and loaded once per process."""
+    fn = ctypes.CDLL(build()).euclider_trace_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def encode_scene(static):
+    """Flatten ``static`` into the kernel's int32 arrays.
+
+    Returns ``(ints, offsets)``: one int32 array holding ent_root, ent_mat,
+    ent_surf, node_kind, node_row and surf_kind back to back, and the start
+    of each.  Raises ``NotImplementedError`` naming the first feature the
+    kernel does not render, and ``ValueError`` for a ray tree deeper than
+    its stack."""
+    for kind in static.mat_kinds:
+        if kind not in ("vacuum", "dielectric"):
+            raise NotImplementedError(
+                f"the CUDA kernel does not render {kind!r} materials "
+                "(warped or expression space) yet")
+    for kind in static.surf_kinds:
+        if kind not in ("uniform", "checker"):
+            raise NotImplementedError(
+                f"the CUDA kernel does not render {kind!r} surfaces yet")
+    for e in static.entities:
+        if e.portal is not None:
+            raise NotImplementedError(
+                "the CUDA kernel does not render portals yet")
+        if e.shape[0] == "cylinder":
+            raise NotImplementedError(
+                "the CUDA kernel does not render cylinders yet")
+        if e.shape[0] not in ("sphere", "halfspace", "hyperplane"):
+            raise NotImplementedError(
+                f"the CUDA kernel does not render CSG ({e.shape[0]!r}) yet")
+        if e.shape[0] == "sphere" and static.surf_kinds[e.surface] != "uniform":
+            raise NotImplementedError(
+                "the CUDA kernel does not render sphere UV (a non-uniform "
+                "sphere surface) yet")
+    if static.max_depth + 1 > MAX_SLOTS:
+        raise ValueError(f"max_depth {static.max_depth} needs "
+                         f"{static.max_depth + 1} stack slots; the CUDA "
+                         f"kernel has {MAX_SLOTS}")
+    ent_root, node_kind, node_row, _, _, _ = _encode_nodes(static)
+    parts = [ent_root,
+             np.asarray([e.material for e in static.entities], np.int32),
+             np.asarray([e.surface for e in static.entities], np.int32),
+             node_kind, node_row,
+             np.asarray([SURF_KINDS[k] for k in static.surf_kinds], np.int32)]
+    offsets = np.cumsum([0] + [len(p) for p in parts[:-1]])
+    return np.concatenate(parts).astype(np.int32), tuple(int(o) for o in offsets)
+
+
+@functools.lru_cache(maxsize=64)
+def _scene_ints(static, device: torch.device):
+    ints, offsets = encode_scene(static)
+    return torch.from_numpy(ints).to(device), offsets
+
+
+def _pack_camera(cam, time, y0, device) -> torch.Tensor:
+    """The 24-float camera row of pallas_kernel._pack_camera: position,
+    forward, up, right, tan_half_fov, time, y0, then padding."""
+    def scalar(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=device, dtype=torch.float32).reshape(1)
+        return torch.full((1,), float(x), dtype=torch.float32, device=device)
+
+    return torch.cat([cam.position.reshape(4), cam.forward.reshape(4),
+                      cam.up.reshape(4), cam.right.reshape(4),
+                      scalar(cam.tan_half_fov), scalar(time), scalar(y0),
+                      torch.zeros(5, dtype=torch.float32, device=device)])
+
+
+def _check_tables(static, tables, device):
+    S = tables.shape_vec.shape[0]
+    expect = {"shape_vec": (S, 4), "shape_sc": (S,),
+              "mat_ior": (len(static.mat_kinds),),
+              "surf_color": (len(static.surf_kinds), 4),
+              "surf_color2": (len(static.surf_kinds), 4),
+              "surf_refl": (len(static.surf_kinds),),
+              "surf_fresnel": (len(static.surf_kinds),),
+              "surf_uv_scale": (len(static.surf_kinds),),
+              "background": (3,)}
+    out = []
+    for name in _FLOAT_FIELDS:
+        t = getattr(tables, name)
+        if t.device != device or t.dtype != torch.float32:
+            raise ValueError(f"tables.{name}: the CUDA kernel takes float32 "
+                             f"on {device}, got {t.dtype} on {t.device}")
+        if tuple(t.shape) != expect[name]:
+            raise ValueError(f"tables.{name}: shape {tuple(t.shape)} does "
+                             f"not match the scene's {expect[name]}")
+        out.append(t.contiguous())
+    return out
+
+
+def render_image_cuda(static, tables, cam, H: int, W: int, time=0.0,
+                      y0: int = 0, rows: int | None = None) -> torch.Tensor:
+    """Render rows [y0, y0 + rows) of the H x W frame with the CUDA kernel
+    -> [rows or H, W, 3] float32 on the tables' device.
+
+    Takes CUDA tensors only: on any other device it raises, and it never
+    falls back to the plain version."""
+    global LAUNCHES
+    device = tables.surf_color.device
+    if device.type != "cuda":
+        raise ValueError("render_image_cuda takes tables on a CUDA device, "
+                         f"got {device}; ops.trace.render_image is the plain "
+                         "version")
+    R = H if rows is None else rows
+    ints, (o_root, o_mat, o_surf, o_kind, o_row, o_skind) = _scene_ints(
+        static, device)
+    floats = _check_tables(static, tables, device)
+    cam_row = _pack_camera(cam, time, y0, device)
+    out = torch.empty((R, W, 3), dtype=torch.float32, device=device)
+    fn = _entry()
+    base = ints.data_ptr()
+    int_ptrs = [base + 4 * o for o in (o_root, o_mat, o_surf, o_kind, o_row,
+                                       o_skind)]
+    rc = fn(*int_ptrs, *(t.data_ptr() for t in floats), cam_row.data_ptr(),
+            len(static.entities), static.ambient, static.max_depth,
+            static.max_nodes, static.dim, static.t_max, H, W, R,
+            out.data_ptr(), device.index,
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"trace_fwd launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    return out

@@ -1,0 +1,95 @@
+"""The torch port's plain render (ops/trace.py) against the JAX package.
+
+The plain version is what the CUDA kernel is held against on the card, so
+it is held here against every reference the JAX package trusts: the lax
+render, the Pallas megakernel itself (interpret mode, as
+tests/test_pallas_parity.py runs it), and the committed goldens.
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import euclider_tpu as et
+from euclider_tpu.ops.pallas_kernel import render_image_pallas
+
+import euclider_tpu_torch as ett
+from euclider_tpu_torch.ops import cuda_kernel, trace
+from euclider_tpu_torch.oracle.native_oracle import render_native
+from euclider_tpu_torch.utils.validate import assert_oracle_match
+
+from conftest import assert_images_close
+
+H, W = 16, 128   # the jit shapes of tests/test_pallas_parity.py
+GOLDENS = os.path.join(os.path.dirname(__file__), "goldens.npz")
+SLICE = ("config1_sphere_room", "config2_mirror_glass")
+
+
+def port_inputs(compiled_scenes, name):
+    """The JAX package's compiled scene, carried onto the CPU for torch."""
+    _, static, tables, cam = compiled_scenes[name]
+    return (static, ett.tables_to_torch(tables, "cpu"),
+            ett.camera_to_torch(cam, "cpu"))
+
+
+@pytest.mark.parametrize("name", SLICE)
+def test_plain_matches_lax(compiled_scenes, name):
+    _, static, tables, cam = compiled_scenes[name]
+    ref = np.asarray(et.render_image_jit(static, tables, cam, H, W))
+    got = trace.render_image(*port_inputs(compiled_scenes, name), H, W)
+    assert got.shape == (H, W, 3) and got.dtype == torch.float32
+    # rsqrt and fused products may differ by an ulp between XLA and torch,
+    # which can flip a silhouette pixel: allow 0.2% of pixels
+    assert_images_close(ref, got.numpy(), atol=1e-5, max_bad_frac=0.002,
+                        msg=f"torch-vs-lax {name}")
+
+
+def test_plain_matches_pallas_kernel(compiled_scenes):
+    name = "config1_sphere_room"
+    _, static, tables, cam = compiled_scenes[name]
+    ref = np.asarray(render_image_pallas(
+        static, tables, cam, H, W, (8, 128), "while", True))
+    got = trace.render_image(*port_inputs(compiled_scenes, name), H, W)
+    assert_images_close(ref, got.numpy(), atol=1e-5,
+                        msg=f"torch-vs-pallas {name}")
+
+
+@pytest.mark.parametrize("name", SLICE)
+def test_plain_matches_golden(compiled_scenes, name):
+    gold = np.load(GOLDENS)[name]
+    got = trace.render_image(*port_inputs(compiled_scenes, name), 48, 64)
+    err = np.abs(got.numpy() - gold).max(axis=-1)
+    bad = (err > 2e-3).mean()
+    assert bad <= 0.01, (f"{name}: {bad:.4f} of pixels beyond 2e-3 from the "
+                         f"golden (max {err.max():.2e})")
+
+
+@pytest.mark.parametrize("name", SLICE)
+def test_plain_passes_oracle_gate(compiled_scenes, name):
+    """The port's own oracle wrapper: it renders the goldens from torch
+    tables, and the plain version passes its gate."""
+    inputs = port_inputs(compiled_scenes, name)
+    gold = np.load(GOLDENS)[name]
+    assert np.abs(render_native(*inputs, 48, 64) - gold).max() <= 1e-6
+    assert assert_oracle_match(*inputs, trace.render_image, h=48, w=128,
+                               label=name) >= 0.99
+
+
+@pytest.mark.parametrize("y0, rows", [(0, 5), (5, 7), (12, 4)])
+def test_row_slab_matches_full_frame(compiled_scenes, y0, rows):
+    inputs = port_inputs(compiled_scenes, "config2_mirror_glass")
+    full = trace.render_image(*inputs, H, W)
+    slab = trace.render_image(*inputs, H, W, y0=y0, rows=rows)
+    assert slab.shape == (rows, W, 3)
+    torch.testing.assert_close(slab, full[y0:y0 + rows], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["config3_csg_textured",
+                                  "config5_warp_portal"])
+def test_cuda_encoder_refuses_unsupported_features(compiled_scenes, name):
+    _, static, _, _ = compiled_scenes[name]
+    with pytest.raises(NotImplementedError, match="CUDA kernel does not"):
+        cuda_kernel.encode_scene(static)
+    with pytest.raises(NotImplementedError, match="torch port does not"):
+        trace.render_image(*port_inputs(compiled_scenes, name), 8, 8)
