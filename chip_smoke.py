@@ -1,25 +1,39 @@
 #!/usr/bin/env python3
-"""Smoke run of the torch port on one CUDA card: builds the CUDA kernel,
-checks it, drives the main path and times it.
+"""Smoke run of the torch port on one CUDA card: builds the CUDA kernels,
+checks them against their plain versions, drives the render and training
+paths and times them.
 
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device  - a CUDA device is required; never falls back to the CPU.
-  2. build   - nvcc builds csrc/trace_fwd.cu for sm_90a.
-  3. kernel  - render_image_cuda against the plain torch version on the card,
-               config1 and config2 at 1280x720: at least 99.9% of pixels
-               within 1e-4 (max over channels).
+  2. build   - nvcc builds csrc/trace_fwd.cu and csrc/trace_bwd.cu for
+               sm_90a, one process each, started together.
+  3. kernel  - render_image_cuda against the plain torch version on the card
+               at 1280x720, config1, config2, grad_probe and fresnel_probe:
+               at least 99.9% of pixels within 1e-4 (max over channels);
+               where config2's differing pixels lie.
   4. truth   - the kernel against tests/goldens.npz at 48x64 (at most 1% of
                pixels beyond 2e-3) and against the float64 C++ oracle at
-               48x128 (at least 99% within 2e-3).
-  5. main    - euclider_tpu_torch.render_image at 1280x720 for both scenes
-               and the CLI with --backend cuda; the kernel's launch count
-               must rise on this path.
-  6. time    - ms/frame and Mrays/s from CUDA events around one render call,
-               median of 5 after warm-up, kernel and plain; the kernel's
-               own device time from torch.profiler.
-The second-to-last line is a JSON record of the kernel; the last line is
+               48x128 (at least 99% within 2e-3), same four scenes.
+  5. main    - the render path: euclider_tpu_torch.render_image at 1280x720
+               for config1 and config2 and the CLI with --backend cuda; the
+               forward kernel's launch count must rise on this path.
+  6. bwd     - grad_probe and config2 at 1280x720: vjp_cuda against the
+               plain row-blocked backward under a seeded cotangent, every
+               leaf within 1e-3 * max(max |ref|, 1); then train_step_cuda
+               against the forward kernel + MSE + vjp_cuda (loss within 1e-5
+               relative, gradients by the same rule).
+  7. train   - the training path: python -m euclider_tpu_torch.train.fit on
+               grad_probe at 1280x720, 5 fused steps (finite losses, the
+               last below the first, trace_bwd launched once a step and
+               trace_fwd not at all during the steps), then 2 steps with
+               --backend cuda (both kernels launch).
+  8. time    - ms/frame of the render, ms/step of the fused and unfused
+               training steps (CUDA events, median of 5 after warm-up), the
+               kernels' device time from torch.profiler, and the plain
+               versions' times.
+The second-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -32,10 +46,21 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCENES = ("config1_sphere_room", "config2_mirror_glass")
+PROBES = ("grad_probe", "fresnel_probe")
+BWD_SCENES = ("grad_probe", "config2_mirror_glass")
 H, W = 720, 1280
 TOL, MAX_BAD = 1e-4, 1e-3            # kernel vs plain on the card
 GOLD_TOL, GOLD_BAD = 2e-3, 0.01      # goldens gate (tests/test_goldens.py)
 ORACLE_TOL, ORACLE_FRAC = 2e-3, 0.99  # oracle gate (utils/validate.py)
+GRAD_RTOL = 1e-3                     # tests/test_gradients.py rule
+LOSS_RTOL = 1e-5
+SMOOTH_TAU = 0.02                    # image second difference of a seam
+TRAIN_STEPS = 5
+
+# H100 SXM published peaks (NVIDIA H100 datasheet): FP32 outside the
+# tensor cores and HBM bandwidth, at the full 700 W power limit
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def say(phase: str, msg: str) -> None:
@@ -50,8 +75,18 @@ def load(name, device):
             et.camera_to_torch(et.compile_camera(sc.camera), device))
 
 
+def seeded(shape, seed, device, kind="normal"):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=shape) if kind == "normal" else rng.uniform(size=shape)
+    return torch.from_numpy(a.astype(np.float32)).to(device)
+
+
+# --- phase 3 -----------------------------------------------------------------
+
 def kernel_vs_plain(name, device):
-    """Phase 3 for one scene -> (max_abs_err, bad_frac)."""
+    """Phase 3 for one scene -> (max_abs_err, bad_frac, bad pixel mask)."""
     import torch
     from euclider_tpu_torch.ops import cuda_kernel, trace
 
@@ -65,8 +100,80 @@ def kernel_vs_plain(name, device):
     say("kernel", f"{name}: max_abs_err={max_err:.3e} "
         f"bad_frac(>{TOL:g})={bad:.6f} (limit {MAX_BAD:g})")
     assert bad <= MAX_BAD, f"{name}: kernel disagrees with the plain version"
-    return max_err, bad
+    return max_err, bad, err > TOL
 
+
+def locate_diffs(name, device, bad):
+    """Where the pixels that differ between the kernel and the plain version
+    lie: which entity the primary ray hits there, and which decision of the
+    plain render flips under a perturbation of a few ulps (sphere radii, the
+    glass ior, the checker scale, the W_EPS cut)."""
+    import torch
+    from euclider_tpu_torch.ops import trace
+
+    static, tables, cam = load(name, device)
+    base = trace.render_image(static, tables, cam, H, W)
+    ys, xs = torch.nonzero(bad, as_tuple=True)
+    n = len(ys)
+    yi = torch.arange(H, dtype=torch.float32, device=device)[:, None].expand(H, W)
+    xi = torch.arange(W, dtype=torch.float32, device=device)[None, :].expand(H, W)
+    org, d = trace.camera_rays(cam, xi, yi, W, H)
+    _, hit, ent, _, _, _ = trace.nearest_hit_straight(static, tables, org, d)
+    names = [e.name or f"entity{i}" for i, e in enumerate(static.entities)]
+    first = {}
+    for y, x in zip(ys.tolist(), xs.tolist()):
+        k = names[int(ent[y, x])] if bool(hit[y, x]) else "background"
+        first[k] = first.get(k, 0) + 1
+    nodes = node_count(static, tables, cam).float()
+    say("kernel", f"{name}: {n} differing pixels, rows {int(ys.min())}-"
+        f"{int(ys.max())}, cols {int(xs.min())}-{int(xs.max())}; primary "
+        f"hit {first}; nodes shaded there: mean "
+        f"{float(nodes[bad].mean()):.2f} (frame {float(nodes.mean()):.2f}), "
+        f"min {int(nodes[bad].min())}")
+
+    spheres = torch.tensor([float(e.shape[0] == "sphere")
+                            for e in static.entities], device=device)
+    rows = torch.tensor([e.shape[1] for e in static.entities], device=device)
+    sphere_rows = torch.zeros_like(tables.shape_sc)
+    sphere_rows[rows] = spheres
+    tests = {
+        "silhouette (sphere radii x(1 +- 1e-6))":
+            lambda s: {"shape_sc": tables.shape_sc * (1 + s * 1e-6 * sphere_rows)},
+        "refraction/TIR (ior x(1 +- 1e-6))":
+            lambda s: {"mat_ior": tables.mat_ior * (1 + s * 1e-6)},
+        "checker edge (uv scale x(1 +- 1e-6))":
+            lambda s: {"surf_uv_scale": tables.surf_uv_scale * (1 + s * 1e-6)},
+        "a rounding of every ray (camera forward x(1 +- 1e-6))": None,
+    }
+    found = torch.zeros_like(bad)
+    for label, make in tests.items():
+        flips = torch.zeros_like(bad)
+        for s in (1.0, -1.0):
+            if make is None:
+                img = trace.render_image(static, tables, cam._replace(
+                    forward=cam.forward * (1 + s * 1e-6)), H, W)
+            else:
+                img = trace.render_image(static, tables._replace(**make(s)),
+                                         cam, H, W)
+            flips |= (img - base).abs().amax(-1) > 1e-3
+        found |= flips & bad
+        say("kernel", f"{name}: {int((flips & bad).sum())} of {n} flip under "
+            f"{label}")
+    w_eps = trace.W_EPS
+    flips = torch.zeros_like(bad)
+    try:
+        for s in (1.0, -1.0):
+            trace.W_EPS = w_eps * (1 + s * 1e-3)
+            img = trace.render_image(static, tables, cam, H, W)
+            flips |= (img - base).abs().amax(-1) > 1e-3
+    finally:
+        trace.W_EPS = w_eps
+    found |= flips & bad
+    say("kernel", f"{name}: {int((flips & bad).sum())} of {n} flip under the "
+        f"W_EPS cut x(1 +- 1e-3); {int((bad & ~found).sum())} under none")
+
+
+# --- phase 4 -----------------------------------------------------------------
 
 def ground_truth(name, device, goldens):
     """Phase 4 for one scene: goldens and C++ oracle gates."""
@@ -89,14 +196,16 @@ def ground_truth(name, device, goldens):
         f"{frac:.4f} (limit {ORACLE_FRAC:g})")
 
 
+# --- phase 5 -----------------------------------------------------------------
+
 def main_path(device):
-    """Phase 5 -> launches of the kernel made by the main path."""
+    """Phase 5, the render path -> launches of the forward kernel on it."""
     import torch
     import euclider_tpu_torch as et
-    from euclider_tpu_torch.ops import cuda_kernel
+    from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel
 
     scenes = [load(name, device) for name in SCENES]
-    cuda_kernel.LAUNCHES = 0
+    cuda_kernel.LAUNCHES = cuda_bwd.LAUNCHES = 0
     imgs = [et.render_image(static, tables, cam, H, W)
             for static, tables, cam in scenes]
     torch.cuda.synchronize()
@@ -106,8 +215,8 @@ def main_path(device):
         assert bool(torch.isfinite(img).all()), f"{name}: non-finite pixels"
         say("main", f"{name}: render_image {W}x{H} finite, mean rgb "
             f"{[round(float(c), 4) for c in img.mean(dim=(0, 1))]}")
-    say("main", f"kernel launches on the main path: {launches}")
-    assert launches >= len(SCENES), "the main path did not run the kernel"
+    say("main", f"kernel launches on the render path: {launches}")
+    assert launches >= len(SCENES), "the render path did not run the kernel"
 
     png = os.path.join(ROOT, "euclider_tpu_torch", "build", "smoke_cli.png")
     if os.path.exists(png):
@@ -127,47 +236,239 @@ def main_path(device):
     return launches
 
 
-def kernel_device_ms(render, n=5):
-    """Device time of one trace_fwd launch, from torch.profiler (None when
-    the profiler records no device time for it)."""
+# --- phase 6 -----------------------------------------------------------------
+
+def leaves(d_tables, d_cam):
+    from euclider_tpu_torch.ops.cuda_kernel import FLOAT_FIELDS
+    return ([(k, getattr(d_tables, k)) for k in FLOAT_FIELDS]
+            + [(f"cam.{k}", v) for k, v in d_cam._asdict().items()])
+
+
+def grads_err(ref, got):
+    """Worst leaf under the rule max|diff| <= GRAD_RTOL * max(max|ref|, 1)
+    -> (ratio of error to tolerance, leaf, error)."""
+    worst = (0.0, "", 0.0)
+    for (k, a), (_, b) in zip(leaves(*ref), leaves(*got)):
+        e = float((a.double() - b.double()).abs().max())
+        tol = GRAD_RTOL * max(float(a.abs().max()), 1.0)
+        worst = max(worst, (e / tol, k, e))
+    return worst
+
+
+def seams(img):
+    """Pixels within one pixel of an image seam (second difference above
+    SMOOTH_TAU along a row or a column): silhouettes, total internal
+    reflection and weight cuts, checker edges."""
+    import torch
+    d2x = (img[:, 2:] + img[:, :-2] - 2 * img[:, 1:-1]).abs().amax(-1)
+    d2y = (img[2:] + img[:-2] - 2 * img[1:-1]).abs().amax(-1)
+    m = torch.zeros(img.shape[:2], dtype=torch.bool, device=img.device)
+    m[:, 1:-1] |= d2x > SMOOTH_TAU
+    m[1:-1] |= d2y > SMOOTH_TAU
+    return torch.nn.functional.max_pool2d(m[None, None].float(), 3, 1,
+                                          1)[0, 0] > 0
+
+
+def backward_check(name, device):
+    """Phase 6 for one scene -> numbers for the record."""
+    import torch
+    from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel, trace, vjp
+
+    static, tables, cam = load(name, device)
+    k1 = cuda_kernel.render_image_cuda(static, tables, cam, H, W)
+    plain = trace.render_image(static, tables, cam, H, W)
+    # The cotangent is zero where the comparison measures float32 noise, not
+    # the kernel: where the two forwards took different branches, and at
+    # seams, where per-pixel gradients like dt/dr ~ 1/sqrt(disc) amplify a
+    # rounding without bound (tests/test_gradients.py masks silhouettes
+    # alike).
+    flips = (k1 - plain).abs().amax(-1) > TOL
+    keep = ~(flips | seams(plain))
+    g = seeded((H, W, 3), 0, device) * keep[..., None]
+    got = cuda_bwd.vjp_cuda(static, tables, cam, H, W, g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = vjp.vjp_blocked(static, tables, cam, H, W, g)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ratio, leaf, err = grads_err(ref[:2], got[:2])
+    say("bwd", f"{name}: vjp_cuda vs plain backward at {W}x{H}, cotangent "
+        f"zero on {float((~keep).float().mean()):.4f} of pixels ({int(flips.sum())} "
+        f"branch flips + seams): worst leaf {leaf} err {err:.4g} = "
+        f"{ratio:.3f} of its tolerance; plain backward {plain_ms:.1f} ms")
+    assert ratio <= 1.0, f"{name}: vjp_cuda disagrees with the plain backward"
+
+    target = seeded((H, W, 3), 1, device, "uniform")
+    loss, gt, gc, _ = cuda_bwd.train_step_cuda(static, tables, cam, target,
+                                               H, W)
+    ref_loss = torch.mean((k1 - target) ** 2)
+    ref2 = cuda_bwd.vjp_cuda(static, tables, cam, H, W,
+                             2.0 * (k1 - target) / k1.numel())
+    torch.cuda.synchronize()
+    lrel = abs(float(loss) - float(ref_loss)) / float(ref_loss)
+    ratio2, leaf2, err2 = grads_err(ref2[:2], (gt, gc))
+    say("bwd", f"{name}: train_step_cuda vs trace_fwd + MSE + vjp_cuda: loss "
+        f"{float(loss):.6f} vs {float(ref_loss):.6f} (rel {lrel:.2e}, limit "
+        f"{LOSS_RTOL:g}); worst leaf {leaf2} = {ratio2:.3f} of its tolerance")
+    assert lrel <= LOSS_RTOL, f"{name}: fused loss disagrees"
+    assert ratio2 <= 1.0, f"{name}: fused gradients disagree"
+    return {"vjp_err_over_tol": ratio, "vjp_leaf": leaf, "vjp_err": err,
+            "masked_frac": float((~keep).float().mean()),
+            "fused_loss_rel": lrel, "fused_err_over_tol": ratio2,
+            "plain_ms": plain_ms}
+
+
+# --- phase 7 -----------------------------------------------------------------
+
+def train_path():
+    """Phase 7, the training path -> kernel launches on it."""
+    from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel
+    from euclider_tpu_torch.train import fit
+
+    cuda_kernel.LAUNCHES = cuda_bwd.LAUNCHES = 0
+    fused = fit.main(["--scene", "grad_probe", "--steps", str(TRAIN_STEPS)])
+    unfused = fit.main(["--scene", "grad_probe", "--steps", "2",
+                        "--backend", "cuda"])
+    launches = {"trace_fwd": cuda_kernel.LAUNCHES,
+                "trace_bwd": cuda_bwd.LAUNCHES}
+    losses = fused["losses"]
+    say("train", f"fused: losses {[round(x, 6) for x in losses]}, launches "
+        f"during the steps {fused['launches']}; sphere error "
+        f"{fused['error'][0]:.4f} -> {fused['error'][1]:.4f}")
+    say("train", f"unfused (--backend cuda): launches during the steps "
+        f"{unfused['launches']}; launches on the training path {launches}")
+    assert all(x == x and abs(x) != float("inf") for x in losses + unfused["losses"])
+    assert losses[-1] < losses[0], "the fused steps did not lower the loss"
+    assert fused["launches"]["trace_bwd"] >= TRAIN_STEPS
+    assert fused["launches"]["trace_fwd"] == 0, "the fused step rendered"
+    assert min(unfused["launches"].values()) >= 2, "an unfused kernel idled"
+    return launches, losses
+
+
+# --- phase 8 -----------------------------------------------------------------
+
+def device_ms(fn, keys, n=5):
+    """Mean device time of one launch of each kernel named in keys over n
+    calls of fn, from torch.profiler: over the launches it recorded (None
+    where it records none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            render()
+            fn()
         torch.cuda.synchronize()
-    evts = [e for e in prof.key_averages() if "trace_fwd_kernel" in e.key]
-    us = sum(getattr(e, "device_time_total", 0.0) for e in evts)
-    calls = sum(e.count for e in evts)
-    return us / calls / 1e3 if us > 0 and calls == n else None
+    out = {}
+    for key in keys:
+        evts = [e for e in prof.key_averages() if key in e.key]
+        us = sum(getattr(e, "device_time_total", 0.0) for e in evts)
+        calls = sum(e.count for e in evts)
+        out[key] = us / calls / 1e3 if us > 0 and calls else None
+    return out
+
+
+def events_ms(fn, device, warm=3):
+    from euclider_tpu_torch.cli import time_render
+    for _ in range(warm):
+        fn()
+    return time_render(fn, device, 5)
+
+
+def node_count(static, tables, cam):
+    """Ray-tree nodes the forward shades at each pixel (the primary node
+    included), counted by driving the plain version's loop -> [H, W]."""
+    import torch
+    from euclider_tpu_torch.ops import trace
+    dev = tables.surf_color.device
+    yi = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    xi = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
+    org, d = trace.camera_rays(cam, xi, yi, W, H)
+    ar, ag, ab, slots, sp = trace.bounce_init(static, tables, org, d)
+    nodes = torch.ones((H, W), dtype=torch.int32, device=dev)
+    if slots is not None:
+        body = trace.make_bounce_body(static, tables)
+        carry = (sp, ar, ag, ab, slots)
+        for _ in range(static.max_nodes - 1):
+            live = carry[0] > 0
+            if not bool(live.any()):
+                break
+            nodes += live.to(torch.int32)
+            carry = body(carry)
+    return nodes
+
+
+# FP32 operations of the kernels' code (trace_common.cuh), counted as one
+# per add, multiply, compare-free select, sqrt, rsqrt, divide or sine:
+CAMERA_OPS = 125          # camera_ray: 4 normalize, 3 projections, NDC
+SPHERE_TEST_OPS = 25      # nearest(): one sphere, both roots
+PLANE_TEST_OPS = 16       # nearest(): one plane
+MISS_OPS = 6              # the cheapest shading: w * background
+
+
+def bound(static, nodes, backward):
+    """Least time for the frame: the larger of 12 B/pixel (the image out,
+    or the cotangent or target in) over HBM bandwidth and a lower bound on
+    the FP32 operations over the FP32 peak.  The operations count only the
+    camera ray, every node's nearest-hit test over every entity and the
+    cheapest shading; the backward counts them twice more (its forward
+    sweep and the recompute of its reverse sweep) and no adjoint
+    arithmetic.  -> (ms, bound_by, ops)."""
+    test = sum(SPHERE_TEST_OPS if e.shape[0] == "sphere" else PLANE_TEST_OPS
+               for e in static.entities)
+    ops = H * W * CAMERA_OPS + nodes * (test + MISS_OPS)
+    if backward:
+        ops *= 2
+    t_ops = ops / PEAK_FP32 * 1e3
+    t_bytes = H * W * 12 / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                 else "bytes"), ops
 
 
 def timing(name, device, card):
-    """Phase 6 for one scene -> (kernel ms/frame, plain ms/frame, kernel
-    device ms).  A frame is one render call, timed by CUDA events around it,
-    so its time includes the wrapper's own launches and host work."""
-    from euclider_tpu_torch.cli import time_render
-    from euclider_tpu_torch.ops import cuda_kernel, trace
+    """Phase 8 for one scene."""
+    from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel, trace
+    from euclider_tpu_torch.train.inverse import (InverseParams,
+                                                  make_fused_value_and_grad)
 
     static, tables, cam = load(name, device)
     out = {}
-    for label, fn, warm in (("kernel", cuda_kernel.render_image_cuda, 3),
-                            ("plain", trace.render_image, 1)):
-        def render():
-            return fn(static, tables, cam, H, W)
-        for _ in range(warm):
-            render()
-        out[label] = time_render(render, device, 5)
-        say("time", f"{name} {label}: {out[label]:.3f} ms/frame, "
-            f"{H * W / out[label] / 1e3:.2f} Mrays/s at {W}x{H} "
-            f"(median of 5; {card})")
-    dev_ms = kernel_device_ms(
-        lambda: cuda_kernel.render_image_cuda(static, tables, cam, H, W))
-    say("time", f"{name} trace_fwd_kernel device time: "
-        + ("not measured (no profiler device time)" if dev_ms is None else
-           f"{dev_ms:.4f} ms/launch (torch.profiler, mean of 5; {card})"))
-    return out["kernel"], out["plain"], dev_ms
+
+    def fwd():
+        return cuda_kernel.render_image_cuda(static, tables, cam, H, W)
+
+    out["frame_ms"] = events_ms(fwd, device)
+    out["plain_frame_ms"] = events_ms(
+        lambda: trace.render_image(static, tables, cam, H, W), device, 1)
+    out["fwd_device_ms"] = device_ms(fwd, ["trace_fwd_kernel"])[
+        "trace_fwd_kernel"]
+    nodes = int(node_count(static, tables, cam).sum())
+    out["nodes_per_pixel"] = nodes / (H * W)
+    out["fwd_bound_ms"], out["fwd_bound_by"], _ = bound(static, nodes, False)
+    out["bwd_bound_ms"], out["bwd_bound_by"], _ = bound(static, nodes, True)
+    if name in BWD_SCENES:
+        target = seeded((H, W, 3), 2, device, "uniform")
+        params = InverseParams(tables, cam)
+        fused = make_fused_value_and_grad(static, H, W, "cuda-fused")
+        unfused = make_fused_value_and_grad(static, H, W, "cuda")
+        out["fused_step_ms"] = events_ms(lambda: fused(params, target),
+                                         device)
+        out["unfused_step_ms"] = events_ms(lambda: unfused(params, target),
+                                           device)
+        dev_ms = device_ms(lambda: fused(params, target),
+                           ["trace_bwd_kernel", "sum_partials_kernel"])
+        out["bwd_device_ms"] = dev_ms["trace_bwd_kernel"]
+        out["sum_device_ms"] = dev_ms["sum_partials_kernel"]
+        g = seeded((H, W, 3), 3, device)
+        out["vjp_device_ms"] = device_ms(
+            lambda: cuda_bwd.vjp_cuda(static, tables, cam, H, W, g),
+            ["trace_bwd_kernel"])["trace_bwd_kernel"]
+    for k, v in out.items():
+        if isinstance(v, float):
+            say("time", f"{name} {k}: {v:.4f}" + ("" if k == "nodes_per_pixel"
+                                                  else f" ({card})"))
+        else:
+            say("time", f"{name} {k}: {v}")
+    return out
 
 
 def main() -> int:
@@ -190,31 +491,56 @@ def main() -> int:
     print(card, flush=True)
 
     t0 = time.perf_counter()
-    lib = cuda_kernel.build()
-    say("build", f"{os.path.relpath(lib, ROOT)} in "
-        f"{time.perf_counter() - t0:.2f} s")
+    libs = cuda_kernel.build()
+    say("build", f"{', '.join(os.path.relpath(p, ROOT) for p in libs.values())}"
+        f" in {time.perf_counter() - t0:.2f} s")
 
-    errs = {name: kernel_vs_plain(name, device) for name in SCENES}
+    errs = {name: kernel_vs_plain(name, device) for name in SCENES + PROBES}
+    locate_diffs(SCENES[1], device, errs[SCENES[1]][2])
     goldens = np.load(os.path.join(ROOT, "tests", "goldens.npz"))
-    for name in SCENES:
+    for name in SCENES + PROBES:
         ground_truth(name, device, goldens)
-    launches = main_path(device)
-    times = {name: timing(name, device, card) for name in SCENES}
+    fwd_launches = main_path(device)
+    bwd = {name: backward_check(name, device) for name in BWD_SCENES}
+    train_launches, losses = train_path()
+    times = {name: timing(name, device, card)
+             for name in SCENES + ("grad_probe",)}
 
-    per_scene = {name: {"ms": times[name][0], "plain_ms": times[name][1],
-                        "kernel_device_ms": times[name][2],
-                        "max_abs_err": errs[name][0],
-                        "bad_frac": errs[name][1]} for name in SCENES}
-    print(json.dumps({"kernels": [{
+    gp, c2 = times["grad_probe"], times[SCENES[1]]
+    record = [{
         "name": "trace_fwd", "route": "cuda",
         "source": "euclider_tpu_torch/csrc/trace_fwd.cu",
         "replaces": "euclider_tpu/ops/pallas_kernel.py:127",
-        "launches": launches,
+        "launches": fwd_launches + train_launches["trace_fwd"],
         "max_abs_err": max(e[0] for e in errs.values()),
-        "ms": times[SCENES[0]][0], "plain_ms": times[SCENES[0]][1],
-        "ms_scene": SCENES[0], "shape": [H, W, 3],
-        "tolerance": {"atol": TOL, "max_bad_frac": MAX_BAD},
-        "card": card, "scenes": per_scene}]}), flush=True)
+        "ms": c2["fwd_device_ms"], "plain_ms": c2["plain_frame_ms"],
+        "bound_ms": c2["fwd_bound_ms"], "bound_by": c2["fwd_bound_by"],
+        "library_ms": None, "ms_scene": SCENES[1], "shape": [H, W, 3],
+        "tolerance": {"atol": TOL, "max_bad_frac": MAX_BAD}, "card": card,
+        "scenes": {n: {"frame_ms": t["frame_ms"],
+                       "device_ms": t["fwd_device_ms"],
+                       "plain_ms": t["plain_frame_ms"],
+                       "bound_ms": t["fwd_bound_ms"],
+                       "nodes_per_pixel": t["nodes_per_pixel"],
+                       "max_abs_err": errs[n][0], "bad_frac": errs[n][1]}
+                   for n, t in times.items()}}, {
+        "name": "trace_bwd", "route": "cuda",
+        "source": "euclider_tpu_torch/csrc/trace_bwd.cu",
+        "replaces": "euclider_tpu/ops/pallas_vjp.py:611 (fused, K2), "
+                    "euclider_tpu/ops/pallas_vjp.py:611 (plain, K3), "
+                    "euclider_tpu/ops/pallas_kernel.py:270 (K5)",
+        "launches": train_launches["trace_bwd"],
+        "max_abs_err": max(b["vjp_err"] for b in bwd.values()),
+        "ms": gp["bwd_device_ms"], "plain_ms": bwd["grad_probe"]["plain_ms"],
+        "bound_ms": gp["bwd_bound_ms"], "bound_by": gp["bwd_bound_by"],
+        "library_ms": None, "ms_scene": "grad_probe", "shape": [H, W, 3],
+        "tolerance": {"grad_rtol": GRAD_RTOL, "loss_rtol": LOSS_RTOL},
+        "card": card, "train_losses": losses,
+        "scenes": {n: dict(bwd[n], **{k: times[n][k] for k in (
+            "fused_step_ms", "unfused_step_ms", "bwd_device_ms",
+            "sum_device_ms", "vjp_device_ms", "bwd_bound_ms")})
+            for n in BWD_SCENES}}]
+    print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

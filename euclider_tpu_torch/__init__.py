@@ -4,7 +4,10 @@ The JAX package ``euclider_tpu`` beside it is the reference.  This package
 imports torch and never jax: it carries its own copy of the numpy scene front
 end (``scene/``), a plain batched-torch version of the trace loop
 (``ops/trace.py``) and the hand-written CUDA kernel that replaces the Pallas
-forward megakernel (``ops/cuda_kernel.py`` + ``csrc/trace_fwd.cu``).
+forward megakernel (``ops/cuda_kernel.py`` + ``csrc/trace_fwd.cu``), and
+the differentiable render and training step on the hand-written backward
+kernel that replaces the Pallas backward kernels (``ops/cuda_bwd.py`` +
+``csrc/trace_bwd.cu``; plain version ``ops/vjp.py``; ``train/``).
 
     import euclider_tpu_torch as et
     sc = et.get_scene("config2_mirror_glass")
@@ -12,12 +15,16 @@ forward megakernel (``ops/cuda_kernel.py`` + ``csrc/trace_fwd.cu``).
     tables = et.tables_to_torch(tables, "cuda")
     cam = et.camera_to_torch(et.compile_camera(sc.camera), "cuda")
     img = et.render_image(static, tables, cam, 720, 1280)   # [720, 1280, 3]
+    img = et.render_image_diff(static, tables, cam, 720, 1280)  # autograd
 """
 from .scene import ir
 from .scene.compile import (CameraParams, SceneStatic, SceneTables,
                             camera_to_torch, compile_camera, compile_scene,
                             tables_to_torch)
+from .ops.cuda_bwd import render_image_diff
 from .scene.library import ACCEPTANCE, get_scene
+from .train.inverse import (InverseParams, make_fused_value_and_grad,
+                            make_loss_fn, make_train_step)
 
 
 def render_image(static, tables, cam, H: int, W: int, time=0.0, y0: int = 0,

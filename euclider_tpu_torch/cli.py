@@ -7,8 +7,8 @@
 
 Backends: ``cuda`` (the CUDA kernel; needs a CUDA device, and fails rather
 than fall back when there is none or the kernel does not build) and
-``torch`` (the plain batched-torch version, on ``--device cpu`` or
-``cuda``).  ``--time`` prints the median ms/frame and Mrays/s (primary rays,
+``torch`` (the plain batched-torch version, on ``--device cuda``, the
+default, or ``cpu``).  ``--time`` prints the median ms/frame and Mrays/s (primary rays,
 H*W per frame), from CUDA events on a CUDA device.
 """
 from __future__ import annotations
@@ -44,9 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--size", default="640x480", help="WxH (default 640x480)")
     p.add_argument("--out", default="out.png", help="output PNG path")
     p.add_argument("--backend", default="cuda", choices=["cuda", "torch"])
-    p.add_argument("--device", default=None, choices=["cpu", "cuda"],
-                   help="tensor device (default: cuda for --backend cuda, "
-                        "cpu for --backend torch)")
+    p.add_argument("--device", default="cuda", choices=["cpu", "cuda"],
+                   help="tensor device (default cuda, for both backends)")
     p.add_argument("--time", action="store_true",
                    help=f"print the median ms/frame and Mrays/s over "
                         f"{TIME_FRAMES} frames")
@@ -106,7 +105,7 @@ def main(argv=None) -> int:
 
     args = build_parser().parse_args(argv)
     H, W = _parse_size(args.size)
-    device = args.device or ("cuda" if args.backend == "cuda" else "cpu")
+    device = args.device
     if args.backend == "cuda" and device != "cuda":
         raise SystemExit("error: --backend cuda renders on --device cuda")
     if device == "cuda" and not torch.cuda.is_available():

@@ -1,0 +1,406 @@
+// trace_common.cuh - the device code of one ray-tree node, shared by the
+// forward kernel (trace_fwd.cu) and the backward kernel (trace_bwd.cu).
+//
+// Both kernels shade nodes with these functions, so the backward's forward
+// sweep takes the branches the forward kernel took: a rounding that flips
+// a hit, a total internal reflection or a path-weight cut flips it in both.
+// Every expression keeps the arithmetic order of the JAX package
+// (euclider_tpu/ops/trace.py, geometry.py, shading.py, mathx.py) and of the
+// port's plain version (euclider_tpu_torch/ops/), so the kernels agree with
+// them to float32 rounding.  Compiled without --use_fast_math: sqrtf,
+// division, floorf and sinf stay IEEE float32 / full-range libm.
+//
+// Supported: sphere, half-space and hyperplane leaves with their UV maps;
+// uniform, checker and smooth surfaces; vacuum and dielectric materials.
+// The Python wrappers refuse every other feature before launching.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cstdint>
+
+namespace trace {
+
+constexpr int MAX_SLOTS = 16;     // DFS stack capacity (max_depth + 1 <= 16)
+constexpr float EPS_T = 1e-4f;    // minimum accepted hit distance
+constexpr float PUSH = 1e-3f;     // offset of a secondary ray's origin
+constexpr float W_EPS = 1e-4f;    // path-weight cutoff for a push
+
+// codes of oracle/native_oracle.py NODE_KINDS / SURF_KINDS
+constexpr int NODE_SPHERE = 0;
+constexpr int NODE_HYPERPLANE = 1;
+constexpr int SURF_UNIFORM = 0;
+constexpr int SURF_CHECKER = 1;
+constexpr int SURF_SMOOTH = 2;
+
+constexpr float PI_F = 3.141592653589793f;
+constexpr float HALF_PI_F = 1.5707963267948966f;
+constexpr float TWO_PI_F = 6.283185307179586f;
+constexpr float INV_TWO_PI_F = (float)(0.5 / 3.141592653589793);
+constexpr float CZ_LO = (float)(-1.0 + 1e-6);   // pole clip of sphere UV
+constexpr float CZ_HI = (float)(1.0 - 1e-6);
+
+struct V4 {
+    float x, y, z, w;
+};
+
+__device__ __forceinline__ V4 add(V4 a, V4 b) {
+    return {a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w};
+}
+__device__ __forceinline__ V4 sub(V4 a, V4 b) {
+    return {a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w};
+}
+__device__ __forceinline__ V4 scale(V4 a, float s) {
+    return {a.x * s, a.y * s, a.z * s, a.w * s};
+}
+__device__ __forceinline__ V4 madd(V4 a, float s, V4 b) {  // a + s * b
+    return {a.x + s * b.x, a.y + s * b.y, a.z + s * b.z, a.w + s * b.w};
+}
+__device__ __forceinline__ float dot(V4 a, V4 b) {
+    return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+__device__ __forceinline__ V4 normalize(V4 a) {
+    return scale(a, rsqrtf(dot(a, a) + 1e-20f));
+}
+__device__ __forceinline__ V4 load4(const float* p) {
+    return {p[0], p[1], p[2], p[3]};
+}
+__device__ __forceinline__ V4 axis(int i) {
+    return {i == 0 ? 1.0f : 0.0f, i == 1 ? 1.0f : 0.0f,
+            i == 2 ? 1.0f : 0.0f, i == 3 ? 1.0f : 0.0f};
+}
+__device__ __forceinline__ float comp(V4 a, int i) {
+    return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
+}
+
+// --- ops/mathx.py: the polynomial atan family -----------------------------
+
+// the coefficients of mathx._ATAN_COEFFS, lowest order first
+#define TRACE_ATAN_COEFFS                                                  \
+    9.999999975460e-01f, -3.333328229551e-01f, 1.999823064038e-01f,       \
+        -1.426157368032e-01f, 1.094019896528e-01f, -8.372063948415e-02f,  \
+        5.746355785479e-02f, -3.071750891086e-02f, 1.068071944976e-02f,   \
+        -1.743701144660e-03f
+
+// atan on |x| <= 1: x * P(x^2), Horner from the highest coefficient
+__device__ __forceinline__ float atan_core(float x) {
+    constexpr float C[10] = {TRACE_ATAN_COEFFS};
+    const float t = x * x;
+    float acc = C[9];
+#pragma unroll
+    for (int i = 8; i >= 0; --i) acc = acc * t + C[i];
+    return x * acc;
+}
+__device__ __forceinline__ float atan_p(float x) {
+    const float ax = fabsf(x);
+    const bool big = ax > 1.0f;
+    const float inv = 1.0f / (big ? ax : 1.0f);
+    const float core = atan_core(big ? inv : ax);
+    const float res = big ? HALF_PI_F - core : core;
+    return x < 0.0f ? -res : res;
+}
+__device__ __forceinline__ float atan2_p(float y, float x) {
+    const float safe_x = x == 0.0f ? 1.0f : x;
+    const float base = atan_p(y / safe_x);
+    if (x > 0.0f) return base;
+    if (x < 0.0f) return base + (y < 0.0f ? -PI_F : PI_F);
+    return y == 0.0f ? 0.0f : (y < 0.0f ? -HALF_PI_F : HALF_PI_F);
+}
+__device__ __forceinline__ float acos_p(float x) {  // callers clip |x| < 1
+    const float s = sqrtf(fmaxf(1.0f - x * x, 1e-12f));
+    return HALF_PI_F - atan_p(x / s);
+}
+
+// --- the scene --------------------------------------------------------------
+
+struct Scene {
+    const int32_t *ent_root, *ent_mat, *ent_surf;  // per entity
+    const int32_t *node_kind, *node_row;           // per shape node
+    const int32_t *surf_kind;                      // per surface
+    const float *shape_vec, *shape_sc;             // [S, 4], [S]
+    const float *mat_ior;                          // [M]
+    const float *surf_color, *surf_color2;         // [U, 4]
+    const float *surf_refl, *surf_fresnel, *surf_uv_scale;  // [U]
+    const float *background;                       // [3]
+    int n_ent, ambient, max_depth, max_nodes, dim;
+    float t_max;
+};
+
+struct Slot {  // one deferred branch of the ray tree
+    V4 org, dir;
+    float w;
+    int mat, depth;
+    int parent, branch;  // the node that pushed it; 0 transmit, 1 reflect
+};
+
+// The discrete decisions of one shaded node: what the backward sweep must
+// not decide again.
+struct NodeRec {
+    int ent;    // winning entity, -1 on a miss
+    int root;   // which sphere root won (0: -b - sq, 1: -b + sq)
+    int flip;   // the normal was turned against the ray
+    int m_to;   // material past the surface (transmission only)
+};
+
+// Two orthonormal tangents of a plane: Gram-Schmidt the coordinate axes of
+// the two smallest |n| components among the first dim (strict '<' argmin).
+__device__ __forceinline__ void tangent_axes(V4 n, int dim, int* a, int* b) {
+    const float big = 1e9f;
+    const float c[4] = {fabsf(n.x), fabsf(n.y), fabsf(n.z), fabsf(n.w)};
+    *a = 0;
+    *b = 0;
+    float best = big + 1.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float v = i < dim ? c[i] : big;
+        if (v < best) { best = v; *a = i; }
+    }
+    best = big + 1.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float v = (i < dim && i != *a) ? c[i] : big;
+        if (v < best) { best = v; *b = i; }
+    }
+}
+
+__device__ __forceinline__ void tangent_frame(V4 n, int dim, V4* t1, V4* t2) {
+    int a, b;
+    tangent_axes(n, dim, &a, &b);
+    const V4 ea = axis(a), eb = axis(b);
+    *t1 = normalize(madd(ea, -dot(n, ea), n));
+    const V4 t = madd(eb, -dot(n, eb), n);
+    *t2 = normalize(madd(t, -dot(*t1, t), *t1));
+}
+
+__device__ __forceinline__ bool member(const Scene& s, int node, V4 p) {
+    const int row = s.node_row[node];
+    const V4 c = load4(s.shape_vec + 4 * row);
+    const float sc = s.shape_sc[row];
+    switch (s.node_kind[node]) {
+        case NODE_SPHERE: { const V4 q = sub(p, c); return dot(q, q) < sc * sc; }
+        case NODE_HYPERPLANE: return false;
+        default: return dot(c, p) < sc;  // half-space
+    }
+}
+
+// first entity (scene order) containing p, else the ambient material
+__device__ __forceinline__ int material_at(const Scene& s, V4 p) {
+    for (int e = 0; e < s.n_ent; ++e)
+        if (member(s, s.ent_root[e], p)) return s.ent_mat[e];
+    return s.ambient;
+}
+
+struct Hit {
+    float t;
+    int ent, root;
+};
+
+// Nearest valid boundary crossing over the entities: strict '<' in entity
+// order, then root order, within (EPS_T, t_max).
+__device__ __forceinline__ Hit nearest(const Scene& s, V4 o, V4 d) {
+    Hit h{s.t_max, -1, 0};
+    for (int e = 0; e < s.n_ent; ++e) {
+        const int node = s.ent_root[e];
+        const int row = s.node_row[node];
+        const V4 c = load4(s.shape_vec + 4 * row);
+        const float sc = s.shape_sc[row];
+        if (s.node_kind[node] == NODE_SPHERE) {
+            const V4 oc = sub(o, c);
+            const float b = dot(oc, d);
+            const float q = dot(oc, oc) - sc * sc;
+            const float disc = b * b - q;
+            if (!(disc > 0.0f)) continue;
+            const float sq = sqrtf(disc);
+            const float ts[2] = {-b - sq, -b + sq};
+#pragma unroll
+            for (int k = 0; k < 2; ++k) {
+                if (ts[k] > EPS_T && ts[k] < s.t_max && ts[k] < h.t) {
+                    h.t = ts[k];
+                    h.ent = e;
+                    h.root = k;
+                }
+            }
+            continue;
+        }
+        const float nd = dot(c, d);
+        if (!(fabsf(nd) > 1e-12f)) continue;
+        const float tp = (sc - dot(c, o)) / nd;
+        if (tp > EPS_T && tp < s.t_max && tp < h.t) {
+            h.t = tp;
+            h.ent = e;
+            h.root = 0;
+        }
+    }
+    return h;
+}
+
+// Longitude/latitude of p on the sphere centred at c, with the pole guards
+// of geometry.py::leaf_uv (the atan2 guard and the 1e-6 clip).
+__device__ __forceinline__ void sphere_uv(V4 p, V4 c, float* u, float* v) {
+    const V4 loc = sub(p, c);
+    const float safe_x = (fabsf(loc.x) + fabsf(loc.y)) < 1e-12f ? 1.0f : loc.x;
+    *u = atan2_p(loc.y, safe_x) * INV_TWO_PI_F + 0.5f;
+    const float rlen = sqrtf(dot(loc, loc));
+    const float cz = fminf(fmaxf(loc.z / fmaxf(rlen, 1e-12f), CZ_LO), CZ_HI);
+    *v = acos_p(cz) / PI_F;
+}
+
+// Unoriented unit normal and UV of entity ent at the point p of its surface
+// (UV only where the surface reads it: zero on a uniform surface).
+__device__ __forceinline__ void surface_at(const Scene& s, int ent, V4 p,
+                                           V4* n, float* u, float* v) {
+    const int node = s.ent_root[ent];
+    const int row = s.node_row[node];
+    const V4 c = load4(s.shape_vec + 4 * row);
+    const bool sphere = s.node_kind[node] == NODE_SPHERE;
+    *n = sphere ? normalize(sub(p, c)) : c;
+    *u = 0.0f;
+    *v = 0.0f;
+    if (s.surf_kind[s.ent_surf[ent]] == SURF_UNIFORM) return;
+    if (sphere) {
+        sphere_uv(p, c, u, v);
+    } else {
+        V4 t1, t2;
+        tangent_frame(c, s.dim, &t1, &t2);
+        *u = dot(p, t1);
+        *v = dot(p, t2);
+    }
+}
+
+// Smooth surface: f = 1/4 (1 + sin 2 pi u sc)(1 + sin 2 pi v sc).
+__device__ __forceinline__ float smooth_f(float u, float v, float sc) {
+    return 0.25f * (1.0f + sinf(TWO_PI_F * u * sc))
+                 * (1.0f + sinf(TWO_PI_F * v * sc));
+}
+
+// RGBA of surface sf at (u, v).
+__device__ __forceinline__ void surface_color(const Scene& s, int sf, float u,
+                                              float v, float col[4]) {
+    const float* c1 = s.surf_color + 4 * sf;
+    const float* c2 = s.surf_color2 + 4 * sf;
+    const int kind = s.surf_kind[sf];
+    if (kind == SURF_SMOOTH) {
+        const float f = smooth_f(u, v, s.surf_uv_scale[sf]);
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch) col[ch] = c1[ch] + (c2[ch] - c1[ch]) * f;
+        return;
+    }
+    const float* pick = c1;
+    if (kind == SURF_CHECKER) {
+        const float uvs = s.surf_uv_scale[sf];
+        const float sum = floorf(u * uvs) + floorf(v * uvs);
+        // floor-mod, the sign of the divisor: fmodf would give -1 for a
+        // negative odd sum and pick the wrong colour
+        const float par = sum - 2.0f * floorf(sum * 0.5f);
+        if (par >= 0.5f) pick = c2;
+    }
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) col[ch] = pick[ch];
+}
+
+__device__ __forceinline__ void push(Slot* stack, int* sp, V4 org, V4 dir,
+                                     float w, int mat, int depth, int parent,
+                                     int branch) {
+    if (*sp < MAX_SLOTS)
+        stack[*sp] = Slot{org, dir, w, mat, depth, parent, branch};
+    ++*sp;
+}
+
+// Shade one DFS node: accumulate its colour term into acc and push up to
+// two children (transmission first, then reflection).  `self` is the
+// node's index in shading order (the children's parent); rec, when given,
+// receives the node's discrete decisions.
+__device__ __forceinline__ void shade(const Scene& s, const Slot& r, int self,
+                                      float acc[3], Slot* stack, int* sp,
+                                      NodeRec* rec) {
+    const Hit h = nearest(s, r.org, r.dir);
+    if (rec) *rec = NodeRec{h.ent, h.root, 0, 0};
+    if (h.ent < 0) {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) acc[ch] += r.w * s.background[ch];
+        return;
+    }
+    const V4 d = r.dir;
+    const V4 p = madd(r.org, h.t, d);
+    V4 n;
+    float u, v;
+    surface_at(s, h.ent, p, &n, &u, &v);
+    if (dot(n, d) > 0.0f) {
+        n = scale(n, -1.0f);
+        if (rec) rec->flip = 1;
+    }
+
+    const int sf = s.ent_surf[h.ent];
+    float col[4];
+    surface_color(s, sf, u, v, col);
+    const float alpha = col[3];
+    float refl = s.surf_refl[sf];
+    const float fres = s.surf_fresnel[sf];
+    if (fres != 0.0f) {  // fres == 0 leaves refl unchanged exactly
+        const float cos_i = fminf(fmaxf(-dot(d, n), 0.0f), 1.0f);
+        const float m1 = 1.0f - cos_i;
+        const float m2 = m1 * m1;
+        refl = refl + (1.0f - refl) * fres * (m2 * m2 * m1);
+    }
+    const float lw = r.w * (1.0f - refl) * alpha;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) acc[ch] += lw * col[ch];
+    if (r.depth < 2) return;
+
+    const float w_t = r.w * (1.0f - refl) * (1.0f - alpha);
+    if (w_t > W_EPS) {
+        const int m_to = material_at(s, madd(p, PUSH, d));
+        if (rec) rec->m_to = m_to;
+        const float eta = s.mat_ior[r.mat] / s.mat_ior[m_to];
+        const float cos_i = -dot(d, n);
+        const float k = 1.0f - eta * eta * (1.0f - cos_i * cos_i);
+        if (k > 0.0f) {  // else total internal reflection: no transmission
+            const float coef = eta * cos_i - sqrtf(k);
+            const V4 td = normalize({eta * d.x + coef * n.x,
+                                     eta * d.y + coef * n.y,
+                                     eta * d.z + coef * n.z,
+                                     eta * d.w + coef * n.w});
+            push(stack, sp, madd(p, PUSH, td), td, w_t, m_to, r.depth - 1,
+                 self, 0);
+        }
+    }
+    const float w_r = r.w * refl;
+    if (w_r > W_EPS) {
+        const float k = 2.0f * dot(d, n);
+        const V4 rd = {d.x - k * n.x, d.y - k * n.y, d.z - k * n.z,
+                       d.w - k * n.w};
+        push(stack, sp, madd(p, PUSH, rd), rd, w_r, r.mat, r.depth - 1, self,
+             1);
+    }
+}
+
+// The camera row of pallas_kernel._pack_camera: position [0:4], forward
+// [4:8], up [8:12], right [12:16], tan_half_fov [16], time [17], y0 [18].
+struct CamFrame {
+    V4 f, rt, uu;
+    float ndx, ndy;
+};
+
+// Pinhole ray direction of pixel (x, y) of the slab, with the camera frame
+// re-orthonormalised (Gram-Schmidt) as ops/trace.py::camera_rays does.
+__device__ __forceinline__ V4 camera_ray(const float* cam, int x, int y,
+                                         int H, int W, CamFrame* fr) {
+    const V4 f = normalize(load4(cam + 4));
+    const V4 up = load4(cam + 8), r0 = load4(cam + 12);
+    const V4 rt = normalize(madd(r0, -dot(r0, f), f));
+    const V4 u1 = madd(up, -dot(up, f), f);
+    const V4 uu = normalize(madd(u1, -dot(u1, rt), rt));
+    const float thf = cam[16];
+    const float aspect = (float)((double)W / (double)H);
+    const float xi = (float)x;
+    const float yi = (float)y + cam[18];
+    const float ndx = ((xi + 0.5f) / (float)W * 2.0f - 1.0f) * (aspect * thf);
+    const float ndy = (1.0f - (yi + 0.5f) / (float)H * 2.0f) * thf;
+    if (fr) *fr = CamFrame{f, rt, uu, ndx, ndy};
+    return normalize({f.x + ndx * rt.x + ndy * uu.x,
+                      f.y + ndx * rt.y + ndy * uu.y,
+                      f.z + ndx * rt.z + ndy * uu.z,
+                      f.w + ndx * rt.w + ndy * uu.w});
+}
+
+}  // namespace trace

@@ -1,0 +1,184 @@
+"""The backward render as a hand-written CUDA kernel (``csrc/trace_bwd.cu``).
+
+Counterpart of three Pallas kernels of the JAX package that compute the
+reverse-mode VJP of the render: ``pallas_vjp.py::_ckpt_kernel`` plain (K3,
+``vjp_pallas_ckpt``) and ``pallas_kernel.py::_bwd_kernel`` (K5,
+``vjp_pallas``) become ``vjp_cuda``; ``_ckpt_kernel`` fused (K2,
+``train_step_pallas``) becomes ``train_step_cuda``.  One kernel serves both,
+in two modes, and shallow and deep trees alike, so there is no routing
+between K3 and K5.  ``render_image_diff`` is the port of
+``render_image_pallas_diff``: the forward kernel, then ``vjp_cuda``.
+
+The wrappers take CUDA tensors only and never fall back: on any other
+device they raise.  The plain version is ``ops/vjp.py::vjp_blocked``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..scene.compile import CameraParams
+from . import cuda_kernel as CK
+from .cuda_kernel import FLOAT_FIELDS
+from .vjp import zero_grads
+
+LAUNCHES = 0       # launches of trace_bwd made by vjp_cuda / train_step_cuda
+
+MAX_TAPE = 63      # nodes a pixel's tape holds (trace_bwd.cu)
+MAX_PARAMS = 160   # gradient entries a thread holds, loss included
+BLOCK = (32, 8)    # the kernel's block: one row of partial sums per block
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The backward kernel's C entry point, built and loaded once."""
+    fn = ctypes.CDLL(CK.build(("trace_bwd",))["trace_bwd"]).euclider_trace_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
+                   + [ctypes.c_float] + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _device(tables, what):
+    device = tables.surf_color.device
+    if device.type != "cuda":
+        raise ValueError(f"{what} takes tables on a CUDA device, got "
+                         f"{device}; ops.vjp.vjp_blocked is the plain "
+                         "version")
+    return device
+
+
+def _launch(static, floats, cam_row, H, W, rows, gin, norm, fused):
+    """Run trace_bwd on the slab -> the flat gradient vector [P + 1]: the
+    camera row (24), the float tables in FLOAT_FIELDS order, the loss."""
+    global LAUNCHES
+    device = cam_row.device
+    if static.max_nodes > MAX_TAPE:
+        raise ValueError(f"max_nodes {static.max_nodes} exceeds the backward "
+                         f"kernel's tape of {MAX_TAPE} nodes")
+    S, M, U = (floats[0].shape[0], floats[2].shape[0], floats[3].shape[0])
+    n = 24 + sum(t.numel() for t in floats) + 1
+    if n > MAX_PARAMS:
+        raise ValueError(f"the scene has {n - 1} parameters; the backward "
+                         f"kernel holds {MAX_PARAMS - 1}")
+    if tuple(gin.shape) != (rows, W, 3):
+        raise ValueError(f"{'target' if fused else 'cotangent'} shape "
+                         f"{tuple(gin.shape)} != {(rows, W, 3)}")
+    gin = gin.detach().to(device=device, dtype=torch.float32).contiguous()
+    ints, offsets = CK._scene_ints(static, device)
+    n_blocks = -(-W // BLOCK[0]) * -(-rows // BLOCK[1])
+    partials = torch.empty(n * n_blocks, dtype=torch.float32, device=device)
+    out = torch.zeros(n, dtype=torch.float32, device=device)
+    cam_row = cam_row.detach().contiguous()
+    rc = _entry()(*(ints.data_ptr() + 4 * o for o in offsets),
+                  *(t.data_ptr() for t in floats), cam_row.data_ptr(),
+                  len(static.entities), static.ambient, static.max_depth,
+                  static.max_nodes, static.dim, static.t_max, S, M, U, H, W,
+                  rows, gin.data_ptr(), float(norm), int(fused),
+                  partials.data_ptr(), partials.numel(), out.data_ptr(),
+                  device.index, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"trace_bwd launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    return out
+
+
+def _split(flat, floats):
+    """Flat gradient -> (d_cam_row [24], [d_table per FLOAT_FIELDS], loss)."""
+    parts, i = [], 24
+    for t in floats:
+        parts.append(flat[i:i + t.numel()].view(t.shape))
+        i += t.numel()
+    return flat[:24], parts, flat[i]
+
+
+def _grads(static, tables, cam, flat, floats):
+    """(d_tables, d_cam, d_time, loss) with shapes matching the primals:
+    the inverse of _pack_camera and of the table order on the cotangents
+    (pallas_kernel._grads_from_rows).  y0 gets no gradient."""
+    dc, dts, loss = _split(flat, floats)
+    d_tables, _ = zero_grads(tables, cam)
+    d_tables = d_tables._replace(**dict(zip(FLOAT_FIELDS, dts)))
+    d_cam = CameraParams(position=dc[0:4].view_as(cam.position),
+                         forward=dc[4:8].view_as(cam.forward),
+                         up=dc[8:12].view_as(cam.up),
+                         right=dc[12:16].view_as(cam.right),
+                         tan_half_fov=dc[16].view_as(cam.tan_half_fov))
+    return d_tables, d_cam, dc[17], loss
+
+
+def vjp_cuda(static, tables, cam, H: int, W: int, g, time=0.0, y0: int = 0,
+             rows: int | None = None):
+    """VJP of the render of rows [y0, y0 + rows) of the H x W frame under
+    the cotangent ``g`` [rows or H, W, 3] -> (d_tables, d_cam, d_time),
+    through trace_bwd in vjp mode (K3/K5)."""
+    device = _device(tables, "vjp_cuda")
+    R = H if rows is None else rows
+    floats = CK._check_tables(static, tables, device)
+    cam_row = CK._pack_camera(cam, time, y0, device)
+    flat = _launch(static, floats, cam_row, H, W, R, g, 0.0, False)
+    return _grads(static, tables, cam, flat, floats)[:3]
+
+
+def train_step_cuda(static, tables, cam, target, H: int, W: int, time=0.0,
+                    y0: int = 0, rows: int | None = None, norm=None):
+    """The whole gradient of a training step in one launch of trace_bwd in
+    fused mode (K2): render rows [y0, y0 + rows), the loss
+    ``norm * sum((img - target)^2)`` and its gradients.  ``norm`` defaults
+    to 1/(H*W*3), the mean over the full frame.  -> (loss, d_tables, d_cam,
+    d_time)."""
+    device = _device(tables, "train_step_cuda")
+    R = H if rows is None else rows
+    if norm is None:
+        norm = 1.0 / (H * W * 3)
+    floats = CK._check_tables(static, tables, device)
+    cam_row = CK._pack_camera(cam, time, y0, device)
+    flat = _launch(static, floats, cam_row, H, W, R, target, norm, True)
+    d_tables, d_cam, d_time, loss = _grads(static, tables, cam, flat, floats)
+    return loss, d_tables, d_cam, d_time
+
+
+class RenderImageFn(torch.autograd.Function):
+    """Differentiable render on the card: trace_fwd forward, trace_bwd
+    (vjp mode) backward.  Inputs: the 24-float camera row (built with
+    differentiable torch ops, so autograd maps its cotangent back to the
+    camera and time) and the float tables in FLOAT_FIELDS order."""
+
+    @staticmethod
+    def forward(ctx, static, H, W, rows, cam_row, *floats):
+        ctx.static, ctx.shape = static, (H, W, rows)
+        ctx.save_for_backward(cam_row, *floats)
+        return CK.launch_forward(static, list(floats), cam_row, H, W, rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        cam_row, *floats = ctx.saved_tensors
+        H, W, rows = ctx.shape
+        flat = _launch(ctx.static, floats, cam_row, H, W, rows, g, 0.0,
+                       False)
+        d_cam_row, d_tables, _ = _split(flat, floats)
+        return (None, None, None, None, d_cam_row, *d_tables)
+
+
+def render_image_diff(static, tables, cam, H: int, W: int, time=0.0,
+                      y0: int = 0, rows: int | None = None) -> torch.Tensor:
+    """Differentiable render of rows [y0, y0 + rows) -> [rows or H, W, 3].
+
+    CUDA tables: the forward kernel, with ``vjp_cuda``'s kernel as its
+    backward.  CPU tables: the plain render with ``differentiable=True``
+    under autograd.  Gradients reach the float tables, the camera and
+    ``time``; ``y0`` is a frame coordinate and gets none."""
+    device = tables.surf_color.device
+    R = H if rows is None else rows
+    if device.type != "cuda":
+        from .trace import render_image
+        return render_image(static, tables, cam, H, W, time, y0, R,
+                            differentiable=True)
+    floats = CK._check_tables(static, tables, device)
+    cam_row = CK._pack_camera(cam, time, y0, device)
+    return RenderImageFn.apply(static, H, W, R, cam_row, *floats)

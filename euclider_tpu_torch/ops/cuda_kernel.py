@@ -1,10 +1,12 @@
-"""The forward render as a hand-written CUDA kernel (``csrc/trace_fwd.cu``).
+"""The forward render as a hand-written CUDA kernel (``csrc/trace_fwd.cu``),
+and the build of every CUDA source of the package.
 
 Counterpart of ``euclider_tpu/ops/pallas_kernel.py`` (``_kernel`` launched
-by ``render_image_pallas``).  The kernel is compiled with nvcc for
+by ``render_image_pallas``).  Each source is compiled with nvcc for
 ``sm_90a`` into a shared library with a plain C entry point, on first use,
-into ``euclider_tpu_torch/build/`` (rebuilt when the source or the flags
-change), and called through ctypes on PyTorch's current stream.
+into ``euclider_tpu_torch/build/`` (rebuilt when the source, the shared
+header or the flags change), and called through ctypes on PyTorch's
+current stream.
 
 The scene is passed as data: ``encode_scene`` flattens the static topology
 into int32 arrays (the node encoding of ``oracle/native_oracle.py``, so the
@@ -28,51 +30,73 @@ import torch
 from ..oracle.native_oracle import SURF_KINDS, _encode_nodes
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "trace_fwd.cu")
+CSRC = os.path.join(_PKG, "csrc")
+SOURCES = {"trace_fwd": os.path.join(CSRC, "trace_fwd.cu"),
+           "trace_bwd": os.path.join(CSRC, "trace_bwd.cu")}
+HEADERS = (os.path.join(CSRC, "trace_common.cuh"),)
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-MAX_SLOTS = 16     # the kernel's DFS stack capacity (trace_fwd.cu)
+MAX_SLOTS = 16     # the kernels' DFS stack capacity (trace_common.cuh)
 
 LAUNCHES = 0       # kernel launches made by render_image_cuda
 
-# float tables the kernel reads, in its argument order
-_FLOAT_FIELDS = ("shape_vec", "shape_sc", "mat_ior", "surf_color",
-                 "surf_color2", "surf_refl", "surf_fresnel", "surf_uv_scale",
-                 "background")
+# float tables the kernels read, in their argument order
+FLOAT_FIELDS = ("shape_vec", "shape_sc", "mat_ior", "surf_color",
+                "surf_color2", "surf_refl", "surf_fresnel", "surf_uv_scale",
+                "background")
 
 
 def _nvcc() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     return nvcc
 
 
-def build() -> str:
-    """Compile ``csrc/trace_fwd.cu`` if needed; returns the library path.
+def _library(name: str) -> str:
+    """Path of the library built from SOURCES[name].  Its name carries a
+    hash of the source, the shared header and the flags, so an edit to any
+    of them builds anew and never loads a stale library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (SOURCES[name],) + HEADERS:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
-    The library's name carries a hash of the source and the flags, so an
-    edit builds anew and never loads a stale library."""
-    with open(SOURCE, "rb") as f:
-        tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                             ).hexdigest()
-    lib = os.path.join(BUILD_DIR, f"libtrace_fwd-{tag[:16]}.so")
-    if not os.path.exists(lib):
+
+def build(names=tuple(SOURCES)) -> dict:
+    """Compile the named sources that are not built yet, one nvcc process
+    each, all started together; returns {name: library path}.  Raises with
+    nvcc's message when a build fails."""
+    libs = {n: _library(n) for n in names}
+    todo = {n: lib for n, lib in libs.items() if not os.path.exists(lib)}
+    if todo:
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = os.path.join(BUILD_DIR, f"tmp-{os.getpid()}-{tag[:16]}.so")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, lib)
-    return lib
+        nvcc = _nvcc()
+        procs = {}
+        for n, lib in todo.items():
+            tmp = f"{lib[:-3]}-tmp{os.getpid()}.so"
+            procs[n] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCES[n]],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        errors = []
+        for n, (tmp, proc) in procs.items():
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed on {SOURCES[n]}:\n{err}")
+            else:
+                os.replace(tmp, todo[n])
+        if errors:
+            raise RuntimeError("\n".join(errors))
+    return libs
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
-    """The kernel's C entry point, built and loaded once per process."""
-    fn = ctypes.CDLL(build()).euclider_trace_fwd
+    """The forward kernel's C entry point, built and loaded once per
+    process."""
+    fn = ctypes.CDLL(build(("trace_fwd",))["trace_fwd"]).euclider_trace_fwd
     fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
                    + [ctypes.c_float] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
@@ -94,7 +118,7 @@ def encode_scene(static):
                 f"the CUDA kernel does not render {kind!r} materials "
                 "(warped or expression space) yet")
     for kind in static.surf_kinds:
-        if kind not in ("uniform", "checker"):
+        if kind not in ("uniform", "checker", "smooth"):
             raise NotImplementedError(
                 f"the CUDA kernel does not render {kind!r} surfaces yet")
     for e in static.entities:
@@ -107,10 +131,6 @@ def encode_scene(static):
         if e.shape[0] not in ("sphere", "halfspace", "hyperplane"):
             raise NotImplementedError(
                 f"the CUDA kernel does not render CSG ({e.shape[0]!r}) yet")
-        if e.shape[0] == "sphere" and static.surf_kinds[e.surface] != "uniform":
-            raise NotImplementedError(
-                "the CUDA kernel does not render sphere UV (a non-uniform "
-                "sphere surface) yet")
     if static.max_depth + 1 > MAX_SLOTS:
         raise ValueError(f"max_depth {static.max_depth} needs "
                          f"{static.max_depth + 1} stack slots; the CUDA "
@@ -156,7 +176,7 @@ def _check_tables(static, tables, device):
               "surf_uv_scale": (len(static.surf_kinds),),
               "background": (3,)}
     out = []
-    for name in _FLOAT_FIELDS:
+    for name in FLOAT_FIELDS:
         t = getattr(tables, name)
         if t.device != device or t.dtype != torch.float32:
             raise ValueError(f"tables.{name}: the CUDA kernel takes float32 "
@@ -168,6 +188,27 @@ def _check_tables(static, tables, device):
     return out
 
 
+def launch_forward(static, floats, cam_row, H: int, W: int,
+                   rows: int) -> torch.Tensor:
+    """Launch trace_fwd on the slab with checked float tables (in
+    FLOAT_FIELDS order) and a camera row -> [rows, W, 3]."""
+    global LAUNCHES
+    device = cam_row.device
+    ints, offsets = _scene_ints(static, device)
+    out = torch.empty((rows, W, 3), dtype=torch.float32, device=device)
+    rc = _entry()(*(ints.data_ptr() + 4 * o for o in offsets),
+                  *(t.data_ptr() for t in floats),
+                  cam_row.detach().contiguous().data_ptr(),
+                  len(static.entities), static.ambient, static.max_depth,
+                  static.max_nodes, static.dim, static.t_max, H, W, rows,
+                  out.data_ptr(), device.index,
+                  torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"trace_fwd launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    return out
+
+
 def render_image_cuda(static, tables, cam, H: int, W: int, time=0.0,
                       y0: int = 0, rows: int | None = None) -> torch.Tensor:
     """Render rows [y0, y0 + rows) of the H x W frame with the CUDA kernel
@@ -175,28 +216,12 @@ def render_image_cuda(static, tables, cam, H: int, W: int, time=0.0,
 
     Takes CUDA tensors only: on any other device it raises, and it never
     falls back to the plain version."""
-    global LAUNCHES
     device = tables.surf_color.device
     if device.type != "cuda":
         raise ValueError("render_image_cuda takes tables on a CUDA device, "
                          f"got {device}; ops.trace.render_image is the plain "
                          "version")
-    R = H if rows is None else rows
-    ints, (o_root, o_mat, o_surf, o_kind, o_row, o_skind) = _scene_ints(
-        static, device)
     floats = _check_tables(static, tables, device)
     cam_row = _pack_camera(cam, time, y0, device)
-    out = torch.empty((R, W, 3), dtype=torch.float32, device=device)
-    fn = _entry()
-    base = ints.data_ptr()
-    int_ptrs = [base + 4 * o for o in (o_root, o_mat, o_surf, o_kind, o_row,
-                                       o_skind)]
-    rc = fn(*int_ptrs, *(t.data_ptr() for t in floats), cam_row.data_ptr(),
-            len(static.entities), static.ambient, static.max_depth,
-            static.max_nodes, static.dim, static.t_max, H, W, R,
-            out.data_ptr(), device.index,
-            torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"trace_fwd launch failed: cudaError {rc}")
-    LAUNCHES += 1
-    return out
+    return launch_forward(static, floats, cam_row, H, W,
+                          H if rows is None else rows)

@@ -1,15 +1,16 @@
 """Primitive geometry on batched torch Vecs.
 
-Port of ``euclider_tpu/ops/geometry.py`` for the primitives the first slice
-renders: spheres, half-spaces and hyperplanes.  Shape nodes are the static
-tuples of ``scene.compile`` (``('sphere', row)`` ...); parameters come from
-SceneTables by static row.  CSG composites, cylinders and sphere UV raise
+Port of ``euclider_tpu/ops/geometry.py`` for spheres, half-spaces and
+hyperplanes, with their UV maps.  Shape nodes are the static tuples of
+``scene.compile`` (``('sphere', row)`` ...); parameters come from
+SceneTables by static row.  CSG composites and cylinders raise
 ``NotImplementedError``: they come with later slices.
 """
 from __future__ import annotations
 
 import torch
 
+from . import mathx
 from . import vec as V
 from .vec import Vec
 
@@ -121,15 +122,25 @@ def plane_tangent_frame(n: Vec, dim: int):
 
 
 def leaf_uv(leaf, tables, p: Vec, dim: int):
-    """UV coordinates at p: coordinates in the plane's tangent frame."""
+    """UV coordinates at p.  Sphere: longitude/latitude of the local x, y, z
+    components (w ignored).  Plane: coordinates in its tangent frame."""
     kind, row = leaf
     if kind in ("hyperplane", "halfspace"):
         t1, t2 = plane_tangent_frame(row_vec(tables, row), dim)
         return V.dot(p, t1), V.dot(p, t2)
     if kind == "sphere":
-        raise NotImplementedError(
-            "the torch port does not render sphere UV (a textured, checker, "
-            "smooth or perlin sphere surface) yet")
+        loc = V.sub(p, row_vec(tables, row))
+        # pole guards: the atan2 gradient is NaN at (0, 0) and the acos
+        # gradient infinite at +-1; the 1e-6 clip is part of the semantics
+        # (the oracles clip the same way)
+        safe_x = torch.where((torch.abs(loc.x) + torch.abs(loc.y)) < 1e-12,
+                             1.0, loc.x)
+        u = mathx.atan2(loc.y, safe_x) * (0.5 / mathx.PI) + 0.5
+        rlen = V.norm(loc)
+        cz = torch.clamp(loc.z / torch.clamp(rlen, min=1e-12),
+                         -1.0 + 1e-6, 1.0 - 1e-6)
+        v = mathx.acos(cz) / mathx.PI
+        return u, v
     _unsupported(leaf)
 
 

@@ -1,10 +1,12 @@
 """Surface shading: per-surface-kind colour evaluation on torch tensors.
 
-Port of ``euclider_tpu/ops/shading.py`` for the ``uniform`` and ``checker``
-surfaces.  Smooth, perlin and texture surfaces raise ``NotImplementedError``:
-they come with later slices.
+Port of ``euclider_tpu/ops/shading.py`` for the ``uniform``, ``checker`` and
+``smooth`` surfaces.  Perlin and texture surfaces raise
+``NotImplementedError``: they come with later slices.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -24,5 +26,12 @@ def eval_surface(static, tables, s: int, u, v):
         sel = par >= 0.5
         col2 = tables.surf_color2[s]
         return tuple(torch.where(sel, col2[c], col[c]) for c in range(4))
+    if kind == "smooth":
+        sc = tables.surf_uv_scale[s]
+        two_pi = 2.0 * math.pi
+        f = 0.25 * (1.0 + torch.sin(two_pi * u * sc)) \
+                 * (1.0 + torch.sin(two_pi * v * sc))
+        col2 = tables.surf_color2[s]
+        return tuple(col[c] + (col2[c] - col[c]) * f for c in range(4))
     raise NotImplementedError(
         f"the torch port does not render {kind!r} surfaces yet")

@@ -1,8 +1,9 @@
 """The tracing core on batched torch tensors: the plain version of the
 forward kernel.
 
-Port of ``euclider_tpu/ops/trace.py`` (its lax backend, non-differentiable
-path) for straight space.  A ray tree becomes a masked depth-first stack
+Port of ``euclider_tpu/ops/trace.py`` (its lax backend) for straight space;
+with ``differentiable=True`` it is autograd's reference for the backward
+kernel (``ops/vjp.py``).  A ray tree becomes a masked depth-first stack
 loop: each ray carries at most ``max_depth + 1`` deferred branches (origin,
 direction, path weight, material, remaining depth); a trip pops one branch,
 shades it and pushes up to two children, transmission first and reflection
@@ -119,7 +120,8 @@ def write_slot(slots, idx, mask, val, kmax=None):
 # ---------------------------------------------------------------------------
 
 def _shade_node(static, tables, org: Vec, d: Vec, wgt, mat, depth, active,
-                used_surfs, do_transmit, do_reflect, depth_ge2):
+                differentiable, used_surfs, do_transmit, do_reflect,
+                depth_ge2):
     """Shade one DFS node: propagate to the nearest boundary, accumulate the
     local colour term, and emit up to two deferred branches.
 
@@ -151,8 +153,10 @@ def _shade_node(static, tables, org: Vec, d: Vec, wgt, mat, depth, active,
             for s in used_surfs}
     cr, cg, cb, ca, refl = zf, zf, zf, torch.ones_like(zf), zf
     fres = zf
+    # fresnel == 0 leaves the ratio unchanged exactly, so the forward skips
+    # the Schlick block then; its gradient w.r.t. fresnel is not zero
     fres0 = static.surf_fres0 or (False,) * len(static.surf_kinds)
-    any_fres = any(not fres0[e.surface] for e in ents)
+    any_fres = differentiable or any(not fres0[e.surface] for e in ents)
     for ei, e in enumerate(ents):
         sel = ent == ei
         c = cols[e.surface]
@@ -204,24 +208,31 @@ def _shade_node(static, tables, org: Vec, d: Vec, wgt, mat, depth, active,
     return dr, dg, db, branches
 
 
-def _bounce_plan(static):
-    """Static branch-liveness plan: which deferred branches can exist at all
-    (elided branches have weight exactly 0, so pruning is value-exact)."""
+def _bounce_plan(static, differentiable):
+    """Static branch-liveness plan: which deferred branches can exist at all.
+
+    Pruning on the opaque/matte hints is value-exact (the elided branches
+    have weight exactly 0) but not gradient-exact: d/d alpha of an opaque
+    surface and d/d reflectivity of a matte one are not zero.  So the
+    differentiable render keeps every branch."""
     ents = static.entities
     D = static.max_depth
+    prune = not differentiable
     sa1 = static.surf_alpha1 or (False,) * len(static.surf_kinds)
     sr0 = static.surf_refl0 or (False,) * len(static.surf_kinds)
     any_transmit = any((e.portal is not None) or not sa1[e.surface]
                        for e in ents)
     any_reflect = any(not sr0[e.surface] for e in ents)
     used_surfs = sorted({e.surface for e in ents})
-    return used_surfs, D >= 2 and any_transmit, D >= 2 and any_reflect
+    return (used_surfs, D >= 2 and (any_transmit or not prune),
+            D >= 2 and (any_reflect or not prune))
 
 
-def bounce_init(static, tables, org0: Vec, d0: Vec):
+def bounce_init(static, tables, org0: Vec, d0: Vec, differentiable=False):
     """Peel the primary node; returns (ar, ag, ab, slots, sp), with
     slots = sp = None when the scene statically has no deferred branches."""
-    used_surfs, do_transmit, do_reflect = _bounce_plan(static)
+    used_surfs, do_transmit, do_reflect = _bounce_plan(static,
+                                                       differentiable)
     D = static.max_depth
     zf = torch.zeros_like(org0.x)
     zi = torch.zeros_like(org0.x, dtype=torch.int32)
@@ -230,7 +241,7 @@ def bounce_init(static, tables, org0: Vec, d0: Vec):
     ar, ag, ab, branches = _shade_node(
         static, tables, org0, d0, torch.ones_like(zf),
         torch.full_like(zi, static.ambient), torch.full_like(zi, D),
-        torch.ones_like(zf, dtype=torch.bool),
+        torch.ones_like(zf, dtype=torch.bool), differentiable,
         used_surfs, do_transmit, do_reflect, depth_ge2=None)
     if not branches:
         return ar, ag, ab, None, None
@@ -244,10 +255,11 @@ def bounce_init(static, tables, org0: Vec, d0: Vec):
     return ar, ag, ab, slots, sp
 
 
-def make_bounce_body(static, tables):
+def make_bounce_body(static, tables, differentiable=False):
     """One trip of the DFS loop: body(carry) with
     carry = (sp, ar, ag, ab, slots)."""
-    used_surfs, do_transmit, do_reflect = _bounce_plan(static)
+    used_surfs, do_transmit, do_reflect = _bounce_plan(static,
+                                                       differentiable)
 
     def body(carry):
         sp, ar, ag, ab, slots = carry
@@ -258,7 +270,8 @@ def make_bounce_body(static, tables):
 
         dr, dg, db, branches = _shade_node(
             static, tables, org, d, wgt, mat, depth, active,
-            used_surfs, do_transmit, do_reflect, depth_ge2=(depth >= 2))
+            differentiable, used_surfs, do_transmit, do_reflect,
+            depth_ge2=(depth >= 2))
         ar, ag, ab = ar + dr, ag + dg, ab + db
 
         for mask, val in branches:
@@ -269,16 +282,24 @@ def make_bounce_body(static, tables):
     return body
 
 
-def trace_batch(static, tables, org0: Vec, d0: Vec):
+def trace_batch(static, tables, org0: Vec, d0: Vec,
+                differentiable: bool = False):
     """Trace a batch of primary rays; returns (r, g, b) shaped like org0.x.
 
     The primary node is peeled out of the loop; then at most
     ``max_nodes - 1`` trips run, stopping early once every stack is empty.
+    A trip on empty stacks is a no-op for values and gradients alike, so the
+    early stop serves autograd too (the JAX package runs every trip there
+    only because lax.while_loop has no reverse-mode rule).
+    ``differentiable=True`` turns off the pruning that is exact for values
+    but not for gradients (``_bounce_plan`` and the Schlick skip); pass it
+    when taking gradients through the render.
     """
-    ar, ag, ab, slots, sp = bounce_init(static, tables, org0, d0)
+    ar, ag, ab, slots, sp = bounce_init(static, tables, org0, d0,
+                                        differentiable)
     if slots is None:
         return ar, ag, ab
-    body = make_bounce_body(static, tables)
+    body = make_bounce_body(static, tables, differentiable)
     carry = (sp, ar, ag, ab, slots)
     it = 0
     while it < static.max_nodes - 1 and bool(torch.any(carry[0] > 0)):
@@ -314,16 +335,18 @@ def camera_rays(cam, xi, yi, W: int, H: int):
 
 
 def render_image(static, tables, cam, H: int, W: int, time=0.0, y0: int = 0,
-                 rows: int | None = None) -> torch.Tensor:
+                 rows: int | None = None,
+                 differentiable: bool = False) -> torch.Tensor:
     """Render rows [y0, y0 + rows) of the H x W frame -> [rows or H, W, 3]
     float32 on the tables' device.  The camera's NDC mapping stays the full
     frame's, so slabs tile the frame exactly.  ``time`` is the scene time of
-    time-dependent materials, which this slice does not render."""
+    time-dependent materials, which this slice does not render.  Pass
+    ``differentiable=True`` when taking gradients (``trace_batch``)."""
     dev = tables.surf_color.device
     R = H if rows is None else rows
     yi = (torch.arange(R, dtype=torch.float32, device=dev) + float(y0))
     xi = torch.arange(W, dtype=torch.float32, device=dev)
     yi, xi = yi[:, None].expand(R, W), xi[None, :].expand(R, W)
     org, d = camera_rays(cam, xi, yi, W, H)
-    r, g, b = trace_batch(static, tables, org, d)
+    r, g, b = trace_batch(static, tables, org, d, differentiable)
     return torch.stack([r, g, b], dim=-1)

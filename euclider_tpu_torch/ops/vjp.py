@@ -1,0 +1,68 @@
+"""The plain version of the backward kernel: a row-blocked autograd VJP.
+
+Port of ``euclider_tpu/ops/pallas_kernel.py::vjp_blocked``.  Autograd of the
+whole-frame differentiable render would keep the trace loop's tape for every
+pixel at once; the pixel sum in any loss is linear over rows, so the VJP is
+taken one block of rows at a time and the blocks' gradients are summed.
+Peak memory is one block's tape, and the result is the autograd VJP of
+``trace.render_image(..., differentiable=True)`` up to the order of the
+float32 sums.
+
+``csrc/trace_bwd.cu`` (through ``ops/cuda_bwd.py``) is held against this
+function on the card; on the CPU it is the backward the port runs.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..scene.compile import CameraParams, SceneTables
+from . import trace
+from .cuda_kernel import FLOAT_FIELDS   # the tables that get gradients
+
+BWD_BLOCK_ROWS = 64
+
+
+def zero_grads(tables, cam):
+    """Zero cotangents shaped like (tables, cam): the fields this slice does
+    not differentiate keep these."""
+    zt = SceneTables(**{k: torch.zeros_like(v)
+                        for k, v in tables._asdict().items()
+                        if k != "textures"},
+                     textures=tuple(torch.zeros_like(t)
+                                    for t in tables.textures))
+    return zt, CameraParams(*(torch.zeros_like(v) for v in cam))
+
+
+def vjp_blocked(static, tables, cam, H: int, W: int, g,
+                block_rows: int = BWD_BLOCK_ROWS, time=0.0, y0: int = 0,
+                rows: int | None = None):
+    """VJP of the render of rows [y0, y0 + rows) of the H x W frame under
+    the cotangent ``g`` [rows or H, W, 3] -> (d_tables, d_cam, d_time).
+
+    Gradients flow to the float tables of ``FLOAT_FIELDS``, to every camera
+    field and to ``time`` (zero here: no material of this slice depends on
+    it); the other tables get zeros."""
+    R = H if rows is None else rows
+    if tuple(g.shape) != (R, W, 3):
+        raise ValueError(f"cotangent shape {tuple(g.shape)} != {(R, W, 3)}")
+    d_tables, d_cam = zero_grads(tables, cam)
+    acc = [getattr(d_tables, k) for k in FLOAT_FIELDS] + list(d_cam)
+    for by0 in range(0, R, block_rows):
+        bh = min(block_rows, R - by0)
+        with torch.enable_grad():
+            leaves = [getattr(tables, k).detach().requires_grad_(True)
+                      for k in FLOAT_FIELDS]
+            cam_l = [v.detach().requires_grad_(True) for v in cam]
+            tab = tables._replace(**dict(zip(FLOAT_FIELDS, leaves)))
+            img = trace.render_image(static, tab, CameraParams(*cam_l), H, W,
+                                     time, y0 + by0, bh, differentiable=True)
+            grads = torch.autograd.grad(img, leaves + cam_l,
+                                        g[by0:by0 + bh].to(img.dtype),
+                                        allow_unused=True)
+        for a, gr in zip(acc, grads):
+            if gr is not None:
+                a += gr
+    d_tables = d_tables._replace(**dict(zip(FLOAT_FIELDS,
+                                            acc[:len(FLOAT_FIELDS)])))
+    d_time = torch.zeros((), dtype=torch.float32, device=g.device)
+    return d_tables, CameraParams(*acc[len(FLOAT_FIELDS):]), d_time

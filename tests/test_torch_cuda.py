@@ -1,4 +1,5 @@
-"""The CUDA kernel (csrc/trace_fwd.cu) against its plain torch version.
+"""The CUDA kernels (csrc/trace_fwd.cu, csrc/trace_bwd.cu) against their
+plain torch versions (ops/trace.py, ops/vjp.py).
 
 The card tests carry the ``cuda`` marker and skip without a CUDA device.
 This file imports neither jax nor the JAX package, so on the card (which has
@@ -84,3 +85,131 @@ def test_kernel_depth_cap(cuda):
     ref = trace.render_image(static, tables, cam, H, W)
     bad = ((got - ref).abs().amax(dim=-1) > 1e-4).float().mean()
     assert float(bad) <= 1e-3
+
+
+# --- the backward kernel (csrc/trace_bwd.cu) --------------------------------
+
+BH, BW = 48, 64     # ragged against the 32x8 blocks on neither axis
+
+
+def grads_close(ref, got, rtol=1e-3):
+    """tests/test_gradients.py::_assert_grads_close on (d_tables, d_cam):
+    per leaf, max |diff| <= rtol * max(max |ref|, 1)."""
+    pairs = [(getattr(ref[0], k), getattr(got[0], k))
+             for k in cuda_kernel.FLOAT_FIELDS]
+    pairs += list(zip(ref[1], got[1]))
+    for a, b in pairs:
+        a, b = a.double().cpu(), b.double().cpu()
+        tol = rtol * max(float(a.abs().max()), 1.0)
+        assert float((a - b).abs().max()) <= tol
+
+
+def cotangent(shape, seed, device):
+    import numpy as np
+    g = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    return torch.from_numpy(g).to(device)
+
+
+def off_seams(g, static, tables, cam):
+    """g, zero where the comparison would measure float32 noise: where the
+    kernel's and the plain forward take different branches, and within a
+    pixel of an image seam (second difference above 0.02), where per-pixel
+    gradients such as dt/dr ~ 1/sqrt(disc) amplify a rounding without
+    bound (chip_smoke.py phase 6 holds the frame to the same rule)."""
+    H, W = g.shape[:2]
+    k1 = cuda_kernel.render_image_cuda(static, tables, cam, H, W)
+    img = trace.render_image(static, tables, cam, H, W)
+    d2x = (img[:, 2:] + img[:, :-2] - 2 * img[:, 1:-1]).abs().amax(-1)
+    d2y = (img[2:] + img[:-2] - 2 * img[1:-1]).abs().amax(-1)
+    m = (k1 - img).abs().amax(-1) > 1e-4
+    m[:, 1:-1] |= d2x > 0.02
+    m[1:-1] |= d2y > 0.02
+    m = torch.nn.functional.max_pool2d(m[None, None].float(), 3, 1, 1)[0, 0]
+    return g * (m == 0)[..., None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["grad_probe", "config2_mirror_glass"])
+def test_vjp_kernel_matches_plain(cuda, name):
+    from euclider_tpu_torch.ops import cuda_bwd, vjp
+    static, tables, cam = scene_on(name, cuda)
+    g = off_seams(cotangent((BH, BW, 3), 0, cuda), static, tables, cam)
+    before = cuda_bwd.LAUNCHES
+    got = cuda_bwd.vjp_cuda(static, tables, cam, BH, BW, g)
+    ref = vjp.vjp_blocked(static, tables, cam, BH, BW, g)
+    torch.cuda.synchronize()
+    assert cuda_bwd.LAUNCHES == before + 1
+    grads_close(ref, got)
+
+
+@pytest.mark.cuda
+def test_fused_step_matches_unfused(cuda):
+    """train_step_cuda against the forward kernel + MSE + vjp_cuda."""
+    from euclider_tpu_torch.ops import cuda_bwd
+    static, tables, cam = scene_on("grad_probe", cuda)
+    target = cotangent((BH, BW, 3), 1, cuda).sigmoid()
+    loss, gt, gc, _ = cuda_bwd.train_step_cuda(static, tables, cam, target,
+                                               BH, BW)
+    img = cuda_kernel.render_image_cuda(static, tables, cam, BH, BW)
+    ref_loss = torch.mean((img - target) ** 2)
+    g = 2.0 * (img - target) / img.numel()
+    ref = cuda_bwd.vjp_cuda(static, tables, cam, BH, BW, g)
+    assert abs(float(loss) - float(ref_loss)) <= 1e-5 * float(ref_loss)
+    grads_close(ref[:2], (gt, gc))
+
+
+@pytest.mark.cuda
+def test_vjp_kernel_row_slabs_sum_to_the_frame(cuda):
+    from euclider_tpu_torch.ops import cuda_bwd
+    static, tables, cam = scene_on("grad_probe", cuda)
+    g = cotangent((BH, BW - 3, 3), 2, cuda)
+    whole = cuda_bwd.vjp_cuda(static, tables, cam, BH, BW - 3, g)
+    parts = [cuda_bwd.vjp_cuda(static, tables, cam, BH, BW - 3,
+                               g[y0:y0 + r], y0=y0, rows=r)
+             for y0, r in ((0, 13), (13, 20), (33, 15))]
+    summed = (whole[0]._replace(**{
+                  k: sum(getattr(p[0], k) for p in parts)
+                  for k in cuda_kernel.FLOAT_FIELDS}),
+              type(whole[1])(*(sum(c) for c in zip(*(p[1] for p in parts)))))
+    # the slabs' sums reassociate float32 sums over thousands of pixels
+    # (measured 3.05e-5 on a leaf of magnitude 1.01 on the H100): the JAX
+    # package's own rule for reassociated sums, 1e-3 relative
+    grads_close(whole[:2], summed)
+
+
+@pytest.mark.cuda
+def test_render_image_diff_backward_is_the_kernel(cuda):
+    """autograd through render_image_diff runs both kernels and gives
+    vjp_cuda's gradients, camera included."""
+    from euclider_tpu_torch.ops import cuda_bwd
+    static, tables, cam = scene_on("grad_probe", cuda)
+    g = cotangent((BH, BW, 3), 3, cuda)
+    leaves = [getattr(tables, k).clone().requires_grad_(True)
+              for k in cuda_kernel.FLOAT_FIELDS]
+    cam_l = [v.clone().requires_grad_(True) for v in cam]
+    f0, b0 = cuda_kernel.LAUNCHES, cuda_bwd.LAUNCHES
+    img = cuda_bwd.render_image_diff(
+        static, tables._replace(**dict(zip(cuda_kernel.FLOAT_FIELDS, leaves))),
+        type(cam)(*cam_l), BH, BW)
+    grads = torch.autograd.grad(img, leaves + cam_l, g)
+    assert (cuda_kernel.LAUNCHES, cuda_bwd.LAUNCHES) == (f0 + 1, b0 + 1)
+    ref = cuda_bwd.vjp_cuda(static, tables, cam, BH, BW, g)
+    n = len(cuda_kernel.FLOAT_FIELDS)
+    grads_close(ref[:2], (ref[0]._replace(**dict(zip(
+        cuda_kernel.FLOAT_FIELDS, grads[:n]))), type(cam)(*grads[n:])),
+        rtol=1e-6)
+
+
+def test_backward_wrappers_refuse_cpu_tensors():
+    from euclider_tpu_torch.ops import cuda_bwd
+    sc = ett.get_scene("grad_probe")
+    static, tables = ett.compile_scene(sc)
+    tables = ett.tables_to_torch(tables, "cpu")
+    cam = ett.camera_to_torch(ett.compile_camera(sc.camera), "cpu")
+    before = cuda_bwd.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_bwd.vjp_cuda(static, tables, cam, 8, 16, torch.zeros(8, 16, 3))
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_bwd.train_step_cuda(static, tables, cam, torch.zeros(8, 16, 3),
+                                 8, 16)
+    assert cuda_bwd.LAUNCHES == before

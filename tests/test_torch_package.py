@@ -25,6 +25,10 @@ def test_package_imports_no_jax():
     code = ("import sys\n"
             "import euclider_tpu_torch, euclider_tpu_torch.cli\n"
             "import euclider_tpu_torch.ops.cuda_kernel\n"
+            "import euclider_tpu_torch.ops.cuda_bwd\n"
+            "import euclider_tpu_torch.ops.vjp\n"
+            "import euclider_tpu_torch.train.inverse\n"
+            "import euclider_tpu_torch.train.fit\n"
             "import euclider_tpu_torch.utils.validate\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'jaxlib', 'euclider_tpu')]\n"

@@ -23,7 +23,8 @@ from conftest import assert_images_close
 
 H, W = 16, 128   # the jit shapes of tests/test_pallas_parity.py
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens.npz")
-SLICE = ("config1_sphere_room", "config2_mirror_glass")
+SLICE = ("config1_sphere_room", "config2_mirror_glass", "grad_probe",
+         "fresnel_probe")
 
 
 def port_inputs(compiled_scenes, name):
