@@ -7,32 +7,40 @@ paths and times them.
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device  - a CUDA device is required; never falls back to the CPU.
-  2. build   - nvcc builds csrc/trace_fwd.cu and csrc/trace_bwd.cu for
-               sm_90a, one process each, started together.
+  2. build   - nvcc builds csrc/trace_fwd.cu, csrc/trace_bwd.cu and
+               csrc/probe_rev.cu for sm_90a, one process each, started
+               together.
   3. kernel  - render_image_cuda against the plain torch version on the card
-               at 1280x720, config1, config2, grad_probe and fresnel_probe:
-               at least 99.9% of pixels within 1e-4 (max over channels);
-               where config2's differing pixels lie.
+               at 1280x720, config1, config2, grad_probe, fresnel_probe,
+               config5 and config7: at least 99.9% of pixels within 1e-4
+               (max over channels); where config2's differing pixels lie.
   4. truth   - the kernel against tests/goldens.npz at 48x64 (at most 1% of
                pixels beyond 2e-3) and against the float64 C++ oracle at
-               48x128 (at least 99% within 2e-3), same four scenes.
+               48x128 (at least 99% within 2e-3), same six scenes.
   5. main    - the render path: euclider_tpu_torch.render_image at 1280x720
-               for config1 and config2 and the CLI with --backend cuda; the
-               forward kernel's launch count must rise on this path.
-  6. bwd     - grad_probe and config2 at 1280x720: vjp_cuda against the
-               plain row-blocked backward under a seeded cotangent, every
-               leaf within 1e-3 * max(max |ref|, 1); then train_step_cuda
-               against the forward kernel + MSE + vjp_cuda (loss within 1e-5
-               relative, gradients by the same rule).
+               for config1, config2 and config5 and the CLI with --backend
+               cuda on config2 and config5; the forward kernel's launch
+               count must rise on this path.
+  6. bwd     - grad_probe and config2 at 1280x720, and a 64-row slab of the
+               1280x720 frame across the warp region of the warp gradient
+               scene, of config5 and of config5 with smooth surfaces:
+               vjp_cuda against the plain row-blocked backward under a
+               seeded cotangent, every leaf within 1e-3 * max(max |ref|, 1);
+               then train_step_cuda against the forward kernel + MSE +
+               vjp_cuda (loss within 1e-5 relative, gradients by the same
+               rule).
   7. train   - the training path: python -m euclider_tpu_torch.train.fit on
-               grad_probe at 1280x720, 5 fused steps (finite losses, the
-               last below the first, trace_bwd launched once a step and
-               trace_fwd not at all during the steps), then 2 steps with
-               --backend cuda (both kernels launch).
+               grad_probe at 1280x720, the example's 120 fused steps (finite
+               losses, the sphere-position error below half its start,
+               trace_bwd launched once a step and trace_fwd not at all),
+               then 2 steps with --backend cuda (both kernels launch), then
+               5 fused steps on config5 (finite, falling losses).
   8. time    - ms/frame of the render, ms/step of the fused and unfused
                training steps (CUDA events, median of 5 after warm-up), the
                kernels' device time from torch.profiler, and the plain
                versions' times.
+  9. probe   - probe_rev (csrc/probe_rev.cu) against rev_march_plain on one
+               (8, 128) tile: dx and dw within 1e-5 relative; its times.
 The second-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -47,7 +55,13 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCENES = ("config1_sphere_room", "config2_mirror_glass")
 PROBES = ("grad_probe", "fresnel_probe")
+WARP = ("config5_warp_portal", "config7_warp4d")
 BWD_SCENES = ("grad_probe", "config2_mirror_glass")
+# marching scenes of phase 6: a 64-row slab [y0, y0 + 64) across the warp
+# region (the plain backward keeps every march step of every pixel)
+SLAB_SCENES = {"warp_gradient_scene": 328, "config5_warp_portal": 300,
+               "config5_smooth": 300}
+SLAB_ROWS = 64
 H, W = 720, 1280
 TOL, MAX_BAD = 1e-4, 1e-3            # kernel vs plain on the card
 GOLD_TOL, GOLD_BAD = 2e-3, 0.01      # goldens gate (tests/test_goldens.py)
@@ -56,6 +70,8 @@ GRAD_RTOL = 1e-3                     # tests/test_gradients.py rule
 LOSS_RTOL = 1e-5
 SMOOTH_TAU = 0.02                    # image second difference of a seam
 TRAIN_STEPS = 5
+EXAMPLE_STEPS = 120                  # examples/inverse_fit.py
+PROBE_RTOL = 1e-5
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): FP32 outside the
 # tensor cores and HBM bandwidth, at the full 700 W power limit
@@ -67,9 +83,38 @@ def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
+def build_scene(name):
+    """A library scene, or one of phase 6's marching gradient scenes:
+    tests/test_gradients.py::test_grad_warp_strength's warp sphere before a
+    smooth wall, and config5 with smooth surfaces on the marker, the
+    backdrop and the floor (on uniform and checker surfaces the warp's and
+    the portal's gradients are zero almost everywhere)."""
+    from dataclasses import replace
+    import euclider_tpu_torch as et
+    from euclider_tpu_torch.scene import ir
+    if name == "warp_gradient_scene":
+        region = ir.Entity(ir.Sphere((0, 0, -4), 1.8),
+                           material=ir.WarpSpace(center=(0, 0, -4),
+                                                 strength=0.4, step=0.05),
+                           surface=ir.UniformSurface((0, 0, 0, 0.0)))
+        wall = ir.Entity(ir.Hyperplane((0, 0, 1), -8.0),
+                         surface=ir.SmoothSurface(uv_scale=0.5))
+        return ir.Scene(dim=3, entities=(region, wall),
+                        settings=ir.RenderSettings(
+                            max_depth=3, march_steps=200,
+                            background=(0.1, 0.1, 0.2)))
+    if name == "config5_smooth":
+        sc = et.get_scene("config5_warp_portal")
+        return replace(sc, entities=tuple(
+            replace(e, surface=ir.SmoothSurface(uv_scale=0.8))
+            if e.name in ("portal_marker", "backdrop_sphere", "floor") else e
+            for e in sc.entities))
+    return et.get_scene(name)
+
+
 def load(name, device):
     import euclider_tpu_torch as et
-    sc = et.get_scene(name)
+    sc = build_scene(name)
     static, tables = et.compile_scene(sc)
     return (static, et.tables_to_torch(tables, device),
             et.camera_to_torch(et.compile_camera(sc.camera), device))
@@ -198,30 +243,13 @@ def ground_truth(name, device, goldens):
 
 # --- phase 5 -----------------------------------------------------------------
 
-def main_path(device):
-    """Phase 5, the render path -> launches of the forward kernel on it."""
-    import torch
-    import euclider_tpu_torch as et
-    from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel
-
-    scenes = [load(name, device) for name in SCENES]
-    cuda_kernel.LAUNCHES = cuda_bwd.LAUNCHES = 0
-    imgs = [et.render_image(static, tables, cam, H, W)
-            for static, tables, cam in scenes]
-    torch.cuda.synchronize()
-    launches = cuda_kernel.LAUNCHES
-    for name, img in zip(SCENES, imgs):
-        assert img.shape == (H, W, 3) and img.device.type == "cuda", name
-        assert bool(torch.isfinite(img).all()), f"{name}: non-finite pixels"
-        say("main", f"{name}: render_image {W}x{H} finite, mean rgb "
-            f"{[round(float(c), 4) for c in img.mean(dim=(0, 1))]}")
-    say("main", f"kernel launches on the render path: {launches}")
-    assert launches >= len(SCENES), "the render path did not run the kernel"
-
-    png = os.path.join(ROOT, "euclider_tpu_torch", "build", "smoke_cli.png")
+def cli_render(name):
+    """The CLI with --backend cuda at 1280x720 -> the PNG's path."""
+    png = os.path.join(ROOT, "euclider_tpu_torch", "build",
+                       f"smoke_cli_{name}.png")
     if os.path.exists(png):
         os.remove(png)
-    cmd = [sys.executable, "-m", "euclider_tpu_torch", "--scene", SCENES[1],
+    cmd = [sys.executable, "-m", "euclider_tpu_torch", "--scene", name,
            "--size", f"{W}x{H}", "--backend", "cuda", "--out", png]
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                           timeout=600)
@@ -231,8 +259,32 @@ def main_path(device):
     assert head[:8] == b"\x89PNG\r\n\x1a\n", "CLI wrote no PNG"
     size = (int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big"))
     assert size == (W, H), f"CLI PNG is {size}"
-    say("main", f"CLI --backend cuda wrote {os.path.relpath(png, ROOT)} "
-        f"({size[0]}x{size[1]})")
+    say("main", f"CLI --backend cuda --scene {name} wrote "
+        f"{os.path.relpath(png, ROOT)} ({size[0]}x{size[1]})")
+
+
+def main_path(device):
+    """Phase 5, the render path -> launches of the forward kernel on it."""
+    import torch
+    import euclider_tpu_torch as et
+    from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel
+
+    names = SCENES + WARP[:1]
+    scenes = [load(name, device) for name in names]
+    cuda_kernel.LAUNCHES = cuda_bwd.LAUNCHES = 0
+    imgs = [et.render_image(static, tables, cam, H, W)
+            for static, tables, cam in scenes]
+    torch.cuda.synchronize()
+    launches = cuda_kernel.LAUNCHES
+    for name, img in zip(names, imgs):
+        assert img.shape == (H, W, 3) and img.device.type == "cuda", name
+        assert bool(torch.isfinite(img).all()), f"{name}: non-finite pixels"
+        say("main", f"{name}: render_image {W}x{H} finite, mean rgb "
+            f"{[round(float(c), 4) for c in img.mean(dim=(0, 1))]}")
+    say("main", f"kernel launches on the render path: {launches}")
+    assert launches >= len(names), "the render path did not run the kernel"
+    for name in (SCENES[1], WARP[0]):
+        cli_render(name)
     return launches
 
 
@@ -269,14 +321,16 @@ def seams(img):
                                           1)[0, 0] > 0
 
 
-def backward_check(name, device):
-    """Phase 6 for one scene -> numbers for the record."""
+def backward_check(name, device, y0=0, rows=H):
+    """Phase 6 for one scene on rows [y0, y0 + rows) -> numbers for the
+    record."""
     import torch
     from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel, trace, vjp
 
     static, tables, cam = load(name, device)
-    k1 = cuda_kernel.render_image_cuda(static, tables, cam, H, W)
-    plain = trace.render_image(static, tables, cam, H, W)
+    k1 = cuda_kernel.render_image_cuda(static, tables, cam, H, W, y0=y0,
+                                       rows=rows)
+    plain = trace.render_image(static, tables, cam, H, W, y0=y0, rows=rows)
     # The cotangent is zero where the comparison measures float32 noise, not
     # the kernel: where the two forwards took different branches, and at
     # seams, where per-pixel gradients like dt/dr ~ 1/sqrt(disc) amplify a
@@ -284,26 +338,40 @@ def backward_check(name, device):
     # alike).
     flips = (k1 - plain).abs().amax(-1) > TOL
     keep = ~(flips | seams(plain))
-    g = seeded((H, W, 3), 0, device) * keep[..., None]
-    got = cuda_bwd.vjp_cuda(static, tables, cam, H, W, g)
+    g = seeded((rows, W, 3), 0, device) * keep[..., None]
+    got = cuda_bwd.vjp_cuda(static, tables, cam, H, W, g, y0=y0, rows=rows)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    ref = vjp.vjp_blocked(static, tables, cam, H, W, g)
+    ref = vjp.vjp_blocked(static, tables, cam, H, W, g, y0=y0, rows=rows)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
     ratio, leaf, err = grads_err(ref[:2], got[:2])
-    say("bwd", f"{name}: vjp_cuda vs plain backward at {W}x{H}, cotangent "
+    where = f"rows {y0}-{y0 + rows - 1} of {W}x{H}" if rows < H else f"{W}x{H}"
+    say("bwd", f"{name}: vjp_cuda vs plain backward on {where}, cotangent "
         f"zero on {float((~keep).float().mean()):.4f} of pixels ({int(flips.sum())} "
         f"branch flips + seams): worst leaf {leaf} err {err:.4g} = "
-        f"{ratio:.3f} of its tolerance; plain backward {plain_ms:.1f} ms")
+        f"{ratio:.3f} of its tolerance; plain backward {plain_ms:.1f} ms, "
+        f"peak {peak_gib:.2f} GiB")
+    if static.has_warp:
+        for (k, a), (_, b) in zip(leaves(*ref[:2]), leaves(*got[:2])):
+            if k.startswith(("mat_warp", "portal")):
+                e = float((a.double() - b.double()).abs().max())
+                say("bwd", f"{name}: {k} max|ref| {float(a.abs().max()):.4g}"
+                    f" err {e:.4g} = "
+                    f"{e / (GRAD_RTOL * max(float(a.abs().max()), 1.0)):.4f}"
+                    " of its tolerance")
     assert ratio <= 1.0, f"{name}: vjp_cuda disagrees with the plain backward"
 
-    target = seeded((H, W, 3), 1, device, "uniform")
-    loss, gt, gc, _ = cuda_bwd.train_step_cuda(static, tables, cam, target,
-                                               H, W)
+    target = seeded((rows, W, 3), 1, device, "uniform")
+    loss, gt, gc, _ = cuda_bwd.train_step_cuda(
+        static, tables, cam, target, H, W, y0=y0, rows=rows,
+        norm=1.0 / (rows * W * 3))
     ref_loss = torch.mean((k1 - target) ** 2)
     ref2 = cuda_bwd.vjp_cuda(static, tables, cam, H, W,
-                             2.0 * (k1 - target) / k1.numel())
+                             2.0 * (k1 - target) / k1.numel(), y0=y0,
+                             rows=rows)
     torch.cuda.synchronize()
     lrel = abs(float(loss) - float(ref_loss)) / float(ref_loss)
     ratio2, leaf2, err2 = grads_err(ref2[:2], (gt, gc))
@@ -315,7 +383,8 @@ def backward_check(name, device):
     return {"vjp_err_over_tol": ratio, "vjp_leaf": leaf, "vjp_err": err,
             "masked_frac": float((~keep).float().mean()),
             "fused_loss_rel": lrel, "fused_err_over_tol": ratio2,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "plain_peak_gib": peak_gib,
+            "rows": [y0, y0 + rows]}
 
 
 # --- phase 7 -----------------------------------------------------------------
@@ -326,23 +395,33 @@ def train_path():
     from euclider_tpu_torch.train import fit
 
     cuda_kernel.LAUNCHES = cuda_bwd.LAUNCHES = 0
-    fused = fit.main(["--scene", "grad_probe", "--steps", str(TRAIN_STEPS)])
+    fused = fit.main(["--scene", "grad_probe", "--steps", str(EXAMPLE_STEPS)])
     unfused = fit.main(["--scene", "grad_probe", "--steps", "2",
                         "--backend", "cuda"])
+    warp = fit.main(["--scene", WARP[0], "--steps", str(TRAIN_STEPS)])
     launches = {"trace_fwd": cuda_kernel.LAUNCHES,
                 "trace_bwd": cuda_bwd.LAUNCHES}
     losses = fused["losses"]
-    say("train", f"fused: losses {[round(x, 6) for x in losses]}, launches "
-        f"during the steps {fused['launches']}; sphere error "
-        f"{fused['error'][0]:.4f} -> {fused['error'][1]:.4f}")
-    say("train", f"unfused (--backend cuda): launches during the steps "
-        f"{unfused['launches']}; launches on the training path {launches}")
-    assert all(x == x and abs(x) != float("inf") for x in losses + unfused["losses"])
-    assert losses[-1] < losses[0], "the fused steps did not lower the loss"
-    assert fused["launches"]["trace_bwd"] >= TRAIN_STEPS
-    assert fused["launches"]["trace_fwd"] == 0, "the fused step rendered"
+    say("train", f"grad_probe fused, {EXAMPLE_STEPS} steps: losses "
+        f"{[round(x, 6) for x in losses[:5]]} ... {losses[-1]:.6f}; "
+        f"launches during the steps {fused['launches']}; sphere error "
+        f"{fused['error'][0]:.4f} -> {fused['error'][1]:.4f} (the example's "
+        f"criterion, below half: {fused['recovered']})")
+    say("train", f"grad_probe unfused (--backend cuda): launches during the "
+        f"steps {unfused['launches']}")
+    say("train", f"{WARP[0]} fused: losses "
+        f"{[round(x, 6) for x in warp['losses']]}, launches during the steps "
+        f"{warp['launches']}; launches on the training path {launches}")
+    assert all(x == x and abs(x) != float("inf")
+               for x in losses + unfused["losses"] + warp["losses"])
+    assert fused["recovered"], "the example's criterion failed"
+    assert fused["launches"] == {"trace_fwd": 0, "trace_bwd": EXAMPLE_STEPS}
     assert min(unfused["launches"].values()) >= 2, "an unfused kernel idled"
-    return launches, losses
+    assert warp["launches"] == {"trace_fwd": 0, "trace_bwd": TRAIN_STEPS}
+    assert all(b < a for a, b in zip(warp["losses"], warp["losses"][1:])), \
+        f"{WARP[0]}: the fused steps did not lower the loss"
+    return launches, {"grad_probe": losses, WARP[0]: warp["losses"],
+                      "grad_probe_error": fused["error"]}
 
 
 # --- phase 8 -----------------------------------------------------------------
@@ -397,25 +476,64 @@ def node_count(static, tables, cam):
     return nodes
 
 
+def march_count(static, tables, cam):
+    """node_count, plus the march's work that the plain render's data needs:
+    -> (nodes [H, W], live march steps summed over the frame, marched
+    nodes).  Counted by wrapping the plain version's march step for the
+    length of the count."""
+    from euclider_tpu_torch.ops import march
+    counts = {"steps": 0, "marches": 0}
+    make_body = march.make_march_body
+
+    def counting(*args):
+        body = make_body(*args)
+        first = [True]
+
+        def step(carry):
+            live = int((~carry[2]).sum())
+            counts["steps"] += live
+            if first[0]:
+                counts["marches"] += live
+                first[0] = False
+            return body(carry)
+
+        return step
+
+    march.make_march_body = counting
+    try:
+        nodes = node_count(static, tables, cam)
+    finally:
+        march.make_march_body = make_body
+    return nodes, counts["steps"], counts["marches"]
+
+
 # FP32 operations of the kernels' code (trace_common.cuh), counted as one
-# per add, multiply, compare-free select, sqrt, rsqrt, divide or sine:
+# per add, multiply, compare-free select, sqrt, rsqrt, divide, sine or pow:
 CAMERA_OPS = 125          # camera_ray: 4 normalize, 3 projections, NDC
 SPHERE_TEST_OPS = 25      # nearest(): one sphere, both roots
 PLANE_TEST_OPS = 16       # nearest(): one plane
 MISS_OPS = 6              # the cheapest shading: w * background
+MARCH_STEP_OPS = 47       # march_step: the field (18), v + h a, normalize, x + h v
+SPHERE_SIDE_OPS = 12      # side(): one sphere, at every march step
+PLANE_SIDE_OPS = 8        # side(): one plane
+BISECT_OPS = 240          # bisect(): 10 halvings of lerp + side, one entity
 
 
-def bound(static, nodes, backward):
+def bound(static, nodes, backward, steps=0, marches=0):
     """Least time for the frame: the larger of 12 B/pixel (the image out,
     or the cotangent or target in) over HBM bandwidth and a lower bound on
-    the FP32 operations over the FP32 peak.  The operations count only the
-    camera ray, every node's nearest-hit test over every entity and the
-    cheapest shading; the backward counts them twice more (its forward
-    sweep and the recompute of its reverse sweep) and no adjoint
-    arithmetic.  -> (ms, bound_by, ops)."""
+    the FP32 operations over the FP32 peak.  The operations count the
+    camera ray, every straight node's nearest-hit test over every entity,
+    every live march step with its side tests over every entity, one
+    bisection per marched node, and the cheapest shading of every node; the
+    backward counts them twice (its forward sweep and the recompute of its
+    reverse sweep) and no adjoint arithmetic.  -> (ms, bound_by, ops)."""
     test = sum(SPHERE_TEST_OPS if e.shape[0] == "sphere" else PLANE_TEST_OPS
                for e in static.entities)
-    ops = H * W * CAMERA_OPS + nodes * (test + MISS_OPS)
+    side = sum(SPHERE_SIDE_OPS if e.shape[0] == "sphere" else PLANE_SIDE_OPS
+               for e in static.entities)
+    ops = (H * W * CAMERA_OPS + nodes * MISS_OPS + (nodes - marches) * test
+           + steps * (MARCH_STEP_OPS + side) + marches * BISECT_OPS)
     if backward:
         ops *= 2
     t_ops = ops / PEAK_FP32 * 1e3
@@ -441,11 +559,15 @@ def timing(name, device, card):
         lambda: trace.render_image(static, tables, cam, H, W), device, 1)
     out["fwd_device_ms"] = device_ms(fwd, ["trace_fwd_kernel"])[
         "trace_fwd_kernel"]
-    nodes = int(node_count(static, tables, cam).sum())
+    nodes, steps, marches = march_count(static, tables, cam)
+    nodes = int(nodes.sum())
     out["nodes_per_pixel"] = nodes / (H * W)
-    out["fwd_bound_ms"], out["fwd_bound_by"], _ = bound(static, nodes, False)
-    out["bwd_bound_ms"], out["bwd_bound_by"], _ = bound(static, nodes, True)
-    if name in BWD_SCENES:
+    out["march_steps_per_pixel"] = steps / (H * W)
+    out["fwd_bound_ms"], out["fwd_bound_by"], _ = bound(
+        static, nodes, False, steps, marches)
+    out["bwd_bound_ms"], out["bwd_bound_by"], _ = bound(
+        static, nodes, True, steps, marches)
+    if name in BWD_SCENES + WARP[:1]:
         target = seeded((H, W, 3), 2, device, "uniform")
         params = InverseParams(tables, cam)
         fused = make_fused_value_and_grad(static, H, W, "cuda-fused")
@@ -464,10 +586,64 @@ def timing(name, device, card):
             ["trace_bwd_kernel"])["trace_bwd_kernel"]
     for k, v in out.items():
         if isinstance(v, float):
-            say("time", f"{name} {k}: {v:.4f}" + ("" if k == "nodes_per_pixel"
-                                                  else f" ({card})"))
+            say("time", f"{name} {k}: {v:.4f}" + (
+                "" if k.endswith("per_pixel") else f" ({card})"))
         else:
             say("time", f"{name} {k}: {v}")
+    return out
+
+
+# --- phase 9 -----------------------------------------------------------------
+
+PROBE_STEP_OPS = 9        # probe_rev.cu, one forward step of one element
+PROBE_REV_OPS = 19        # one reverse step (rebuild + adjoint)
+
+
+def probe_check(device, card):
+    """Phase 9: probe_rev against rev_march_plain on the probe's tile."""
+    import torch
+    from euclider_tpu_torch.ops import probes
+
+    x = seeded((8, 128), 7, device) * 0.8
+    g = seeded((8, 128), 8, device)
+    w = 1.1
+    probes.LAUNCHES = 0
+    dx, dw = probes.rev_march_vjp(x, w, g)
+    torch.cuda.synchronize()
+    launches = probes.LAUNCHES
+    pdx, pdw = probes.rev_march_plain(x, w, g)
+    err_dx = float((dx - pdx).abs().max() / pdx.abs().max())
+    err_dw = abs(float(dw) - float(pdw)) / abs(float(pdw))
+    say("probe", f"probe_rev vs rev_march_plain on (8, 128): dx rel "
+        f"{err_dx:.3e}, dw {float(dw):.7f} vs {float(pdw):.7f} (rel "
+        f"{err_dw:.3e}; limit {PROBE_RTOL:g}); launches {launches}")
+    assert launches == 1, "rev_march_vjp did not run the kernel"
+    assert err_dx <= PROBE_RTOL and err_dw <= PROBE_RTOL, "probe_rev disagrees"
+
+    # the steps this input walks: the forward of rev_march, counted
+    xx, v = x * 0.3, x * 0.2 + 0.1
+    done = torch.zeros_like(x, dtype=torch.bool)
+    steps = 0
+    for _ in range(probes.R_STEPS):
+        steps += int((~done).sum())
+        v1 = v + probes.R_H * (0.3 * torch.sin(w * xx))
+        x1 = xx + probes.R_H * v1
+        xx, v = torch.where(done, xx, x1), torch.where(done, v, v1)
+        done = done | (x1 > 1.0)
+    ops = steps * (PROBE_STEP_OPS + PROBE_REV_OPS)
+    t_ops = ops / PEAK_FP32 * 1e3
+    t_bytes = 3 * x.numel() * 4 / PEAK_BYTES * 1e3
+    out = {"max_abs_err": float((dx - pdx).abs().max()), "dx_rel": err_dx,
+           "dw_rel": err_dw, "launches": launches,
+           "ms": device_ms(lambda: probes.rev_march_cuda(x, w, g),
+                           ["probe_rev_kernel"])["probe_rev_kernel"],
+           "plain_ms": events_ms(lambda: probes.rev_march_plain(x, w, g),
+                                 device, 1),
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops > t_bytes else "bytes",
+           "steps_per_element": steps / x.numel()}
+    for k in ("ms", "plain_ms", "bound_ms"):
+        say("time", f"probe_rev {k}: {out[k]:.6f} ({card})")
     return out
 
 
@@ -494,17 +670,24 @@ def main() -> int:
     libs = cuda_kernel.build()
     say("build", f"{', '.join(os.path.relpath(p, ROOT) for p in libs.values())}"
         f" in {time.perf_counter() - t0:.2f} s")
+    for name, lines in cuda_kernel.PTXAS.items():
+        for line in lines:
+            say("build", f"{name}: {line}")
 
-    errs = {name: kernel_vs_plain(name, device) for name in SCENES + PROBES}
+    errs = {name: kernel_vs_plain(name, device)
+            for name in SCENES + PROBES + WARP}
     locate_diffs(SCENES[1], device, errs[SCENES[1]][2])
     goldens = np.load(os.path.join(ROOT, "tests", "goldens.npz"))
-    for name in SCENES + PROBES:
+    for name in SCENES + PROBES + WARP:
         ground_truth(name, device, goldens)
     fwd_launches = main_path(device)
     bwd = {name: backward_check(name, device) for name in BWD_SCENES}
+    bwd.update({name: backward_check(name, device, y0, SLAB_ROWS)
+                for name, y0 in SLAB_SCENES.items()})
     train_launches, losses = train_path()
     times = {name: timing(name, device, card)
-             for name in SCENES + ("grad_probe",)}
+             for name in SCENES + ("grad_probe",) + WARP}
+    probe = probe_check(device, card)
 
     gp, c2 = times["grad_probe"], times[SCENES[1]]
     record = [{
@@ -522,12 +705,14 @@ def main() -> int:
                        "plain_ms": t["plain_frame_ms"],
                        "bound_ms": t["fwd_bound_ms"],
                        "nodes_per_pixel": t["nodes_per_pixel"],
+                       "march_steps_per_pixel": t["march_steps_per_pixel"],
                        "max_abs_err": errs[n][0], "bad_frac": errs[n][1]}
                    for n, t in times.items()}}, {
         "name": "trace_bwd", "route": "cuda",
         "source": "euclider_tpu_torch/csrc/trace_bwd.cu",
         "replaces": "euclider_tpu/ops/pallas_vjp.py:611 (fused, K2), "
                     "euclider_tpu/ops/pallas_vjp.py:611 (plain, K3), "
+                    "euclider_tpu/ops/pallas_vjp.py:173 (K4), "
                     "euclider_tpu/ops/pallas_kernel.py:270 (K5)",
         "launches": train_launches["trace_bwd"],
         "max_abs_err": max(b["vjp_err"] for b in bwd.values()),
@@ -538,8 +723,18 @@ def main() -> int:
         "card": card, "train_losses": losses,
         "scenes": {n: dict(bwd[n], **{k: times[n][k] for k in (
             "fused_step_ms", "unfused_step_ms", "bwd_device_ms",
-            "sum_device_ms", "vjp_device_ms", "bwd_bound_ms")})
-            for n in BWD_SCENES}}]
+            "sum_device_ms", "vjp_device_ms", "bwd_bound_ms")
+            if n in times}) for n in bwd}}, {
+        "name": "probe_rev", "route": "cuda",
+        "source": "euclider_tpu_torch/csrc/probe_rev.cu",
+        "replaces": "tools/mosaic_probe.py:502",
+        "launches": probe["launches"], "max_abs_err": probe["max_abs_err"],
+        "ms": probe["ms"], "plain_ms": probe["plain_ms"],
+        "bound_ms": probe["bound_ms"], "bound_by": probe["bound_by"],
+        "library_ms": None, "shape": [8, 128],
+        "tolerance": {"rtol": PROBE_RTOL}, "card": card,
+        "dx_rel": probe["dx_rel"], "dw_rel": probe["dw_rel"],
+        "steps_per_element": probe["steps_per_element"]}]
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,11 @@
 //     ("fused" mode, one training step's gradient in one launch).
 // The TPU kernels differ only in how they fit VMEM (fully unrolled tiles,
 // chunk checkpoints); on Hopper one thread per pixel keeps its whole ray
-// tree, so one kernel serves shallow and deep trees alike.
+// tree, so one kernel serves shallow and deep trees alike.  Inside both
+// modes it also replaces the march backward nested in K2/K3 (K4,
+// pallas_vjp.py::make_march_ckpt -> march_bwd_rev): the reversible reverse
+// sweep of a marched node (see march_reverse below), and the adjoint of
+// the portal teleport.
 //
 // Per thread: a forward sweep shades the pixel's tree with the forward
 // kernel's own device code (trace_common.cuh) and writes a tape, one entry
@@ -22,9 +26,10 @@
 // material past the surface) and the indices of the children it shaded.
 // The reverse sweep walks the tape backwards, recomputes each node from
 // its slot under the recorded decisions and applies hand-written adjoints
-// (nearest hit, normal and flip, UV through the mathx polynomials, the
-// surface colour, Schlick always, the local term, refraction, reflection,
-// the PUSH offsets), leaving the node's input adjoint in its tape entry for
+// (nearest hit or march, normal and flip, UV through the mathx
+// polynomials, the surface colour, Schlick always, the local term,
+// refraction or the portal, reflection, the PUSH offsets), leaving the
+// node's input adjoint in its tape entry for
 // its parent.  The camera-ray adjoint comes last.  The adjoint of the
 // ray origin of the primary node is d(position).
 //
@@ -53,10 +58,13 @@ constexpr int MAX_TAPE = 63;      // nodes per pixel: compile.py's max_nodes cap
 constexpr int MAX_PARAMS = 160;   // camera row + tables + loss
 constexpr int BLOCK_X = 32, BLOCK_Y = 8;
 constexpr int NWARPS = BLOCK_X * BLOCK_Y / 32;
+constexpr int MARCH_CB = 16;      // march steps per checkpoint (K4)
+constexpr int MAX_MARCH_CK = 32;  // checkpoints: march_steps <= 512
 
 // offsets of each table in the gradient vector (the camera row is [0, 24))
 struct Offs {
-    int sv, ssc, ior, col, col2, refl, fres, uvs, bg, loss, n;
+    int sv, ssc, ior, col, col2, refl, fres, uvs, bg, wc, ws, wh, plin, ptr,
+        loss, n;
 };
 
 struct TapeNode {
@@ -166,15 +174,121 @@ __device__ __forceinline__ void plane_uv_adj(V4 p, V4 c, int dim, float du,
     *dc = add(*dc, g);
 }
 
+// --- the march backward (K4) ------------------------------------------------
+//
+// The forward sweep records, per marched node, its input (the tape slot:
+// origin, direction, material, hence h) and its end (the winning entity,
+// lambda, n = round(dist / h)); a hit crossed at step n - 1.  The reverse
+// re-marches the n steps from the input keeping (x, v) at the start of
+// every chunk of MARCH_CB steps, then walks the chunks backwards: inside a
+// chunk it rebuilds each earlier state from the chunk's end state by
+// inverting the step (ops/pallas_vjp.py::march_bwd_rev),
+//   x = x1 - h v1,
+//   s = h (v1 . a) + sqrt(max((h v1 . a)^2 - h^2 |a|^2 + 1, 0)),  a = a(x),
+//   v = s v1 - h a            (|v| = 1 fixes s),
+// and applies the adjoint of the step v1 = normalize(v + h a(x)),
+// x1 = x + h v1 there.  Every step i < n is live; the last one also wrote
+// the segment slots (sx0, sx1, sv) = (x, x1, v1) that the finish reads.
+// Rebuilding restarts at every checkpoint, so rounding drifts over at most
+// MARCH_CB steps.  No side test runs in the reverse: the decisions (which
+// step crossed, lambda, the entity) are the tape's.
+
+struct MarchTape {
+    V4 ckx[MAX_MARCH_CK], ckv[MAX_MARCH_CK];  // state at each chunk's start
+    V4 xb, xe, ve;   // state before the last step (sx0), after it (sx1, sv)
+};
+
+// Re-march the n steps of a marched node from its input.
+__device__ __forceinline__ void march_replay(const Field& f, V4 org, V4 d0,
+                                             int n, MarchTape* mt) {
+    V4 x = org, v = d0;
+    mt->xb = org;
+    for (int i = 0; i < n; ++i) {
+        if (i % MARCH_CB == 0) {
+            mt->ckx[i / MARCH_CB] = x;
+            mt->ckv[i / MARCH_CB] = v;
+        }
+        V4 x1, v1;
+        march_step(f, x, v, &x1, &v1);
+        mt->xb = x;
+        x = x1;
+        v = v1;
+    }
+    mt->xe = x;
+    mt->ve = v;
+}
+
+// Adjoint of the march of material mat: from the cotangents of the segment
+// slots (g_sx0, g_sx1, g_sv) to those of its input (d_org, d_dir), adding
+// the field's gradients (centre, strength, step h) into grad.
+__device__ void march_reverse(const Offs& off, int mat, const Field& f,
+                              const MarchTape& mt, int n, V4 g_sx0, V4 g_sx1,
+                              V4 g_sv, float* grad, V4* d_org, V4* d_dir) {
+    const float h = f.h;
+    V4 gx = vzero(), gv = vzero(), gc = vzero();
+    float gs = 0.0f, gh = 0.0f;
+    const int nb = (n + MARCH_CB - 1) / MARCH_CB;
+    for (int b = nb - 1; b >= 0; --b) {
+        const int i0 = b * MARCH_CB, i1 = min(i0 + MARCH_CB, n);
+        V4 xc = b + 1 < nb ? mt.ckx[b + 1] : mt.xe;
+        V4 vc = b + 1 < nb ? mt.ckv[b + 1] : mt.ve;
+        for (int i = i1 - 1; i >= i0; --i) {
+            // the state before step i, rebuilt from the state after it
+            const V4 xp = madd(xc, -h, vc);
+            const V4 a = accel(f, xp);
+            const float va = h * dot(vc, a);
+            const float disc = fmaxf(va * va - h * h * dot(a, a) + 1.0f, 0.0f);
+            const V4 vp = madd(scale(vc, va + sqrtf(disc)), -h, a);
+            // cotangents of the step's outputs; the crossing step also
+            // wrote the segment slots
+            V4 g_x1 = gx, g_v1 = gv, g_xp = vzero();
+            if (i == n - 1) {
+                g_x1 = add(g_x1, g_sx1);
+                g_v1 = add(g_v1, g_sv);
+                g_xp = g_sx0;
+            }
+            // x1 = xp + h v1, v1 = normalize(u), u = vp + h a
+            const V4 u = madd(vp, h, a);
+            const V4 v1 = normalize(u);
+            gh += dot(g_x1, v1);
+            g_v1 = madd(g_v1, h, g_x1);
+            const V4 g_u = normalize_adj(u, g_v1);
+            gh += dot(g_u, a);
+            const V4 g_a = scale(g_u, h);
+            // a = dd * k, dd = c - xp, k = strength r2^-1.5,
+            // r2 = |dd|^2 + 1e-4
+            const V4 dd = sub(f.c, xp);
+            const float r2 = dot(dd, dd) + 1e-4f;
+            const float inv = powf(r2, -1.5f);
+            const float k = f.strength * inv;
+            const float g_k = dot(g_a, dd);
+            gs += g_k * inv;
+            const float g_r2 = g_k * f.strength * (-1.5f) * inv / r2;
+            const V4 g_dd = madd(scale(g_a, k), 2.0f * g_r2, dd);
+            gc = add(gc, g_dd);
+            gx = sub(add(g_x1, g_xp), g_dd);
+            gv = g_u;
+            xc = xp;
+            vc = vp;
+        }
+    }
+    add4(grad + off.wc + 4 * mat, gc);
+    grad[off.ws + mat] += gs;
+    grad[off.wh + mat] += gh;
+    *d_org = gx;
+    *d_dir = gv;
+}
+
 // --- one node ---------------------------------------------------------------
 
 // Recompute node `in` under its recorded decisions and return the adjoint
 // of its input slot (origin, direction, weight), given the cotangent G of
 // the pixel colour and the input adjoints of the children it shaded.
+template <bool kWarp>
 __device__ void node_adj(const Scene& s, const Offs& off, const TapeNode& T,
                          const float G[3], const TapeNode* tape, float* grad,
                          V4* d_org, V4* d_dir, float* d_w) {
-    const V4 o = T.org, d = T.dir;
+    const V4 o = T.org;
     const float w = T.w;
     *d_org = vzero();
     *d_dir = vzero();
@@ -194,20 +308,31 @@ __device__ void node_adj(const Scene& s, const Offs& off, const TapeNode& T,
     const float sc = s.shape_sc[row];
     const bool sphere = s.node_kind[node] == NODE_SPHERE;
 
-    // ---- recompute ----
-    float t, b = 0.0f, sq = 1.0f, nd = 1.0f;
-    V4 oc = vzero();
-    if (sphere) {
-        oc = sub(o, c);
-        b = dot(oc, d);
-        const float q = dot(oc, oc) - sc * sc;
-        sq = sqrtf(b * b - q);
-        t = T.rec.root ? -b + sq : -b - sq;
+    // ---- recompute: the hit point p and the direction d there ----
+    const bool marched = kWarp && s.mat_warp[T.mat] != 0;
+    float t = 0.0f, b = 0.0f, sq = 1.0f, nd = 1.0f;
+    V4 oc = vzero(), p, d;
+    Field f;
+    MarchTape mt;
+    if (marched) {
+        f = field(s, T.mat);
+        march_replay(f, o, T.dir, T.rec.n, &mt);
+        p = lerp_rn(mt.xb, mt.xe, T.rec.lam);
+        d = mt.ve;
     } else {
-        nd = dot(c, d);
-        t = (sc - dot(c, o)) / nd;
+        d = T.dir;
+        if (sphere) {
+            oc = sub(o, c);
+            b = dot(oc, d);
+            const float q = dot(oc, oc) - sc * sc;
+            sq = sqrtf(b * b - q);
+            t = T.rec.root ? -b + sq : -b - sq;
+        } else {
+            nd = dot(c, d);
+            t = (sc - dot(c, o)) / nd;
+        }
+        p = madd(o, t, d);
     }
-    const V4 p = madd(o, t, d);
     const V4 n0 = sphere ? normalize(sub(p, c)) : c;
     const V4 n = T.rec.flip ? scale(n0, -1.0f) : n0;
     const int sf = s.ent_surf[ent];
@@ -247,8 +372,33 @@ __device__ void node_adj(const Scene& s, const Offs& off, const TapeNode& T,
     drefl += -dlw * w * alpha;
     dcol[3] += dlw * w * (1.0f - refl);
 
+    // ---- transmission child through a portal: pp = lin p + tr,
+    //      pd = normalize(q), q = lin d, origin pp + PUSH pd ----
+    const int portal = kWarp ? s.ent_portal[ent] : -1;
+    if (T.child[0] >= 0 && portal >= 0) {
+        const TapeNode& C = tape[T.child[0]];
+        const float* lin = s.portal_lin + 16 * portal;
+        const V4 q = matvec(lin, d);
+        const V4 dq = normalize_adj(q, madd(C.dir, PUSH, C.org));
+        const V4 dpp = C.org;
+        add4(grad + off.ptr + 4 * portal, dpp);
+        float* gl = grad + off.plin + 16 * portal;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                gl[4 * i + j] += comp(dpp, i) * comp(p, j)
+                                 + comp(dq, i) * comp(d, j);
+        }
+        dp = add(dp, matvec_t(lin, dpp));
+        dd = add(dd, matvec_t(lin, dq));
+        dw += C.w * (1.0f - refl) * (1.0f - alpha);
+        drefl += -C.w * w * (1.0f - alpha);
+        dcol[3] += -C.w * w * (1.0f - refl);
+    }
+
     // ---- transmission child: refract, PUSH offset, w (1-refl)(1-alpha) ----
-    if (T.child[0] >= 0) {
+    if (T.child[0] >= 0 && portal < 0) {
         const TapeNode& C = tape[T.child[0]];
         const int m_to = T.rec.m_to;
         const float ia = s.mat_ior[T.mat], ib = s.mat_ior[m_to];
@@ -355,6 +505,18 @@ __device__ void node_adj(const Scene& s, const Offs& off, const TapeNode& T,
         dc = add(dc, dn0);
     }
 
+    if (marched) {
+        // ---- p = sx0 (1 - lambda) + sx1 lambda, d = sv: the march (K4) ----
+        const float lam = T.rec.lam;
+        march_reverse(off, T.mat, f, mt, T.rec.n, scale(dp, 1.0f - lam),
+                      scale(dp, lam), dd, grad, &dorg, &dd);
+        add4(grad + off.sv + 4 * row, dc);
+        *d_org = dorg;
+        *d_dir = dd;
+        *d_w = dw;
+        return;
+    }
+
     // ---- hit point p = o + t d ----
     dorg = add(dorg, dp);
     const float dt = dot(dp, d);
@@ -440,6 +602,7 @@ __device__ void camera_adj(const float* cam, int x, int y, int H, int W,
 
 // Forward sweep, seed, reverse sweep for one pixel; adds its gradient (and,
 // fused, its loss term) into grad.
+template <bool kWarp>
 __device__ void pixel_backward(const Scene& s, const Offs& off,
                                const float* cam, int x, int y, int H, int W,
                                const float* gin, float norm, bool fused,
@@ -452,7 +615,7 @@ __device__ void pixel_backward(const Scene& s, const Offs& off,
     const Slot root{load4(cam), d0, 1.0f, s.ambient, s.max_depth, -1, 0};
     tape[0] = TapeNode{root.org, root.dir, root.w, root.mat, root.depth,
                        {-1, -1}, {}};
-    shade(s, root, 0, acc, stack, &sp, &tape[0].rec);
+    shade<kWarp>(s, root, 0, acc, stack, &sp, &tape[0].rec);
     int n = 1;
     for (int it = 0; it < s.max_nodes - 1 && sp > 0; ++it, ++n) {
         --sp;
@@ -460,7 +623,7 @@ __device__ void pixel_backward(const Scene& s, const Offs& off,
         tape[n] = TapeNode{nd.org, nd.dir, nd.w, nd.mat, nd.depth, {-1, -1},
                            {}};
         tape[nd.parent].child[nd.branch] = n;
-        shade(s, nd, n, acc, stack, &sp, &tape[n].rec);
+        shade<kWarp>(s, nd, n, acc, stack, &sp, &tape[n].rec);
     }
 
     const float* gp = gin + 3 * ((size_t)y * W + x);
@@ -483,7 +646,7 @@ __device__ void pixel_backward(const Scene& s, const Offs& off,
     for (int i = n - 1; i >= 0; --i) {
         V4 dorg, ddir;
         float dw;
-        node_adj(s, off, tape[i], G, tape, grad, &dorg, &ddir, &dw);
+        node_adj<kWarp>(s, off, tape[i], G, tape, grad, &dorg, &ddir, &dw);
         tape[i].org = dorg;
         tape[i].dir = ddir;
         tape[i].w = dw;
@@ -494,6 +657,7 @@ __device__ void pixel_backward(const Scene& s, const Offs& off,
 
 // One thread per pixel of the row slab; one row of partial sums per block
 // into partials[p * n_blocks + block].
+template <bool kWarp>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 trace_bwd_kernel(Scene s, Offs off, const float* __restrict__ cam, int H,
                  int W, int rows, const float* __restrict__ gin, float norm,
@@ -503,7 +667,8 @@ trace_bwd_kernel(Scene s, Offs off, const float* __restrict__ cam, int H,
     float grad[MAX_PARAMS];
     for (int p = 0; p < off.n; ++p) grad[p] = 0.0f;
     if (x < W && y < rows)
-        pixel_backward(s, off, cam, x, y, H, W, gin, norm, fused != 0, grad);
+        pixel_backward<kWarp>(s, off, cam, x, y, H, W, gin, norm, fused != 0,
+                               grad);
 
     __shared__ float red[NWARPS][MAX_PARAMS];
     const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
@@ -547,24 +712,26 @@ sum_partials_kernel(const float* __restrict__ partials, int n_blocks,
 }  // namespace
 
 // The gradient vector out[n_params + 1]: the camera row [0, 24), then the
-// float tables (shape_vec, shape_sc, mat_ior, surf_color, surf_color2,
-// surf_refl, surf_fresnel, surf_uv_scale, background), then the loss
-// (fused mode; 0 in vjp mode).  partials: scratch of
-// (n_params + 1) * n_blocks floats, n_blocks = ceil(W/32) * ceil(rows/8).
+// float tables in FLOAT_FIELDS order (shape_vec, shape_sc, mat_ior,
+// surf_color, surf_color2, surf_refl, surf_fresnel, surf_uv_scale,
+// background, mat_warp_center, mat_warp_strength, mat_warp_step,
+// portal_lin, portal_tr), then the loss (fused mode; 0 in vjp mode).
+// ints, floats, params: the scene (trace_common.cuh make_scene); sizes:
+// the rows of shape_vec, mat_ior, surf_color and portal_tr.  partials:
+// scratch of (n_params + 1) * n_blocks floats, n_blocks = ceil(W/32) *
+// ceil(rows/8).
 extern "C" int euclider_trace_bwd(
-    const int32_t* ent_root, const int32_t* ent_mat, const int32_t* ent_surf,
-    const int32_t* node_kind, const int32_t* node_row,
-    const int32_t* surf_kind,
-    const float* shape_vec, const float* shape_sc, const float* mat_ior,
-    const float* surf_color, const float* surf_color2,
-    const float* surf_refl, const float* surf_fresnel,
-    const float* surf_uv_scale, const float* background, const float* cam,
-    int n_ent, int ambient, int max_depth, int max_nodes, int dim,
-    float t_max, int n_shape, int n_mat, int n_surf, int H, int W, int rows,
+    const int32_t* const* ints, const float* const* floats, const int* params,
+    float t_max, const int* sizes, const float* cam, int H, int W, int rows,
     const float* gin, float norm, int fused, float* partials,
     long long partials_len, float* out, int device, void* stream) {
-    if (max_depth + 1 > MAX_SLOTS || max_nodes > MAX_TAPE || max_nodes < 1)
+    const Scene s = make_scene(ints, floats, params, t_max);
+    if (s.max_depth + 1 > MAX_SLOTS || s.max_nodes > MAX_TAPE ||
+        s.max_nodes < 1 || s.n_ent > 32 ||
+        s.march_steps > MARCH_CB * MAX_MARCH_CK)
         return (int)cudaErrorInvalidValue;
+    const int n_shape = sizes[0], n_mat = sizes[1], n_surf = sizes[2],
+              n_portal = sizes[3];
     Offs off;
     off.sv = 24;
     off.ssc = off.sv + 4 * n_shape;
@@ -575,7 +742,12 @@ extern "C" int euclider_trace_bwd(
     off.fres = off.refl + n_surf;
     off.uvs = off.fres + n_surf;
     off.bg = off.uvs + n_surf;
-    off.loss = off.bg + 3;
+    off.wc = off.bg + 3;
+    off.ws = off.wc + 4 * n_mat;
+    off.wh = off.ws + n_mat;
+    off.plin = off.wh + n_mat;
+    off.ptr = off.plin + 16 * n_portal;
+    off.loss = off.ptr + 4 * n_portal;
     off.n = off.loss + 1;
     if (off.n > MAX_PARAMS) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
@@ -585,14 +757,13 @@ extern "C" int euclider_trace_bwd(
     const dim3 grid((W + BLOCK_X - 1) / BLOCK_X, (rows + BLOCK_Y - 1) / BLOCK_Y);
     const long long n_blocks = (long long)grid.x * grid.y;
     if (partials_len < n_blocks * off.n) return (int)cudaErrorInvalidValue;
-    const Scene s{ent_root, ent_mat, ent_surf, node_kind, node_row,
-                  surf_kind, shape_vec, shape_sc, mat_ior, surf_color,
-                  surf_color2, surf_refl, surf_fresnel, surf_uv_scale,
-                  background, n_ent, ambient, max_depth, max_nodes, dim,
-                  t_max};
     cudaStream_t st = (cudaStream_t)stream;
-    trace_bwd_kernel<<<grid, block, 0, st>>>(s, off, cam, H, W, rows, gin,
-                                             norm, fused, partials);
+    if (s.march_steps > 0)
+        trace_bwd_kernel<true><<<grid, block, 0, st>>>(
+            s, off, cam, H, W, rows, gin, norm, fused, partials);
+    else
+        trace_bwd_kernel<false><<<grid, block, 0, st>>>(
+            s, off, cam, H, W, rows, gin, norm, fused, partials);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     sum_partials_kernel<<<off.n, RED_THREADS, 0, st>>>(

@@ -11,8 +11,15 @@
 // division, floorf and sinf stay IEEE float32 / full-range libm.
 //
 // Supported: sphere, half-space and hyperplane leaves with their UV maps;
-// uniform, checker and smooth surfaces; vacuum and dielectric materials.
-// The Python wrappers refuse every other feature before launching.
+// uniform, checker and smooth surfaces; vacuum, dielectric and attractor
+// ('warp') materials, whose rays march (ops/march.py); portals.  The Python
+// wrappers refuse every other feature before launching.
+//
+// The march repeats its step up to 320 times, which would amplify any
+// rounding difference from the plain version: its arithmetic (the step,
+// the side tests, the bisection) is written with __fmul_rn / __fadd_rn, so
+// nvcc contracts nothing into an FMA and every operation rounds as the
+// plain version's separate torch operations do.
 
 #pragma once
 
@@ -72,6 +79,48 @@ __device__ __forceinline__ V4 axis(int i) {
 __device__ __forceinline__ float comp(V4 a, int i) {
     return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
 }
+// y = m x for a row-major 4x4 matrix m
+__device__ __forceinline__ V4 matvec(const float* m, V4 v) {
+    return {m[0] * v.x + m[1] * v.y + m[2] * v.z + m[3] * v.w,
+            m[4] * v.x + m[5] * v.y + m[6] * v.z + m[7] * v.w,
+            m[8] * v.x + m[9] * v.y + m[10] * v.z + m[11] * v.w,
+            m[12] * v.x + m[13] * v.y + m[14] * v.z + m[15] * v.w};
+}
+// y = m^T x
+__device__ __forceinline__ V4 matvec_t(const float* m, V4 v) {
+    return {m[0] * v.x + m[4] * v.y + m[8] * v.z + m[12] * v.w,
+            m[1] * v.x + m[5] * v.y + m[9] * v.z + m[13] * v.w,
+            m[2] * v.x + m[6] * v.y + m[10] * v.z + m[14] * v.w,
+            m[3] * v.x + m[7] * v.y + m[11] * v.z + m[15] * v.w};
+}
+
+// --- uncontracted arithmetic: the march's (see the note at the top) -------
+
+__device__ __forceinline__ float dot_rn(V4 a, V4 b) {
+    return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(a.x, b.x),
+                                         __fmul_rn(a.y, b.y)),
+                               __fmul_rn(a.z, b.z)),
+                     __fmul_rn(a.w, b.w));
+}
+__device__ __forceinline__ V4 scale_rn(V4 a, float s) {
+    return {__fmul_rn(a.x, s), __fmul_rn(a.y, s), __fmul_rn(a.z, s),
+            __fmul_rn(a.w, s)};
+}
+__device__ __forceinline__ V4 madd_rn(V4 a, float s, V4 b) {  // a + s * b
+    return {__fadd_rn(a.x, __fmul_rn(s, b.x)), __fadd_rn(a.y, __fmul_rn(s, b.y)),
+            __fadd_rn(a.z, __fmul_rn(s, b.z)), __fadd_rn(a.w, __fmul_rn(s, b.w))};
+}
+__device__ __forceinline__ V4 normalize_rn(V4 a) {
+    return scale_rn(a, rsqrtf(__fadd_rn(dot_rn(a, a), 1e-20f)));
+}
+// a (1 - l) + b l, the point of a march segment at parameter l
+__device__ __forceinline__ V4 lerp_rn(V4 a, V4 b, float l) {
+    const float k = 1.0f - l;
+    return {__fadd_rn(__fmul_rn(a.x, k), __fmul_rn(b.x, l)),
+            __fadd_rn(__fmul_rn(a.y, k), __fmul_rn(b.y, l)),
+            __fadd_rn(__fmul_rn(a.z, k), __fmul_rn(b.z, l)),
+            __fadd_rn(__fmul_rn(a.w, k), __fmul_rn(b.w, l))};
+}
 
 // --- ops/mathx.py: the polynomial atan family -----------------------------
 
@@ -115,16 +164,36 @@ __device__ __forceinline__ float acos_p(float x) {  // callers clip |x| < 1
 
 struct Scene {
     const int32_t *ent_root, *ent_mat, *ent_surf;  // per entity
+    const int32_t *ent_portal;                     // portal row, -1 for none
     const int32_t *node_kind, *node_row;           // per shape node
     const int32_t *surf_kind;                      // per surface
+    const int32_t *mat_warp;                       // per material: 1 marches
     const float *shape_vec, *shape_sc;             // [S, 4], [S]
     const float *mat_ior;                          // [M]
     const float *surf_color, *surf_color2;         // [U, 4]
     const float *surf_refl, *surf_fresnel, *surf_uv_scale;  // [U]
     const float *background;                       // [3]
-    int n_ent, ambient, max_depth, max_nodes, dim;
+    const float *warp_center, *warp_strength, *warp_step;  // [M, 4], [M], [M]
+    const float *portal_lin, *portal_tr;           // [P, 4, 4], [P, 4]
+    int n_ent, ambient, max_depth, max_nodes, dim, march_steps;
     float t_max;
 };
+
+// The entry points' scene arguments, as host arrays of device pointers:
+//   ints:   ent_root, ent_mat, ent_surf, ent_portal, node_kind, node_row,
+//           surf_kind, mat_warp (ops/cuda_kernel.py::encode_scene);
+//   floats: the tables in ops/cuda_kernel.py FLOAT_FIELDS order;
+//   params: n_ent, ambient, max_depth, max_nodes, dim, march_steps (0 when
+//           no material marches and no entity is a portal).
+constexpr int N_INTS = 8, N_FLOATS = 14, N_PARAMS = 6;
+
+inline Scene make_scene(const int32_t* const* i, const float* const* f,
+                        const int* prm, float t_max) {
+    return Scene{i[0], i[1], i[2], i[3], i[4], i[5], i[6], i[7],
+                 f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8],
+                 f[9], f[10], f[11], f[12], f[13],
+                 prm[0], prm[1], prm[2], prm[3], prm[4], prm[5], t_max};
+}
 
 struct Slot {  // one deferred branch of the ray tree
     V4 org, dir;
@@ -140,6 +209,8 @@ struct NodeRec {
     int root;   // which sphere root won (0: -b - sq, 1: -b + sq)
     int flip;   // the normal was turned against the ray
     int m_to;   // material past the surface (transmission only)
+    int n;      // marched node: steps walked, round(dist / h)
+    float lam;  // marched node: bisection parameter of the winning crossing
 };
 
 // Two orthonormal tangents of a plane: Gram-Schmidt the coordinate axes of
@@ -188,6 +259,120 @@ __device__ __forceinline__ int material_at(const Scene& s, V4 p) {
     for (int e = 0; e < s.n_ent; ++e)
         if (member(s, s.ent_root[e], p)) return s.ent_mat[e];
     return s.ambient;
+}
+
+// --- the march (ops/march.py) -----------------------------------------------
+
+constexpr int BISECT_ITERS = 10;
+
+// geometry.py::side, uncontracted: membership, or the half-space side of a
+// hyperplane, whose flips mark the march's crossings
+__device__ __forceinline__ bool side(const Scene& s, int ent, V4 p) {
+    const int node = s.ent_root[ent];
+    const int row = s.node_row[node];
+    const V4 c = load4(s.shape_vec + 4 * row);
+    const float sc = s.shape_sc[row];
+    if (s.node_kind[node] == NODE_SPHERE) {
+        const V4 q = sub(p, c);
+        return dot_rn(q, q) < __fmul_rn(sc, sc);
+    }
+    return dot_rn(c, p) < sc;
+}
+
+// bit e set: p lies on the inner side of entity e (n_ent <= 32)
+__device__ __forceinline__ uint32_t sides(const Scene& s, V4 p) {
+    uint32_t m = 0;
+    for (int e = 0; e < s.n_ent; ++e)
+        if (side(s, e, p)) m |= 1u << e;
+    return m;
+}
+
+// The attractor field of one material at x: warp_accel,
+//   a = (c - x) * (strength * (|c - x|^2 + 1e-4)^-1.5)
+struct Field {
+    V4 c;
+    float strength, h;
+};
+
+__device__ __forceinline__ Field field(const Scene& s, int mat) {
+    return Field{load4(s.warp_center + 4 * mat), s.warp_strength[mat],
+                 s.warp_step[mat]};
+}
+
+__device__ __forceinline__ V4 accel(const Field& f, V4 x) {
+    const V4 d = sub(f.c, x);
+    const float r2 = __fadd_rn(dot_rn(d, d), 1e-4f);
+    return scale_rn(d, __fmul_rn(f.strength, powf(r2, -1.5f)));
+}
+
+// one march step: v1 = normalize(v + h a(x)), x1 = x + h v1
+__device__ __forceinline__ void march_step(const Field& f, V4 x, V4 v, V4* x1,
+                                           V4* v1) {
+    *v1 = normalize_rn(madd_rn(v, f.h, accel(f, x)));
+    *x1 = madd_rn(x, f.h, *v1);
+}
+
+// The end of a march: where and in which direction it crossed a boundary.
+struct MarchHit {
+    int ent;           // winning entity, -1 when nothing was crossed
+    int n;             // steps walked, round(dist / h)
+    float lam;         // bisection parameter of the winning crossing
+    V4 p, dir;         // the crossing point, the direction of its step
+};
+
+// Bisection of entity e's crossing on the segment [x0, x1] -> lambda.
+__device__ __forceinline__ float bisect(const Scene& s, int e, V4 x0, V4 x1) {
+    const bool s0 = side(s, e, x0);
+    float lo = 0.0f, hi = 1.0f;
+    for (int k = 0; k < BISECT_ITERS; ++k) {
+        const float mid = 0.5f * (lo + hi);
+        if (side(s, e, lerp_rn(x0, x1, mid)) == s0) lo = mid;
+        else hi = mid;
+    }
+    return hi;
+}
+
+// March the ray (org, d0) through material mat: at most march_steps steps,
+// stopping at the first step that flips a side (or after the step that
+// starts beyond t_max), then bisect every flipped entity and keep the
+// smallest lambda (strict '<' in entity order).  With primitive entities
+// (CSG is refused) the entity's one leaf is the leaf that boundary_abs
+// would pick in march_finish.
+__device__ __forceinline__ MarchHit march(const Scene& s, V4 org, V4 d0,
+                                          int mat) {
+    const Field f = field(s, mat);
+    uint32_t sd = sides(s, org), crossed = 0;
+    V4 x = org, v = d0, sx0 = org, sx1 = org, sv = d0;
+    float dist = 0.0f;
+    for (int i = 0; i < s.march_steps; ++i) {
+        V4 x1, v1;
+        march_step(f, x, v, &x1, &v1);
+        const uint32_t nsd = sides(s, x1);
+        const bool beyond = dist > s.t_max;
+        dist = dist + f.h;
+        if (nsd != sd) {
+            crossed = nsd ^ sd;
+            sx0 = x;
+            sx1 = x1;
+            sv = v1;
+            break;
+        }
+        x = x1;
+        v = v1;
+        sd = nsd;
+        if (beyond) break;
+    }
+    MarchHit m{-1, (int)rintf(dist / fmaxf(f.h, 1e-12f)), 2.0f, org, sv};
+    for (int e = 0; e < s.n_ent; ++e) {
+        if (!(crossed >> e & 1u)) continue;
+        const float lam = bisect(s, e, sx0, sx1);
+        if (lam < m.lam) {
+            m.lam = lam;
+            m.ent = e;
+        }
+    }
+    if (m.ent >= 0) m.p = lerp_rn(sx0, sx1, m.lam);
+    return m;
 }
 
 struct Hit {
@@ -309,28 +494,44 @@ __device__ __forceinline__ void push(Slot* stack, int* sp, V4 org, V4 dir,
 // Shade one DFS node: accumulate its colour term into acc and push up to
 // two children (transmission first, then reflection).  `self` is the
 // node's index in shading order (the children's parent); rec, when given,
-// receives the node's discrete decisions.
+// receives the node's discrete decisions.  kWarp = false compiles the
+// march and the portal teleport out, for scenes with neither (the entry
+// points pick it: march_steps is 0 then).
+template <bool kWarp>
 __device__ __forceinline__ void shade(const Scene& s, const Slot& r, int self,
                                       float acc[3], Slot* stack, int* sp,
                                       NodeRec* rec) {
-    const Hit h = nearest(s, r.org, r.dir);
-    if (rec) *rec = NodeRec{h.ent, h.root, 0, 0};
-    if (h.ent < 0) {
+    // propagate: a ray in a warped material marches, any other flies
+    // straight to its nearest hit
+    int ent;
+    V4 p, d;
+    if (kWarp && s.mat_warp[r.mat]) {
+        const MarchHit m = march(s, r.org, r.dir, r.mat);
+        if (rec) *rec = NodeRec{m.ent, 0, 0, 0, m.n, m.lam};
+        ent = m.ent;
+        p = m.p;
+        d = m.dir;
+    } else {
+        const Hit h = nearest(s, r.org, r.dir);
+        if (rec) *rec = NodeRec{h.ent, h.root, 0, 0, 0, 0.0f};
+        ent = h.ent;
+        d = r.dir;
+        p = madd(r.org, h.t, d);
+    }
+    if (ent < 0) {
 #pragma unroll
         for (int ch = 0; ch < 3; ++ch) acc[ch] += r.w * s.background[ch];
         return;
     }
-    const V4 d = r.dir;
-    const V4 p = madd(r.org, h.t, d);
     V4 n;
     float u, v;
-    surface_at(s, h.ent, p, &n, &u, &v);
+    surface_at(s, ent, p, &n, &u, &v);
     if (dot(n, d) > 0.0f) {
         n = scale(n, -1.0f);
         if (rec) rec->flip = 1;
     }
 
-    const int sf = s.ent_surf[h.ent];
+    const int sf = s.ent_surf[ent];
     float col[4];
     surface_color(s, sf, u, v, col);
     const float alpha = col[3];
@@ -348,7 +549,18 @@ __device__ __forceinline__ void shade(const Scene& s, const Slot& r, int self,
     if (r.depth < 2) return;
 
     const float w_t = r.w * (1.0f - refl) * (1.0f - alpha);
-    if (w_t > W_EPS) {
+    const int portal = kWarp ? s.ent_portal[ent] : -1;
+    if (w_t > W_EPS && portal >= 0) {
+        // a portal teleports the transmitted ray, which always transmits:
+        // p' = lin p + tr, d' = normalize(lin d), then the material at
+        // its new origin
+        const float* lin = s.portal_lin + 16 * portal;
+        const V4 pd = normalize(matvec(lin, d));
+        const V4 t_org = madd(add(matvec(lin, p),
+                                  load4(s.portal_tr + 4 * portal)), PUSH, pd);
+        push(stack, sp, t_org, pd, w_t, material_at(s, t_org), r.depth - 1,
+             self, 0);
+    } else if (w_t > W_EPS) {
         const int m_to = material_at(s, madd(p, PUSH, d));
         if (rec) rec->m_to = m_to;
         const float eta = s.mat_ior[r.mat] / s.mat_ior[m_to];

@@ -8,7 +8,13 @@
 // max_nodes - 1 trips.  Each node finds the nearest hit over the entities
 // (strict '<' in entity order), shades it (uniform, checker or smooth
 // surface, Schlick reflection ratio) and pushes the transmission child,
-// then the reflection child.  The node's device code lives in
+// then the reflection child.  A node whose material is warped space
+// marches instead of flying straight (ops/march.py): up to march_steps
+// steps per thread, each testing every entity's side, ended at the first
+// flip (or after the step that starts beyond t_max) and refined by
+// bisection; the thread's loop stops where its ray is done, which gives the
+// JAX package's early-exit while loop the same value.  A portal's
+// transmitted ray is teleported.  The node's device code lives in
 // trace_common.cuh, which the backward kernel (trace_bwd.cu) shares.
 //
 // What bounds it: FP32 ALU work and warp divergence, not bytes.  The output
@@ -31,6 +37,7 @@ namespace {
 // One thread per pixel of the row slab [y0, y0 + rows) of the H x W frame.
 // cam: the 24-float row of pallas_kernel._pack_camera (position, forward,
 // up, right, tan_half_fov, time, y0, padding).
+template <bool kWarp>
 __global__ void trace_fwd_kernel(Scene s, const float* __restrict__ cam,
                                  int H, int W, int rows,
                                  float* __restrict__ out) {
@@ -42,12 +49,12 @@ __global__ void trace_fwd_kernel(Scene s, const float* __restrict__ cam,
     float acc[3] = {0.0f, 0.0f, 0.0f};
     Slot stack[MAX_SLOTS];
     int sp = 0;
-    shade(s, Slot{load4(cam), d, 1.0f, s.ambient, s.max_depth, -1, 0}, 0,
-          acc, stack, &sp, nullptr);
+    const Slot root{load4(cam), d, 1.0f, s.ambient, s.max_depth, -1, 0};
+    shade<kWarp>(s, root, 0, acc, stack, &sp, nullptr);
     for (int it = 0; it < s.max_nodes - 1 && sp > 0; ++it) {
         --sp;
         const Slot node = stack[sp];
-        shade(s, node, it + 1, acc, stack, &sp, nullptr);
+        shade<kWarp>(s, node, it + 1, acc, stack, &sp, nullptr);
     }
     float* o = out + 3 * ((size_t)y * W + x);
     o[0] = acc[0];
@@ -57,30 +64,25 @@ __global__ void trace_fwd_kernel(Scene s, const float* __restrict__ cam,
 
 }  // namespace
 
+// ints, floats, params: the scene (trace_common.cuh make_scene).
 extern "C" int euclider_trace_fwd(
-    const int32_t* ent_root, const int32_t* ent_mat, const int32_t* ent_surf,
-    const int32_t* node_kind, const int32_t* node_row,
-    const int32_t* surf_kind,
-    const float* shape_vec, const float* shape_sc, const float* mat_ior,
-    const float* surf_color, const float* surf_color2,
-    const float* surf_refl, const float* surf_fresnel,
-    const float* surf_uv_scale, const float* background, const float* cam,
-    int n_ent, int ambient, int max_depth, int max_nodes, int dim,
-    float t_max, int H, int W, int rows, float* out, int device,
-    void* stream) {
-    if (max_depth + 1 > MAX_SLOTS) return (int)cudaErrorInvalidValue;
+    const int32_t* const* ints, const float* const* floats, const int* params,
+    float t_max, const float* cam, int H, int W, int rows, float* out,
+    int device, void* stream) {
+    const Scene s = make_scene(ints, floats, params, t_max);
+    if (s.max_depth + 1 > MAX_SLOTS || s.n_ent > 32)
+        return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (rows <= 0 || W <= 0) return 0;
-    const Scene s{ent_root, ent_mat, ent_surf, node_kind, node_row,
-                  surf_kind, shape_vec, shape_sc, mat_ior, surf_color,
-                  surf_color2, surf_refl, surf_fresnel, surf_uv_scale,
-                  background, n_ent, ambient, max_depth, max_nodes, dim,
-                  t_max};
     const dim3 block(32, 8);
     const dim3 grid((W + block.x - 1) / block.x,
                     (rows + block.y - 1) / block.y);
-    trace_fwd_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        s, cam, H, W, rows, out);
+    if (s.march_steps > 0)
+        trace_fwd_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+            s, cam, H, W, rows, out);
+    else
+        trace_fwd_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
+            s, cam, H, W, rows, out);
     return (int)cudaGetLastError();
 }

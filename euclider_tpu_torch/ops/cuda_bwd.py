@@ -6,7 +6,9 @@ reverse-mode VJP of the render: ``pallas_vjp.py::_ckpt_kernel`` plain (K3,
 ``vjp_pallas``) become ``vjp_cuda``; ``_ckpt_kernel`` fused (K2,
 ``train_step_pallas``) becomes ``train_step_cuda``.  One kernel serves both,
 in two modes, and shallow and deep trees alike, so there is no routing
-between K3 and K5.  ``render_image_diff`` is the port of
+between K3 and K5.  The march backward that K2 and K3 nest for warped
+space (K4, ``pallas_vjp.py::make_march_ckpt``) runs inside the same kernel
+in both modes.  ``render_image_diff`` is the port of
 ``render_image_pallas_diff``: the forward kernel, then ``vjp_cuda``.
 
 The wrappers take CUDA tensors only and never fall back: on any other
@@ -28,6 +30,7 @@ LAUNCHES = 0       # launches of trace_bwd made by vjp_cuda / train_step_cuda
 
 MAX_TAPE = 63      # nodes a pixel's tape holds (trace_bwd.cu)
 MAX_PARAMS = 160   # gradient entries a thread holds, loss included
+MAX_MARCH_STEPS = 512   # march checkpoints of 16 steps, 32 of them (K4)
 BLOCK = (32, 8)    # the kernel's block: one row of partial sums per block
 
 
@@ -35,8 +38,8 @@ BLOCK = (32, 8)    # the kernel's block: one row of partial sums per block
 def _entry():
     """The backward kernel's C entry point, built and loaded once."""
     fn = ctypes.CDLL(CK.build(("trace_bwd",))["trace_bwd"]).euclider_trace_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                       ctypes.c_int, ctypes.c_void_p])
@@ -61,7 +64,12 @@ def _launch(static, floats, cam_row, H, W, rows, gin, norm, fused):
     if static.max_nodes > MAX_TAPE:
         raise ValueError(f"max_nodes {static.max_nodes} exceeds the backward "
                          f"kernel's tape of {MAX_TAPE} nodes")
-    S, M, U = (floats[0].shape[0], floats[2].shape[0], floats[3].shape[0])
+    if static.march_steps > MAX_MARCH_STEPS:
+        raise ValueError(f"march_steps {static.march_steps} exceeds the "
+                         f"backward kernel's {MAX_MARCH_STEPS}")
+    fields = dict(zip(FLOAT_FIELDS, floats))
+    sizes = (ctypes.c_int * 4)(*(fields[k].shape[0] for k in (
+        "shape_vec", "mat_ior", "surf_color", "portal_tr")))
     n = 24 + sum(t.numel() for t in floats) + 1
     if n > MAX_PARAMS:
         raise ValueError(f"the scene has {n - 1} parameters; the backward "
@@ -70,16 +78,13 @@ def _launch(static, floats, cam_row, H, W, rows, gin, norm, fused):
         raise ValueError(f"{'target' if fused else 'cotangent'} shape "
                          f"{tuple(gin.shape)} != {(rows, W, 3)}")
     gin = gin.detach().to(device=device, dtype=torch.float32).contiguous()
-    ints, offsets = CK._scene_ints(static, device)
+    iptr, fptr, params, _ints = CK.scene_args(static, floats, device)
     n_blocks = -(-W // BLOCK[0]) * -(-rows // BLOCK[1])
     partials = torch.empty(n * n_blocks, dtype=torch.float32, device=device)
     out = torch.zeros(n, dtype=torch.float32, device=device)
     cam_row = cam_row.detach().contiguous()
-    rc = _entry()(*(ints.data_ptr() + 4 * o for o in offsets),
-                  *(t.data_ptr() for t in floats), cam_row.data_ptr(),
-                  len(static.entities), static.ambient, static.max_depth,
-                  static.max_nodes, static.dim, static.t_max, S, M, U, H, W,
-                  rows, gin.data_ptr(), float(norm), int(fused),
+    rc = _entry()(iptr, fptr, params, static.t_max, sizes, cam_row.data_ptr(),
+                  H, W, rows, gin.data_ptr(), float(norm), int(fused),
                   partials.data_ptr(), partials.numel(), out.data_ptr(),
                   device.index, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:

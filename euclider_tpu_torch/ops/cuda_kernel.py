@@ -32,19 +32,23 @@ from ..oracle.native_oracle import SURF_KINDS, _encode_nodes
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = {"trace_fwd": os.path.join(CSRC, "trace_fwd.cu"),
-           "trace_bwd": os.path.join(CSRC, "trace_bwd.cu")}
+           "trace_bwd": os.path.join(CSRC, "trace_bwd.cu"),
+           "probe_rev": os.path.join(CSRC, "probe_rev.cu")}
 HEADERS = (os.path.join(CSRC, "trace_common.cuh"),)
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 MAX_SLOTS = 16     # the kernels' DFS stack capacity (trace_common.cuh)
+MAX_ENTITIES = 32  # the march's side masks hold one bit per entity
 
 LAUNCHES = 0       # kernel launches made by render_image_cuda
+PTXAS = {}         # name -> ptxas's resource lines of the build made here
 
 # float tables the kernels read, in their argument order
 FLOAT_FIELDS = ("shape_vec", "shape_sc", "mat_ior", "surf_color",
                 "surf_color2", "surf_refl", "surf_fresnel", "surf_uv_scale",
-                "background")
+                "background", "mat_warp_center", "mat_warp_strength",
+                "mat_warp_step", "portal_lin", "portal_tr")
 
 
 def _nvcc() -> str:
@@ -87,6 +91,9 @@ def build(names=tuple(SOURCES)) -> dict:
                 errors.append(f"nvcc failed on {SOURCES[n]}:\n{err}")
             else:
                 os.replace(tmp, todo[n])
+                PTXAS[n] = [line.strip() for line in err.splitlines()
+                            if any(k in line for k in (
+                                "entry function", "Used", "stack frame"))]
         if errors:
             raise RuntimeError("\n".join(errors))
     return libs
@@ -97,34 +104,32 @@ def _entry():
     """The forward kernel's C entry point, built and loaded once per
     process."""
     fn = ctypes.CDLL(build(("trace_fwd",))["trace_fwd"]).euclider_trace_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_void_p]
+                   + [ctypes.c_int] * 3
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def encode_scene(static):
-    """Flatten ``static`` into the kernel's int32 arrays.
+    """Flatten ``static`` into the kernels' int32 arrays.
 
     Returns ``(ints, offsets)``: one int32 array holding ent_root, ent_mat,
-    ent_surf, node_kind, node_row and surf_kind back to back, and the start
-    of each.  Raises ``NotImplementedError`` naming the first feature the
-    kernel does not render, and ``ValueError`` for a ray tree deeper than
-    its stack."""
+    ent_surf, ent_portal (-1 for none), node_kind, node_row, surf_kind and
+    mat_warp (1 for a material that marches) back to back, and the start of
+    each.  Raises ``NotImplementedError`` naming the first feature the
+    kernels do not render, and ``ValueError`` for a ray tree deeper than
+    their stack or more entities than their side masks hold."""
     for kind in static.mat_kinds:
-        if kind not in ("vacuum", "dielectric"):
+        if kind not in ("vacuum", "dielectric", "warp"):
             raise NotImplementedError(
                 f"the CUDA kernel does not render {kind!r} materials "
-                "(warped or expression space) yet")
+                "(expression space) yet")
     for kind in static.surf_kinds:
         if kind not in ("uniform", "checker", "smooth"):
             raise NotImplementedError(
                 f"the CUDA kernel does not render {kind!r} surfaces yet")
     for e in static.entities:
-        if e.portal is not None:
-            raise NotImplementedError(
-                "the CUDA kernel does not render portals yet")
         if e.shape[0] == "cylinder":
             raise NotImplementedError(
                 "the CUDA kernel does not render cylinders yet")
@@ -135,12 +140,19 @@ def encode_scene(static):
         raise ValueError(f"max_depth {static.max_depth} needs "
                          f"{static.max_depth + 1} stack slots; the CUDA "
                          f"kernel has {MAX_SLOTS}")
+    if len(static.entities) > MAX_ENTITIES:
+        raise ValueError(f"{len(static.entities)} entities; the CUDA kernel "
+                         f"holds {MAX_ENTITIES}")
     ent_root, node_kind, node_row, _, _, _ = _encode_nodes(static)
+    ents = static.entities
     parts = [ent_root,
-             np.asarray([e.material for e in static.entities], np.int32),
-             np.asarray([e.surface for e in static.entities], np.int32),
+             np.asarray([e.material for e in ents], np.int32),
+             np.asarray([e.surface for e in ents], np.int32),
+             np.asarray([-1 if e.portal is None else e.portal for e in ents],
+                        np.int32),
              node_kind, node_row,
-             np.asarray([SURF_KINDS[k] for k in static.surf_kinds], np.int32)]
+             np.asarray([SURF_KINDS[k] for k in static.surf_kinds], np.int32),
+             np.asarray([k == "warp" for k in static.mat_kinds], np.int32)]
     offsets = np.cumsum([0] + [len(p) for p in parts[:-1]])
     return np.concatenate(parts).astype(np.int32), tuple(int(o) for o in offsets)
 
@@ -149,6 +161,26 @@ def encode_scene(static):
 def _scene_ints(static, device: torch.device):
     ints, offsets = encode_scene(static)
     return torch.from_numpy(ints).to(device), offsets
+
+
+def scene_args(static, floats, device):
+    """The kernels' scene arguments (trace_common.cuh make_scene): host
+    arrays of the int32 arrays' and the float tables' device pointers, the
+    int parameters, and the device int32 tensor they point into (keep it
+    alive across the launch).  march_steps goes in as 0 when no material
+    marches and no entity is a portal: the kernels then run their build
+    without the march and the teleport."""
+    ints, offsets = _scene_ints(static, device)
+    iptr = (ctypes.c_void_p * len(offsets))(
+        *(ints.data_ptr() + 4 * o for o in offsets))
+    fptr = (ctypes.c_void_p * len(floats))(*(t.data_ptr() for t in floats))
+    params = (ctypes.c_int * 6)(len(static.entities), static.ambient,
+                                static.max_depth, static.max_nodes,
+                                static.dim,
+                                static.march_steps
+                                if static.has_warp or static.has_portal
+                                else 0)
+    return iptr, fptr, params, ints
 
 
 def _pack_camera(cam, time, y0, device) -> torch.Tensor:
@@ -167,14 +199,19 @@ def _pack_camera(cam, time, y0, device) -> torch.Tensor:
 
 def _check_tables(static, tables, device):
     S = tables.shape_vec.shape[0]
-    expect = {"shape_vec": (S, 4), "shape_sc": (S,),
-              "mat_ior": (len(static.mat_kinds),),
-              "surf_color": (len(static.surf_kinds), 4),
-              "surf_color2": (len(static.surf_kinds), 4),
-              "surf_refl": (len(static.surf_kinds),),
-              "surf_fresnel": (len(static.surf_kinds),),
-              "surf_uv_scale": (len(static.surf_kinds),),
-              "background": (3,)}
+    M, U = len(static.mat_kinds), len(static.surf_kinds)
+    P = tables.portal_tr.shape[0]
+    n_portals = 1 + max((e.portal for e in static.entities
+                         if e.portal is not None), default=-1)
+    if P < n_portals:
+        raise ValueError(f"tables.portal_tr has {P} rows; the scene has "
+                         f"{n_portals} portals")
+    expect = {"shape_vec": (S, 4), "shape_sc": (S,), "mat_ior": (M,),
+              "surf_color": (U, 4), "surf_color2": (U, 4),
+              "surf_refl": (U,), "surf_fresnel": (U,), "surf_uv_scale": (U,),
+              "background": (3,), "mat_warp_center": (M, 4),
+              "mat_warp_strength": (M,), "mat_warp_step": (M,),
+              "portal_lin": (P, 4, 4), "portal_tr": (P, 4)}
     out = []
     for name in FLOAT_FIELDS:
         t = getattr(tables, name)
@@ -194,14 +231,11 @@ def launch_forward(static, floats, cam_row, H: int, W: int,
     FLOAT_FIELDS order) and a camera row -> [rows, W, 3]."""
     global LAUNCHES
     device = cam_row.device
-    ints, offsets = _scene_ints(static, device)
+    iptr, fptr, params, _ints = scene_args(static, floats, device)
     out = torch.empty((rows, W, 3), dtype=torch.float32, device=device)
-    rc = _entry()(*(ints.data_ptr() + 4 * o for o in offsets),
-                  *(t.data_ptr() for t in floats),
-                  cam_row.detach().contiguous().data_ptr(),
-                  len(static.entities), static.ambient, static.max_depth,
-                  static.max_nodes, static.dim, static.t_max, H, W, rows,
-                  out.data_ptr(), device.index,
+    cam_row = cam_row.detach().contiguous()
+    rc = _entry()(iptr, fptr, params, static.t_max, cam_row.data_ptr(), H,
+                  W, rows, out.data_ptr(), device.index,
                   torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"trace_fwd launch failed: cudaError {rc}")

@@ -1,7 +1,8 @@
 """Primitive geometry on batched torch Vecs.
 
 Port of ``euclider_tpu/ops/geometry.py`` for spheres, half-spaces and
-hyperplanes, with their UV maps.  Shape nodes are the static tuples of
+hyperplanes, with their UV maps and the side predicates the march tests.
+Shape nodes are the static tuples of
 ``scene.compile`` (``('sphere', row)`` ...); parameters come from
 SceneTables by static row.  CSG composites and cylinders raise
 ``NotImplementedError``: they come with later slices.
@@ -25,6 +26,14 @@ def _unsupported(node):
     raise NotImplementedError(f"the torch port does not render {what} yet")
 
 
+def leaves(node):
+    """Primitive leaves of a shape node: the node itself (CSG composites,
+    which have several, come with their slice)."""
+    if node[0] not in PRIMS:
+        _unsupported(node)
+    return [node]
+
+
 def row_vec(tables, row: int) -> Vec:
     r = tables.shape_vec[row]
     return Vec(r[0], r[1], r[2], r[3])
@@ -45,6 +54,32 @@ def member(node, tables, p: Vec):
         c = tables.shape_sc[node[1]]
         return V.dot(n, p) < c
     _unsupported(node)
+
+
+def side(node, tables, p: Vec):
+    """Boolean side predicate whose flips mark boundary crossings: membership
+    for volumetric shapes, the half-space side for a bare hyperplane (so the
+    march detects sheet crossings too)."""
+    if node[0] == "hyperplane":
+        n = row_vec(tables, node[1])
+        c = tables.shape_sc[node[1]]
+        return V.dot(n, p) < c
+    return member(node, tables, p)
+
+
+def boundary_abs(leaf, tables, p: Vec):
+    """|signed distance-ish| to a leaf's boundary: picks the leaf that
+    generated a marched crossing."""
+    kind, row = leaf
+    if kind == "sphere":
+        c = row_vec(tables, row)
+        r = tables.shape_sc[row]
+        return torch.abs(V.norm(V.sub(p, c)) - r)
+    if kind in ("hyperplane", "halfspace"):
+        n = row_vec(tables, row)
+        c = tables.shape_sc[row]
+        return torch.abs(V.dot(n, p) - c)
+    _unsupported(leaf)
 
 
 def leaf_crossings(leaf, tables, org: Vec, d: Vec):

@@ -1,9 +1,10 @@
 """The tracing core on batched torch tensors: the plain version of the
 forward kernel.
 
-Port of ``euclider_tpu/ops/trace.py`` (its lax backend) for straight space;
-with ``differentiable=True`` it is autograd's reference for the backward
-kernel (``ops/vjp.py``).  A ray tree becomes a masked depth-first stack
+Port of ``euclider_tpu/ops/trace.py`` (its lax backend) for straight space,
+attractor-warped space (``ops/march.py``) and portals; with
+``differentiable=True`` it is autograd's reference for the backward kernel
+(``ops/vjp.py``).  A ray tree becomes a masked depth-first stack
 loop: each ray carries at most ``max_depth + 1`` deferred branches (origin,
 direction, path weight, material, remaining depth); a trip pops one branch,
 shades it and pushes up to two children, transmission first and reflection
@@ -11,8 +12,8 @@ second.  The scene topology is unrolled in Python over the static entity
 list; only float parameters come from the tables.
 
 ``render_image`` here is what ``ops/cuda_kernel.render_image_cuda`` is held
-against on the card, and what the package renders with on the CPU.  Warped
-space, portals, CSG, cylinders and textured or noise surfaces raise
+against on the card, and what the package renders with on the CPU.
+Expression space, CSG, cylinders and textured or noise surfaces raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from . import geometry as G
+from . import march as M
 from . import shading
 from . import vec as V
 from .vec import Vec
@@ -52,8 +54,53 @@ def mat_lookup(tables_column, mat_ids):
     return out
 
 
+WARP_KINDS = ("warp", "expr")   # material kinds that march instead of flying
+
+
+def warp_mask(static, mat_ids):
+    mask = torch.zeros_like(mat_ids, dtype=torch.bool)
+    for m, kind in enumerate(static.mat_kinds):
+        if kind in WARP_KINDS:
+            mask = mask | (mat_ids == m)
+    return mask
+
+
+def warp_step(static, tables, mat_ids):
+    """Per-ray march step size h, selected from the material tables."""
+    h = torch.full(mat_ids.shape, 0.05, dtype=tables.mat_warp_step.dtype,
+                   device=mat_ids.device)
+    for m, kind in enumerate(static.mat_kinds):
+        if kind in WARP_KINDS:
+            h = torch.where(mat_ids == m, tables.mat_warp_step[m], h)
+    return h
+
+
+def make_accel(static, tables, mat_ids):
+    """Acceleration field a(x) of the marching rays, dispatched per ray over
+    the scene's attractor ('warp') materials; 'expr' materials, whose field
+    is a compiled expression, raise ``NotImplementedError``."""
+    if any(k == "expr" for k in static.mat_kinds):
+        raise NotImplementedError(
+            "the torch port does not render expression space yet")
+    zf = torch.zeros(mat_ids.shape, dtype=tables.mat_warp_step.dtype,
+                     device=mat_ids.device)
+    wc = Vec(zf, zf, zf, zf)
+    ws = zf
+    for m, kind in enumerate(static.mat_kinds):
+        if kind == "warp":
+            sel = mat_ids == m
+            row = tables.mat_warp_center[m]
+            wc = V.where(sel, Vec(row[0], row[1], row[2], row[3]), wc)
+            ws = torch.where(sel, tables.mat_warp_strength[m], ws)
+
+    def accel(x: Vec) -> Vec:
+        return M.warp_accel(wc, ws, x)   # ws == 0 where not an attractor
+
+    return accel
+
+
 # ---------------------------------------------------------------------------
-# segment propagation: nearest hit in straight space
+# segment propagation: nearest hit in the current space
 # ---------------------------------------------------------------------------
 
 def nearest_hit_straight(static, tables, org: Vec, d: Vec):
@@ -79,14 +126,28 @@ def nearest_hit_straight(static, tables, org: Vec, d: Vec):
     return best_t, hit, ent, n, u, v
 
 
-def propagate(static, tables, org: Vec, d: Vec):
-    """One segment: from org along d until the first entity boundary.
-    Returns (hit, p, dir_at_hit, ent, normal, u, v)."""
-    if static.has_warp:
-        raise NotImplementedError(
-            "the torch port does not render warped or expression space yet")
+def propagate(static, tables, org: Vec, d: Vec, mat_ids):
+    """One segment: from org along d inside material mat_ids until the first
+    entity boundary.  Returns (hit, p, dir_at_hit, ent, normal, u, v).  Rays
+    in a warped material march (ops/march.py); the march replaces their
+    analytic hit."""
     t, hit, ent, n, u, v = nearest_hit_straight(static, tables, org, d)
-    return hit, V.madd(org, t, d), d, ent, n, u, v
+    p = V.madd(org, t, d)
+    dout = d
+    if static.has_warp:
+        wm = warp_mask(static, mat_ids)
+        h = warp_step(static, tables, mat_ids)
+        accel_fn = make_accel(static, tables, mat_ids)
+        mh_hit, mh_p, mh_d, mh_ent, mh_n, mh_u, mh_v = M.march_hit(
+            static, tables, org, d, accel_fn, h, active=wm)
+        hit = torch.where(wm, mh_hit, hit)
+        p = V.where(wm, mh_p, p)
+        dout = V.where(wm, mh_d, dout)
+        ent = torch.where(wm, mh_ent, ent)
+        n = V.where(wm, mh_n, n)
+        u = torch.where(wm, mh_u, u)
+        v = torch.where(wm, mh_v, v)
+    return hit, p, dout, ent, n, u, v
 
 
 # ---------------------------------------------------------------------------
@@ -130,12 +191,10 @@ def _shade_node(static, tables, org: Vec, d: Vec, wgt, mat, depth, active,
     ``depth_ge2`` is None when depth >= 2 is statically known (the peeled
     primary node), else the per-ray boolean.
     """
-    if static.has_portal:
-        raise NotImplementedError("the torch port does not render portals yet")
     ents = static.entities
     zf = torch.zeros_like(org.x)
 
-    hit, p, dout, ent, n, u, v = propagate(static, tables, org, d)
+    hit, p, dout, ent, n, u, v = propagate(static, tables, org, d, mat)
     hit = hit & active
     miss = active & ~hit
 
@@ -190,11 +249,31 @@ def _shade_node(static, tables, org: Vec, d: Vec, wgt, mat, depth, active,
         eta = mat_lookup(tables.mat_ior, mat) / mat_lookup(tables.mat_ior, m_to)
         tdir, tok = V.refract(dout, n, eta)
         t_org = V.madd(p, PUSH, tdir)
+        t_mat = m_to
+        if static.has_portal:
+            # a portal's transmitted ray is teleported: p' = lin p + tr,
+            # d' = normalize(lin d), and always transmits (no TIR)
+            any_portal = torch.zeros_like(hit)
+            for ei, e in enumerate(ents):
+                if e.portal is None:
+                    continue
+                selp = ent == ei
+                lin = tables.portal_lin[e.portal]
+                tr = tables.portal_tr[e.portal]
+                pp = V.add(V.matvec(lin, p), Vec(tr[0], tr[1], tr[2], tr[3]))
+                pd = V.normalize(V.matvec(lin, dout))
+                t_org = V.where(selp, V.madd(pp, PUSH, pd), t_org)
+                tdir = V.where(selp, pd, tdir)
+                tok = tok | selp
+                any_portal = any_portal | selp
+            # teleported rays land in a fresh region: re-resolve their material
+            t_mat = torch.where(any_portal, material_at(static, tables, t_org),
+                                t_mat)
         w_t = wgt * (1.0 - refl) * (1.0 - ca)
         push_t = hit & tok & (w_t > W_EPS)
         if depth_ge2 is not None:
             push_t = push_t & depth_ge2
-        branches.append((push_t, (t_org, tdir, w_t, m_to, depth - 1)))
+        branches.append((push_t, (t_org, tdir, w_t, t_mat, depth - 1)))
 
     if do_reflect:
         rdir = V.reflect(dout, n)

@@ -90,3 +90,14 @@ def refract(d: Vec, n: Vec, eta):
     out = Vec(eta * d.x + coef * n.x, eta * d.y + coef * n.y,
               eta * d.z + coef * n.z, eta * d.w + coef * n.w)
     return normalize(out), valid
+
+
+def matvec(m, v: Vec) -> Vec:
+    """Apply a 4x4 matrix (a [4, 4] tensor, e.g. one portal's linear part)
+    to a Vec."""
+    return Vec(
+        m[0, 0] * v.x + m[0, 1] * v.y + m[0, 2] * v.z + m[0, 3] * v.w,
+        m[1, 0] * v.x + m[1, 1] * v.y + m[1, 2] * v.z + m[1, 3] * v.w,
+        m[2, 0] * v.x + m[2, 1] * v.y + m[2, 2] * v.z + m[2, 3] * v.w,
+        m[3, 0] * v.x + m[3, 1] * v.y + m[3, 2] * v.z + m[3, 3] * v.w,
+    )

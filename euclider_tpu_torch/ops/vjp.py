@@ -19,6 +19,9 @@ from ..scene.compile import CameraParams, SceneTables
 from . import trace
 from .cuda_kernel import FLOAT_FIELDS   # the tables that get gradients
 
+# Autograd through a march keeps every step of every marching pixel of the
+# block: a 64-row block of config5's 1280-wide frame peaked at 6.3 GiB on
+# the H100 (PERF.md), far within its 80 GB.
 BWD_BLOCK_ROWS = 64
 
 

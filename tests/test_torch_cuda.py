@@ -1,5 +1,6 @@
-"""The CUDA kernels (csrc/trace_fwd.cu, csrc/trace_bwd.cu) against their
-plain torch versions (ops/trace.py, ops/vjp.py).
+"""The CUDA kernels (csrc/trace_fwd.cu, csrc/trace_bwd.cu,
+csrc/probe_rev.cu) against their plain torch versions (ops/trace.py,
+ops/vjp.py, ops/probes.py).
 
 The card tests carry the ``cuda`` marker and skip without a CUDA device.
 This file imports neither jax nor the JAX package, so on the card (which has
@@ -29,8 +30,24 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+def warp_gradient_scene():
+    """tests/test_gradients.py::test_grad_warp_strength's scene: a warp
+    sphere in front of a smooth hyperplane wall."""
+    from euclider_tpu_torch.scene import ir
+    region = ir.Entity(ir.Sphere((0, 0, -4), 1.8),
+                       material=ir.WarpSpace(center=(0, 0, -4), strength=0.4,
+                                             step=0.05),
+                       surface=ir.UniformSurface((0, 0, 0, 0.0)))
+    wall = ir.Entity(ir.Hyperplane((0, 0, 1), -8.0),
+                     surface=ir.SmoothSurface(uv_scale=0.5))
+    return ir.Scene(dim=3, entities=(region, wall),
+                    settings=ir.RenderSettings(max_depth=3, march_steps=200,
+                                               background=(0.1, 0.1, 0.2)))
+
+
 def scene_on(name, device, **settings):
-    sc = ett.get_scene(name)
+    sc = (warp_gradient_scene() if name == "warp_gradient_scene"
+          else ett.get_scene(name))
     if settings:
         sc = replace(sc, settings=replace(sc.settings, **settings))
     static, tables = ett.compile_scene(sc)
@@ -50,7 +67,9 @@ def test_encoder_refuses_a_tree_deeper_than_the_stack():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["config1_sphere_room",
                                   "config2_mirror_glass",
-                                  "config4_hypersphere"])
+                                  "config4_hypersphere",
+                                  "config5_warp_portal",
+                                  "config7_warp4d"])
 def test_kernel_matches_plain(cuda, name):
     static, tables, cam = scene_on(name, cuda)
     before = cuda_kernel.LAUNCHES
@@ -129,7 +148,9 @@ def off_seams(g, static, tables, cam):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["grad_probe", "config2_mirror_glass"])
+@pytest.mark.parametrize("name", ["grad_probe", "config2_mirror_glass",
+                                  "warp_gradient_scene",
+                                  "config5_warp_portal"])
 def test_vjp_kernel_matches_plain(cuda, name):
     from euclider_tpu_torch.ops import cuda_bwd, vjp
     static, tables, cam = scene_on(name, cuda)
@@ -156,6 +177,42 @@ def test_fused_step_matches_unfused(cuda):
     ref = cuda_bwd.vjp_cuda(static, tables, cam, BH, BW, g)
     assert abs(float(loss) - float(ref_loss)) <= 1e-5 * float(ref_loss)
     grads_close(ref[:2], (gt, gc))
+
+
+@pytest.mark.cuda
+def test_fused_step_matches_unfused_on_a_marching_scene(cuda):
+    """train_step_cuda against the forward kernel + MSE + vjp_cuda on the
+    warp gradient scene: the march backward (K4) in both modes."""
+    from euclider_tpu_torch.ops import cuda_bwd
+    static, tables, cam = scene_on("warp_gradient_scene", cuda)
+    target = cotangent((BH, BW, 3), 4, cuda).sigmoid()
+    before = cuda_bwd.LAUNCHES
+    loss, gt, gc, _ = cuda_bwd.train_step_cuda(static, tables, cam, target,
+                                               BH, BW)
+    img = cuda_kernel.render_image_cuda(static, tables, cam, BH, BW)
+    ref_loss = torch.mean((img - target) ** 2)
+    ref = cuda_bwd.vjp_cuda(static, tables, cam, BH, BW,
+                            2.0 * (img - target) / img.numel())
+    assert cuda_bwd.LAUNCHES == before + 2
+    assert abs(float(loss) - float(ref_loss)) <= 1e-5 * float(ref_loss)
+    assert float(gt.mat_warp_strength.abs().max()) > 0
+    grads_close(ref[:2], (gt, gc))
+
+
+@pytest.mark.cuda
+def test_probe_rev_matches_plain(cuda):
+    """csrc/probe_rev.cu against rev_march_plain on the probe's (8, 128)
+    tile: dx and dw within 1e-5 relative."""
+    from euclider_tpu_torch.ops import probes
+    x = cotangent((8, 128), 7, cuda) * 0.8
+    g = cotangent((8, 128), 8, cuda)
+    before = probes.LAUNCHES
+    dx, dw = probes.rev_march_vjp(x, 1.1, g)
+    pdx, pdw = probes.rev_march_plain(x, 1.1, g)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES == before + 1
+    assert float((dx - pdx).abs().max()) <= 1e-5 * float(pdx.abs().max())
+    assert abs(float(dw) - float(pdw)) <= 1e-5 * abs(float(pdw))
 
 
 @pytest.mark.cuda
@@ -198,6 +255,14 @@ def test_render_image_diff_backward_is_the_kernel(cuda):
     grads_close(ref[:2], (ref[0]._replace(**dict(zip(
         cuda_kernel.FLOAT_FIELDS, grads[:n]))), type(cam)(*grads[n:])),
         rtol=1e-6)
+
+
+def test_probe_rev_kernel_refuses_cpu_tensors():
+    from euclider_tpu_torch.ops import probes
+    before = probes.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        probes.rev_march_cuda(torch.zeros(8, 128), 1.1, torch.zeros(8, 128))
+    assert probes.LAUNCHES == before
 
 
 def test_backward_wrappers_refuse_cpu_tensors():

@@ -27,6 +27,8 @@ def test_package_imports_no_jax():
             "import euclider_tpu_torch.ops.cuda_kernel\n"
             "import euclider_tpu_torch.ops.cuda_bwd\n"
             "import euclider_tpu_torch.ops.vjp\n"
+            "import euclider_tpu_torch.ops.march\n"
+            "import euclider_tpu_torch.ops.probes\n"
             "import euclider_tpu_torch.train.inverse\n"
             "import euclider_tpu_torch.train.fit\n"
             "import euclider_tpu_torch.utils.validate\n"

@@ -87,10 +87,13 @@ def test_row_slab_matches_full_frame(compiled_scenes, y0, rows):
 
 
 @pytest.mark.parametrize("name", ["config3_csg_textured",
-                                  "config5_warp_portal"])
+                                  "config6_expr_space"])
 def test_cuda_encoder_refuses_unsupported_features(compiled_scenes, name):
+    what = {"config3_csg_textured": "torch port does not",
+            "config6_expr_space":
+                "torch port does not render expression space"}[name]
     _, static, _, _ = compiled_scenes[name]
     with pytest.raises(NotImplementedError, match="CUDA kernel does not"):
         cuda_kernel.encode_scene(static)
-    with pytest.raises(NotImplementedError, match="torch port does not"):
+    with pytest.raises(NotImplementedError, match=what):
         trace.render_image(*port_inputs(compiled_scenes, name), 8, 8)
