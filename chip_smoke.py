@@ -12,29 +12,35 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                together.
   3. kernel  - render_image_cuda against the plain torch version on the card
                at 1280x720, config1, config2, grad_probe, fresnel_probe,
-               config5 and config7: at least 99.9% of pixels within 1e-4
-               (max over channels); where config2's differing pixels lie.
+               config5, config7 and config6 (expression space): at least
+               99.9% of pixels within 1e-4 (max over channels); where
+               config2's differing pixels lie.
   4. truth   - the kernel against tests/goldens.npz at 48x64 (at most 1% of
                pixels beyond 2e-3) and against the float64 C++ oracle at
-               48x128 (at least 99% within 2e-3), same six scenes.
+               48x128 (at least 99% within 2e-3), same seven scenes.
   5. main    - the render path: euclider_tpu_torch.render_image at 1280x720
-               for config1, config2 and config5 and the CLI with --backend
-               cuda on config2 and config5; the forward kernel's launch
-               count must rise on this path.
+               for config1, config2, config5 and config6 and the CLI with
+               --backend cuda on config2, config5 and config6; the forward
+               kernel's launch count must rise on this path.
   6. bwd     - grad_probe and config2 at 1280x720, and a 64-row slab of the
-               1280x720 frame across the warp region of the warp gradient
-               scene, of config5 and of config5 with smooth surfaces:
-               vjp_cuda against the plain row-blocked backward under a
-               seeded cotangent, every leaf within 1e-3 * max(max |ref|, 1);
-               then train_step_cuda against the forward kernel + MSE +
-               vjp_cuda (loss within 1e-5 relative, gradients by the same
-               rule).
+               1280x720 frame across the warp or expression region of the
+               warp gradient scene, of config5, of config5 with smooth
+               surfaces, of the expression gradient scene (at scene time
+               0.3; its mat_expr_params' and time's gradients must be
+               nonzero) and of config6: vjp_cuda against the plain
+               row-blocked backward under a seeded cotangent, every leaf
+               (and the time) within 1e-3 * max(max |ref|, 1); then
+               train_step_cuda against the forward kernel + MSE + vjp_cuda
+               (loss within 1e-5 relative, gradients by the same rule).
   7. train   - the training path: python -m euclider_tpu_torch.train.fit on
                grad_probe at 1280x720, the example's 120 fused steps (finite
                losses, the sphere-position error below half its start,
                trace_bwd launched once a step and trace_fwd not at all),
                then 2 steps with --backend cuda (both kernels launch), then
-               5 fused steps on config5 (finite, falling losses).
+               5 fused steps on config5 and on config6 (finite, falling
+               losses), and one config6 step through the unfused cuda
+               backend against the fused one (loss within 1e-5 relative,
+               gradients by phase 6's rule).
   8. time    - ms/frame of the render, ms/step of the fused and unfused
                training steps (CUDA events, median of 5 after warm-up), the
                kernels' device time from torch.profiler, and the plain
@@ -56,11 +62,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SCENES = ("config1_sphere_room", "config2_mirror_glass")
 PROBES = ("grad_probe", "fresnel_probe")
 WARP = ("config5_warp_portal", "config7_warp4d")
+EXPR = ("config6_expr_space",)
 BWD_SCENES = ("grad_probe", "config2_mirror_glass")
+TRAIN_SCENES = BWD_SCENES + WARP[:1] + EXPR   # timed training steps
 # marching scenes of phase 6: a 64-row slab [y0, y0 + 64) across the warp
-# region (the plain backward keeps every march step of every pixel)
-SLAB_SCENES = {"warp_gradient_scene": 328, "config5_warp_portal": 300,
-               "config5_smooth": 300}
+# or expression region (the plain backward keeps every march step of every
+# pixel), and the scene time it is taken at
+SLAB_SCENES = {"warp_gradient_scene": (328, 0.0),
+               "config5_warp_portal": (300, 0.0),
+               "config5_smooth": (300, 0.0),
+               "expr_gradient_scene": (328, 0.3),
+               "config6_expr_space": (300, 0.0)}
 SLAB_ROWS = 64
 H, W = 720, 1280
 TOL, MAX_BAD = 1e-4, 1e-3            # kernel vs plain on the card
@@ -86,9 +98,11 @@ def say(phase: str, msg: str) -> None:
 def build_scene(name):
     """A library scene, or one of phase 6's marching gradient scenes:
     tests/test_gradients.py::test_grad_warp_strength's warp sphere before a
-    smooth wall, and config5 with smooth surfaces on the marker, the
-    backdrop and the floor (on uniform and checker surfaces the warp's and
-    the portal's gradients are zero almost everywhere)."""
+    smooth wall, tests/test_expr_space.py::_tiny_expr_scene with the
+    time-dependent field p0 sin(p1 z + t), and config5 with smooth surfaces
+    on the marker, the backdrop and the floor (on uniform and checker
+    surfaces the warp's, the expression's and the portal's gradients are
+    zero almost everywhere)."""
     from dataclasses import replace
     import euclider_tpu_torch as et
     from euclider_tpu_torch.scene import ir
@@ -102,6 +116,18 @@ def build_scene(name):
         return ir.Scene(dim=3, entities=(region, wall),
                         settings=ir.RenderSettings(
                             max_depth=3, march_steps=200,
+                            background=(0.1, 0.1, 0.2)))
+    if name == "expr_gradient_scene":
+        region = ir.Entity(ir.Sphere((0, 0, -4), 1.8),
+                           material=ir.ExprSpace(ax="p0 * sin(p1 * z + t)",
+                                                 ay="0", step=0.06,
+                                                 params=(0.5, 2.0)),
+                           surface=ir.UniformSurface((0, 0, 0, 0.0)))
+        wall = ir.Entity(ir.Hyperplane((0, 0, 1), -8.0),
+                         surface=ir.SmoothSurface(uv_scale=0.5))
+        return ir.Scene(dim=3, entities=(region, wall),
+                        settings=ir.RenderSettings(
+                            max_depth=3, march_steps=96,
                             background=(0.1, 0.1, 0.2)))
     if name == "config5_smooth":
         sc = et.get_scene("config5_warp_portal")
@@ -269,7 +295,7 @@ def main_path(device):
     import euclider_tpu_torch as et
     from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel
 
-    names = SCENES + WARP[:1]
+    names = SCENES + WARP[:1] + EXPR
     scenes = [load(name, device) for name in names]
     cuda_kernel.LAUNCHES = cuda_bwd.LAUNCHES = 0
     imgs = [et.render_image(static, tables, cam, H, W)
@@ -283,7 +309,7 @@ def main_path(device):
             f"{[round(float(c), 4) for c in img.mean(dim=(0, 1))]}")
     say("main", f"kernel launches on the render path: {launches}")
     assert launches >= len(names), "the render path did not run the kernel"
-    for name in (SCENES[1], WARP[0]):
+    for name in (SCENES[1], WARP[0], EXPR[0]):
         cli_render(name)
     return launches
 
@@ -321,16 +347,17 @@ def seams(img):
                                           1)[0, 0] > 0
 
 
-def backward_check(name, device, y0=0, rows=H):
-    """Phase 6 for one scene on rows [y0, y0 + rows) -> numbers for the
-    record."""
+def backward_check(name, device, y0=0, rows=H, tm=0.0):
+    """Phase 6 for one scene on rows [y0, y0 + rows) at scene time tm ->
+    numbers for the record."""
     import torch
     from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel, trace, vjp
 
     static, tables, cam = load(name, device)
-    k1 = cuda_kernel.render_image_cuda(static, tables, cam, H, W, y0=y0,
+    k1 = cuda_kernel.render_image_cuda(static, tables, cam, H, W, tm, y0=y0,
                                        rows=rows)
-    plain = trace.render_image(static, tables, cam, H, W, y0=y0, rows=rows)
+    plain = trace.render_image(static, tables, cam, H, W, tm, y0=y0,
+                               rows=rows)
     # The cotangent is zero where the comparison measures float32 noise, not
     # the kernel: where the two forwards took different branches, and at
     # seams, where per-pixel gradients like dt/dr ~ 1/sqrt(disc) amplify a
@@ -339,11 +366,13 @@ def backward_check(name, device, y0=0, rows=H):
     flips = (k1 - plain).abs().amax(-1) > TOL
     keep = ~(flips | seams(plain))
     g = seeded((rows, W, 3), 0, device) * keep[..., None]
-    got = cuda_bwd.vjp_cuda(static, tables, cam, H, W, g, y0=y0, rows=rows)
+    got = cuda_bwd.vjp_cuda(static, tables, cam, H, W, g, tm, y0=y0,
+                            rows=rows)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    ref = vjp.vjp_blocked(static, tables, cam, H, W, g, y0=y0, rows=rows)
+    ref = vjp.vjp_blocked(static, tables, cam, H, W, g, time=tm, y0=y0,
+                          rows=rows)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
@@ -355,22 +384,34 @@ def backward_check(name, device, y0=0, rows=H):
         f"{ratio:.3f} of its tolerance; plain backward {plain_ms:.1f} ms, "
         f"peak {peak_gib:.2f} GiB")
     if static.has_warp:
-        for (k, a), (_, b) in zip(leaves(*ref[:2]), leaves(*got[:2])):
-            if k.startswith(("mat_warp", "portal")):
-                e = float((a.double() - b.double()).abs().max())
-                say("bwd", f"{name}: {k} max|ref| {float(a.abs().max()):.4g}"
-                    f" err {e:.4g} = "
-                    f"{e / (GRAD_RTOL * max(float(a.abs().max()), 1.0)):.4f}"
-                    " of its tolerance")
+        pairs = [(k, a, b) for (k, a), (_, b) in zip(leaves(*ref[:2]),
+                                                     leaves(*got[:2]))
+                 if k.startswith(("mat_warp", "portal", "mat_expr"))]
+        pairs.append(("time", ref[2], got[2]))
+        for k, a, b in pairs:
+            e = float((a.double() - b.double()).abs().max())
+            say("bwd", f"{name}: {k} max|ref| {float(a.abs().max()):.4g}"
+                f" err {e:.4g} = "
+                f"{e / (GRAD_RTOL * max(float(a.abs().max()), 1.0)):.4f}"
+                " of its tolerance")
+    t_err = abs(float(got[2]) - float(ref[2]))
+    t_ratio = t_err / (GRAD_RTOL * max(abs(float(ref[2])), 1.0))
     assert ratio <= 1.0, f"{name}: vjp_cuda disagrees with the plain backward"
+    assert t_ratio <= 1.0, f"{name}: the time's gradient disagrees"
+    if name == "expr_gradient_scene":
+        assert float(ref[0].mat_expr_params.abs().max()) > 0 and \
+            float(got[0].mat_expr_params.abs().max()) > 0, \
+            f"{name}: mat_expr_params got no gradient"
+        assert float(ref[2]) != 0.0 and float(got[2]) != 0.0, \
+            f"{name}: the scene time got no gradient"
 
     target = seeded((rows, W, 3), 1, device, "uniform")
     loss, gt, gc, _ = cuda_bwd.train_step_cuda(
-        static, tables, cam, target, H, W, y0=y0, rows=rows,
+        static, tables, cam, target, H, W, tm, y0=y0, rows=rows,
         norm=1.0 / (rows * W * 3))
     ref_loss = torch.mean((k1 - target) ** 2)
     ref2 = cuda_bwd.vjp_cuda(static, tables, cam, H, W,
-                             2.0 * (k1 - target) / k1.numel(), y0=y0,
+                             2.0 * (k1 - target) / k1.numel(), tm, y0=y0,
                              rows=rows)
     torch.cuda.synchronize()
     lrel = abs(float(loss) - float(ref_loss)) / float(ref_loss)
@@ -381,15 +422,38 @@ def backward_check(name, device, y0=0, rows=H):
     assert lrel <= LOSS_RTOL, f"{name}: fused loss disagrees"
     assert ratio2 <= 1.0, f"{name}: fused gradients disagree"
     return {"vjp_err_over_tol": ratio, "vjp_leaf": leaf, "vjp_err": err,
+            "time_grad": float(got[2]), "time_err_over_tol": t_ratio,
             "masked_frac": float((~keep).float().mean()),
             "fused_loss_rel": lrel, "fused_err_over_tol": ratio2,
             "plain_ms": plain_ms, "plain_peak_gib": peak_gib,
-            "rows": [y0, y0 + rows]}
+            "rows": [y0, y0 + rows], "scene_time": tm}
 
 
 # --- phase 7 -----------------------------------------------------------------
 
-def train_path():
+def fused_vs_unfused(name, device):
+    """One training step of ``name`` at 1280x720 through the 'cuda-fused'
+    and the 'cuda' backends of train/inverse.py from the same parameters:
+    the losses within LOSS_RTOL, the gradients by phase 6's rule."""
+    from euclider_tpu_torch.train.inverse import (InverseParams,
+                                                  make_fused_value_and_grad)
+    static, tables, cam = load(name, device)
+    target = seeded((H, W, 3), 9, device, "uniform")
+    params = InverseParams(tables, cam)
+    lf, gf = make_fused_value_and_grad(static, H, W, "cuda-fused")(params,
+                                                                   target)
+    lu, gu = make_fused_value_and_grad(static, H, W, "cuda")(params, target)
+    lrel = abs(float(lf) - float(lu)) / float(lu)
+    ratio, leaf, _ = grads_err((gu.tables, gu.cam), (gf.tables, gf.cam))
+    say("train", f"{name}: one step, fused loss {float(lf):.6f} vs unfused "
+        f"{float(lu):.6f} (rel {lrel:.2e}, limit {LOSS_RTOL:g}); worst leaf "
+        f"{leaf} = {ratio:.3f} of its tolerance")
+    assert lrel <= LOSS_RTOL, f"{name}: fused and unfused losses disagree"
+    assert ratio <= 1.0, f"{name}: fused and unfused gradients disagree"
+    return {"loss_rel": lrel, "err_over_tol": ratio, "leaf": leaf}
+
+
+def train_path(device):
     """Phase 7, the training path -> kernel launches on it."""
     from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel
     from euclider_tpu_torch.train import fit
@@ -399,6 +463,8 @@ def train_path():
     unfused = fit.main(["--scene", "grad_probe", "--steps", "2",
                         "--backend", "cuda"])
     warp = fit.main(["--scene", WARP[0], "--steps", str(TRAIN_STEPS)])
+    expr = fit.main(["--scene", EXPR[0], "--steps", str(TRAIN_STEPS)])
+    step = fused_vs_unfused(EXPR[0], device)
     launches = {"trace_fwd": cuda_kernel.LAUNCHES,
                 "trace_bwd": cuda_bwd.LAUNCHES}
     losses = fused["losses"]
@@ -409,19 +475,25 @@ def train_path():
         f"criterion, below half: {fused['recovered']})")
     say("train", f"grad_probe unfused (--backend cuda): launches during the "
         f"steps {unfused['launches']}")
-    say("train", f"{WARP[0]} fused: losses "
-        f"{[round(x, 6) for x in warp['losses']]}, launches during the steps "
-        f"{warp['launches']}; launches on the training path {launches}")
+    for name, run in ((WARP[0], warp), (EXPR[0], expr)):
+        say("train", f"{name} fused: losses "
+            f"{[round(x, 6) for x in run['losses']]}, launches during the "
+            f"steps {run['launches']}")
+    say("train", f"launches on the training path {launches}")
     assert all(x == x and abs(x) != float("inf")
-               for x in losses + unfused["losses"] + warp["losses"])
+               for x in losses + unfused["losses"] + warp["losses"]
+               + expr["losses"])
     assert fused["recovered"], "the example's criterion failed"
     assert fused["launches"] == {"trace_fwd": 0, "trace_bwd": EXAMPLE_STEPS}
     assert min(unfused["launches"].values()) >= 2, "an unfused kernel idled"
-    assert warp["launches"] == {"trace_fwd": 0, "trace_bwd": TRAIN_STEPS}
-    assert all(b < a for a, b in zip(warp["losses"], warp["losses"][1:])), \
-        f"{WARP[0]}: the fused steps did not lower the loss"
+    for name, run in ((WARP[0], warp), (EXPR[0], expr)):
+        assert run["launches"] == {"trace_fwd": 0, "trace_bwd": TRAIN_STEPS}
+        assert all(b < a for a, b in zip(run["losses"], run["losses"][1:])), \
+            f"{name}: the fused steps did not lower the loss"
     return launches, {"grad_probe": losses, WARP[0]: warp["losses"],
-                      "grad_probe_error": fused["error"]}
+                      EXPR[0]: expr["losses"],
+                      "grad_probe_error": fused["error"],
+                      f"{EXPR[0]}_fused_vs_unfused": step}
 
 
 # --- phase 8 -----------------------------------------------------------------
@@ -514,9 +586,31 @@ SPHERE_TEST_OPS = 25      # nearest(): one sphere, both roots
 PLANE_TEST_OPS = 16       # nearest(): one plane
 MISS_OPS = 6              # the cheapest shading: w * background
 MARCH_STEP_OPS = 47       # march_step: the field (18), v + h a, normalize, x + h v
+ATTRACTOR_OPS = 18        # the attractor field of march_step
 SPHERE_SIDE_OPS = 12      # side(): one sphere, at every march step
 PLANE_SIDE_OPS = 8        # side(): one plane
 BISECT_OPS = 240          # bisect(): 10 halvings of lerp + side, one entity
+
+
+def field_ops(static):
+    """Operations of the cheapest field a march step of this scene
+    evaluates: the attractor's, or an expression material's VM program,
+    one per instruction that computes (constants and variables are free,
+    an integer power counts its multiplications and, for a negative
+    exponent, its division)."""
+    from euclider_tpu_torch.ops import cuda_kernel
+    from euclider_tpu_torch.scene.expr import OPS, to_postfix
+    ops = []
+    for m, kind in enumerate(static.mat_kinds):
+        if kind == "warp":
+            ops.append(ATTRACTOR_OPS)
+        elif kind == "expr":
+            code, _ = cuda_kernel.expr_program(
+                [to_postfix(a) for a in static.mat_exprs[m]])
+            ops.append(sum(max(abs(n) - 1 + (n < 0), 0) if op == OPS["powi"]
+                           else int(op not in (OPS["const"], OPS["var"]))
+                           for op, _, _, n in code.tolist()))
+    return min(ops, default=ATTRACTOR_OPS)
 
 
 def bound(static, nodes, backward, steps=0, marches=0):
@@ -524,16 +618,18 @@ def bound(static, nodes, backward, steps=0, marches=0):
     or the cotangent or target in) over HBM bandwidth and a lower bound on
     the FP32 operations over the FP32 peak.  The operations count the
     camera ray, every straight node's nearest-hit test over every entity,
-    every live march step with its side tests over every entity, one
-    bisection per marched node, and the cheapest shading of every node; the
-    backward counts them twice (its forward sweep and the recompute of its
-    reverse sweep) and no adjoint arithmetic.  -> (ms, bound_by, ops)."""
+    every live march step with its field (``field_ops``) and its side tests
+    over every entity, one bisection per marched node, and the cheapest
+    shading of every node; the backward counts them twice (its forward
+    sweep and the recompute of its reverse sweep) and no adjoint
+    arithmetic.  -> (ms, bound_by, ops)."""
     test = sum(SPHERE_TEST_OPS if e.shape[0] == "sphere" else PLANE_TEST_OPS
                for e in static.entities)
     side = sum(SPHERE_SIDE_OPS if e.shape[0] == "sphere" else PLANE_SIDE_OPS
                for e in static.entities)
+    step = MARCH_STEP_OPS - ATTRACTOR_OPS + field_ops(static)
     ops = (H * W * CAMERA_OPS + nodes * MISS_OPS + (nodes - marches) * test
-           + steps * (MARCH_STEP_OPS + side) + marches * BISECT_OPS)
+           + steps * (step + side) + marches * BISECT_OPS)
     if backward:
         ops *= 2
     t_ops = ops / PEAK_FP32 * 1e3
@@ -567,7 +663,7 @@ def timing(name, device, card):
         static, nodes, False, steps, marches)
     out["bwd_bound_ms"], out["bwd_bound_by"], _ = bound(
         static, nodes, True, steps, marches)
-    if name in BWD_SCENES + WARP[:1]:
+    if name in TRAIN_SCENES:
         target = seeded((H, W, 3), 2, device, "uniform")
         params = InverseParams(tables, cam)
         fused = make_fused_value_and_grad(static, H, W, "cuda-fused")
@@ -590,6 +686,44 @@ def timing(name, device, card):
                 "" if k.endswith("per_pixel") else f" ({card})"))
         else:
             say("time", f"{name} {k}: {v}")
+    return out
+
+
+def queued_bounds(static):
+    """Bounds of the TPU kernels still to port, worked out from their code
+    (no kernel runs) -> {name: (ms, bound_by)}.
+
+    K6/K7 (pallas_kernel.py::vjp_pallas_segmented on ``static`` at 1280x720):
+    the carry of _carry_template is sp, ar, ag, ab and max_depth + 1 slots
+    of 11 words; the float cotangent carry is ar, ag, ab and 9 float words a
+    slot.  The forward peel writes one carry, each of the K chunks of
+    CHUNK_TRIPS = 16 trips reads and writes one; each backward chunk reads
+    its boundary carry and the float cotangents and writes the cotangents;
+    the peel's backward reads the cotangents; g is read once.  P1-P5
+    (tools/march_bisect.py, tools/mosaic_probe.py) on their (8, 128) tile:
+    the FP32 operations of their steps (forward, recompute and adjoint) and
+    the bytes of their inputs and outputs."""
+    slots = static.max_depth + 1
+    carry, dfl = 4 + 11 * slots, 3 + 9 * slots
+    trips = static.max_nodes - 1
+    k = -(-trips // 16)
+    words = carry + k * 2 * carry + k * (carry + 2 * dfl) + dfl + 3
+    out = {"K6/K7": (H * W * 4 * words / PEAK_BYTES * 1e3, "bytes")}
+    n = 8 * 128
+    tile_bytes = {"P1": 4, "P2": 12, "P3": 16, "P4": 12, "P5": 12}
+    # operations per element: P1 23 march steps of config5 (step 47, five
+    # side tests 52) forward and twice in the reverse, one bisection; P2 24
+    # steps of x + 0.1 tanh(w x) (4) forward, recomputed, and their VJP
+    # (6); P3 the tile sum, two branches' sin and their VJP; P4 two outer
+    # VJPs of 12 such steps forward, recomputed and transposed; P5 the same
+    # with the two-variable step (8 forward, 16 adjoint)
+    ops = {"P1": 3 * 23 * (47 + 52) + BISECT_OPS, "P2": 24 * (4 + 4 + 6),
+           "P3": 1 + 2 * 4, "P4": 2 * 12 * (4 + 4 + 6),
+           "P5": 2 * 12 * (8 + 8 + 16)}
+    for name in ops:
+        t_ops = n * ops[name] / PEAK_FP32 * 1e3
+        t_bytes = tile_bytes[name] * 1024 / PEAK_BYTES * 1e3
+        out[name] = max((t_ops, "operations"), (t_bytes, "bytes"))
     return out
 
 
@@ -675,25 +809,32 @@ def main() -> int:
             say("build", f"{name}: {line}")
 
     errs = {name: kernel_vs_plain(name, device)
-            for name in SCENES + PROBES + WARP}
+            for name in SCENES + PROBES + WARP + EXPR}
     locate_diffs(SCENES[1], device, errs[SCENES[1]][2])
     goldens = np.load(os.path.join(ROOT, "tests", "goldens.npz"))
-    for name in SCENES + PROBES + WARP:
+    for name in SCENES + PROBES + WARP + EXPR:
         ground_truth(name, device, goldens)
     fwd_launches = main_path(device)
     bwd = {name: backward_check(name, device) for name in BWD_SCENES}
-    bwd.update({name: backward_check(name, device, y0, SLAB_ROWS)
-                for name, y0 in SLAB_SCENES.items()})
-    train_launches, losses = train_path()
+    bwd.update({name: backward_check(name, device, y0, SLAB_ROWS, tm)
+                for name, (y0, tm) in SLAB_SCENES.items()})
+    train_launches, losses = train_path(device)
     times = {name: timing(name, device, card)
-             for name in SCENES + ("grad_probe",) + WARP}
+             for name in SCENES + ("grad_probe",) + WARP + EXPR}
     probe = probe_check(device, card)
+    for name, (ms, by) in queued_bounds(load(SCENES[1], device)[0]).items():
+        say("time", f"still to port, {name}: bound {ms:.6g} ms ({by}; "
+            f"{'config2 at 1280x720' if name == 'K6/K7' else '(8, 128)'}, "
+            f"worked out from the code by queued_bounds)")
 
     gp, c2 = times["grad_probe"], times[SCENES[1]]
     record = [{
         "name": "trace_fwd", "route": "cuda",
         "source": "euclider_tpu_torch/csrc/trace_fwd.cu",
         "replaces": "euclider_tpu/ops/pallas_kernel.py:127",
+        "covers": "K1: straight space, the march through the attractor "
+                  "field and the expression VM (trace_common.cuh vm_eval), "
+                  "portals",
         "launches": fwd_launches + train_launches["trace_fwd"],
         "max_abs_err": max(e[0] for e in errs.values()),
         "ms": c2["fwd_device_ms"], "plain_ms": c2["plain_frame_ms"],
@@ -714,6 +855,10 @@ def main() -> int:
                     "euclider_tpu/ops/pallas_vjp.py:611 (plain, K3), "
                     "euclider_tpu/ops/pallas_vjp.py:173 (K4), "
                     "euclider_tpu/ops/pallas_kernel.py:270 (K5)",
+        "covers": "K2/K3/K5: the backward of straight space and portals; "
+                  "K4: the reversible march backward through the attractor "
+                  "field and the expression VM's adjoint (trace_bwd.cu "
+                  "vm_adjoint: mat_expr_params and the scene time)",
         "launches": train_launches["trace_bwd"],
         "max_abs_err": max(b["vjp_err"] for b in bwd.values()),
         "ms": gp["bwd_device_ms"], "plain_ms": bwd["grad_probe"]["plain_ms"],

@@ -7,7 +7,10 @@ end (``scene/``), a plain batched-torch version of the trace loop
 forward megakernel (``ops/cuda_kernel.py`` + ``csrc/trace_fwd.cu``), and
 the differentiable render and training step on the hand-written backward
 kernel that replaces the Pallas backward kernels (``ops/cuda_bwd.py`` +
-``csrc/trace_bwd.cu``; plain version ``ops/vjp.py``; ``train/``).
+``csrc/trace_bwd.cu``; plain version ``ops/vjp.py``; ``train/``).  Both
+kernels march warped and expression space; expressions run on a per-thread
+VM (``csrc/trace_common.cuh``), and their gradients reach the expression
+parameters and the scene ``time``.
 
     import euclider_tpu_torch as et
     sc = et.get_scene("config2_mirror_glass")

@@ -16,8 +16,10 @@
 // tree, so one kernel serves shallow and deep trees alike.  Inside both
 // modes it also replaces the march backward nested in K2/K3 (K4,
 // pallas_vjp.py::make_march_ckpt -> march_bwd_rev): the reversible reverse
-// sweep of a marched node (see march_reverse below), and the adjoint of
-// the portal teleport.
+// sweep of a marched node (see march_reverse below), through the attractor
+// field or an expression material's VM program (vm_adjoint: the gradients
+// of the field's position, of p0..p7 and of the scene time), and the
+// adjoint of the portal teleport.
 //
 // Per thread: a forward sweep shades the pixel's tree with the forward
 // kernel's own device code (trace_common.cuh) and writes a tape, one entry
@@ -42,8 +44,12 @@
 // deterministic.
 //
 // What bounds it: FP32 ALU work, warp divergence and the local-memory
-// traffic of the tape (at most MAX_TAPE entries of 17 words per thread),
-// not device-memory bytes: it reads 12 B and writes nothing per pixel.
+// traffic of the tape (at most MAX_TAPE entries of 17 words per thread, 19
+// in the builds that march) and, in the expression build, of the VM's
+// value and adjoint arrays (one float each per instruction), not
+// device-memory bytes: it reads 12 B and writes nothing per pixel.  The
+// per-thread gradient vector holds only the tables the build reads, since
+// every thread reduces all of it.
 //
 // Built like trace_fwd.cu: nvcc -gencode arch=compute_90a,code=sm_90a
 // -std=c++17 -O3, without --use_fast_math.
@@ -64,15 +70,17 @@ constexpr int MAX_MARCH_CK = 32;  // checkpoints: march_steps <= 512
 // offsets of each table in the gradient vector (the camera row is [0, 24))
 struct Offs {
     int sv, ssc, ior, col, col2, refl, fres, uvs, bg, wc, ws, wh, plin, ptr,
-        loss, n;
+        ep, loss, n;
 };
+constexpr int CAM_TIME = 17;      // the time's slot in the camera row
 
+template <bool kWarp>
 struct TapeNode {
     V4 org, dir;   // the input slot; after the reverse sweep, its adjoint
     float w;       // the input weight; after the reverse sweep, its adjoint
     int mat, depth;
     int child[2];  // shading index of the transmission / reflection child
-    NodeRec rec;
+    NodeRec<kWarp> rec;
 };
 
 __device__ __forceinline__ V4 vzero() { return {0.0f, 0.0f, 0.0f, 0.0f}; }
@@ -91,11 +99,11 @@ __device__ __forceinline__ void add4(float* g, V4 v) {
 }
 
 // d atan_p / dx, the derivative of the polynomial itself (as autograd of
-// ops/mathx.py would give it; 0 at x == 0, where |x| has gradient 0)
+// ops/mathx.py and jax give it; at x == 0 the first coefficient, since
+// both differentiate |x| as select(x >= 0, 1, -1))
 __device__ __forceinline__ float atan_p_grad(float x) {
     constexpr float C[10] = {TRACE_ATAN_COEFFS};
     const float ax = fabsf(x);
-    if (ax == 0.0f) return 0.0f;
     const bool big = ax > 1.0f;
     const float z = big ? 1.0f / ax : ax;
     const float t = z * z;
@@ -174,6 +182,122 @@ __device__ __forceinline__ void plane_uv_adj(V4 p, V4 c, int dim, float du,
     *dc = add(*dc, g);
 }
 
+// --- the expression VM's adjoint ----------------------------------------
+//
+// The derivatives are jax autodiff's of scene/expr.py::jax_lib(safe=True)
+// (and autograd's of torch_lib, which agree): zero on a guarded lane and
+// for floor and sign, select(x >= 0, 1, -1) for abs, half to each side of
+// a tie of min and max, and the arc functions through their polynomials
+// (atan_p_grad), not the analytic 1 / (1 + x^2).
+
+// d asin_p / dx through the polynomial: asin_p = atan(x / s),
+// s = sqrt(max(1 - x^2, 1e-12))
+__device__ __forceinline__ float asin_p_grad(float x) {
+    const float one_m = 1.0f - x * x;
+    const float s = sqrtf(fmaxf(one_m, 1e-12f));
+    const float dq = one_m >= 1e-12f ? 1.0f / s + x * x / (s * s * s)
+                                     : 1.0f / s;
+    return atan_p_grad(x / s) * dq;
+}
+
+// Adjoint of vm_eval(f, x, val) at the values val it left: from the
+// cotangent ga of the field to those of x (added to *gx), p0..p7 (gp) and
+// the time (*gt).  Each instruction's value feeds exactly one consumer (the
+// programs are trees), so one sweep from the last instruction down carries
+// every adjoint; adj is scratch of one float per instruction.
+__device__ void vm_adjoint(const Field<true>& f, V4 ga, const float* val,
+                           float* adj, V4* gx, float gp[8], float* gt) {
+    const int n = f.end[3];
+    for (int i = 0; i < n; ++i) adj[i] = 0.0f;
+    adj[f.end[0] - 1] += ga.x;
+    adj[f.end[1] - 1] += ga.y;
+    adj[f.end[2] - 1] += ga.z;
+    adj[f.end[3] - 1] += ga.w;
+    float gxs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int i = n - 1; i >= 0; --i) {
+        const int32_t* in = f.code + 4 * i;
+        const int op = in[0], a = in[1], b = in[2];
+        const float g = adj[i];
+        if (op == OP_CONST) continue;
+        if (op == OP_VAR) {
+            if (a < 4) gxs[a] += g;
+            else if (a < 12) gp[a - 4] += g;
+            else *gt += g;
+            continue;
+        }
+        const float A = val[a], r = val[i];
+        switch (op) {
+            case OP_ADD: adj[a] += g; adj[b] += g; break;
+            case OP_SUB: adj[a] += g; adj[b] -= g; break;
+            case OP_MUL: adj[a] += g * val[b]; adj[b] += g * A; break;
+            case OP_DIV: {
+                const float B = val[b];
+                if (B != 0.0f) {
+                    adj[a] += g / B;
+                    adj[b] += -g * A / (B * B);
+                }
+                break;
+            }
+            case OP_NEG: adj[a] -= g; break;
+            case OP_POWI: {
+                const int n = in[3];
+                if (n == 0) break;
+                // d a^|n| / da = |n| a^(|n| - 1)
+                const float d = abs(n) > 1 ? abs(n) * powi_abs(A, abs(n) - 1)
+                                           : 1.0f;
+                if (n > 0) {
+                    adj[a] += g * d;
+                } else {
+                    const float acc = powi_abs(A, n);
+                    if (acc != 0.0f) adj[a] += -g * d / (acc * acc);
+                }
+                break;
+            }
+            case OP_POWF: {  // r = exp(B L), L = safe_log(A)
+                const float B = val[b];
+                adj[b] += g * r * safe_log(A);
+                if (A > 0.0f) adj[a] += g * r * B / A;
+                break;
+            }
+            case OP_SIN: adj[a] += g * cosf(A); break;
+            case OP_COS: adj[a] -= g * sinf(A); break;
+            case OP_TANH: adj[a] += g * (1.0f - r * r); break;
+            case OP_EXP: adj[a] += g * r; break;
+            case OP_LOG: if (A > 0.0f) adj[a] += g / A; break;
+            case OP_SQRT: if (A > 0.0f) adj[a] += g * 0.5f / r; break;
+            case OP_ABS: adj[a] += A >= 0.0f ? g : -g; break;
+            case OP_ATAN: adj[a] += g * atan_p_grad(A); break;
+            case OP_ASIN:
+                if (fabsf(A) < 1.0f) adj[a] += g * asin_p_grad(A);
+                break;
+            case OP_ACOS:
+                if (fabsf(A) < 1.0f) adj[a] -= g * asin_p_grad(A);
+                break;
+            case OP_MIN:
+            case OP_MAX: {
+                const float B = val[b];
+                // jax's balanced rule: the side equal to the result takes
+                // all of g, half when both are
+                const float wa = A == B ? 0.5f : (A == r ? 1.0f : 0.0f);
+                adj[a] += g * wa;
+                adj[b] += g * (A == B ? 0.5f : 1.0f - wa);
+                break;
+            }
+            case OP_ATAN2: {  // atan(A / B) for B != 0, constant otherwise
+                const float B = val[b];
+                if (B != 0.0f) {
+                    const float dq = g * atan_p_grad(A / B);
+                    adj[a] += dq / B;
+                    adj[b] += -dq * A / (B * B);
+                }
+                break;
+            }
+            default: break;  // OP_FLOOR, OP_SIGN: zero
+        }
+    }
+    *gx = add(*gx, V4{gxs[0], gxs[1], gxs[2], gxs[3]});
+}
+
 // --- the march backward (K4) ------------------------------------------------
 //
 // The forward sweep records, per marched node, its input (the tape slot:
@@ -191,7 +315,10 @@ __device__ __forceinline__ void plane_uv_adj(V4 p, V4 c, int dim, float du,
 // the segment slots (sx0, sx1, sv) = (x, x1, v1) that the finish reads.
 // Rebuilding restarts at every checkpoint, so rounding drifts over at most
 // MARCH_CB steps.  No side test runs in the reverse: the decisions (which
-// step crossed, lambda, the entity) are the tape's.
+// step crossed, lambda, the entity) are the tape's.  An expression
+// material's a(x) is its VM program: the rebuild evaluates it (keeping
+// every instruction's value) and vm_adjoint takes the step's field
+// cotangent back through it.
 
 struct MarchTape {
     V4 ckx[MAX_MARCH_CK], ckv[MAX_MARCH_CK];  // state at each chunk's start
@@ -199,8 +326,9 @@ struct MarchTape {
 };
 
 // Re-march the n steps of a marched node from its input.
-__device__ __forceinline__ void march_replay(const Field& f, V4 org, V4 d0,
-                                             int n, MarchTape* mt) {
+template <bool kExpr>
+__device__ __forceinline__ void march_replay(const Field<kExpr>& f, V4 org,
+                                             V4 d0, int n, MarchTape* mt) {
     V4 x = org, v = d0;
     mt->xb = org;
     for (int i = 0; i < n; ++i) {
@@ -209,7 +337,7 @@ __device__ __forceinline__ void march_replay(const Field& f, V4 org, V4 d0,
             mt->ckv[i / MARCH_CB] = v;
         }
         V4 x1, v1;
-        march_step(f, x, v, &x1, &v1);
+        march_step<kExpr>(f, x, v, &x1, &v1);
         mt->xb = x;
         x = x1;
         v = v1;
@@ -220,13 +348,20 @@ __device__ __forceinline__ void march_replay(const Field& f, V4 org, V4 d0,
 
 // Adjoint of the march of material mat: from the cotangents of the segment
 // slots (g_sx0, g_sx1, g_sv) to those of its input (d_org, d_dir), adding
-// the field's gradients (centre, strength, step h) into grad.
-__device__ void march_reverse(const Offs& off, int mat, const Field& f,
+// the field's gradients into grad: centre and strength of an attractor,
+// p0..p7 and the scene time of an expression, the step h of both.
+template <bool kExpr>
+__device__ void march_reverse(const Offs& off, int mat, const Field<kExpr>& f,
                               const MarchTape& mt, int n, V4 g_sx0, V4 g_sx1,
                               V4 g_sv, float* grad, V4* d_org, V4* d_dir) {
     const float h = f.h;
     V4 gx = vzero(), gv = vzero(), gc = vzero();
     float gs = 0.0f, gh = 0.0f;
+    bool expr = false;
+    if constexpr (kExpr) expr = f.code != nullptr;
+    float val[kExpr ? MAX_EXPR : 1], adj[kExpr ? MAX_EXPR : 1];
+    float gp[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    float gt = 0.0f;
     const int nb = (n + MARCH_CB - 1) / MARCH_CB;
     for (int b = nb - 1; b >= 0; --b) {
         const int i0 = b * MARCH_CB, i1 = min(i0 + MARCH_CB, n);
@@ -235,7 +370,12 @@ __device__ void march_reverse(const Offs& off, int mat, const Field& f,
         for (int i = i1 - 1; i >= i0; --i) {
             // the state before step i, rebuilt from the state after it
             const V4 xp = madd(xc, -h, vc);
-            const V4 a = accel(f, xp);
+            V4 a;
+            if constexpr (kExpr) {
+                a = expr ? vm_eval(f, xp, val) : attractor(f.c, f.strength, xp);
+            } else {
+                a = attractor(f.c, f.strength, xp);
+            }
             const float va = h * dot(vc, a);
             const float disc = fmaxf(va * va - h * h * dot(a, a) + 1.0f, 0.0f);
             const V4 vp = madd(scale(vc, va + sqrtf(disc)), -h, a);
@@ -255,25 +395,38 @@ __device__ void march_reverse(const Offs& off, int mat, const Field& f,
             const V4 g_u = normalize_adj(u, g_v1);
             gh += dot(g_u, a);
             const V4 g_a = scale(g_u, h);
-            // a = dd * k, dd = c - xp, k = strength r2^-1.5,
-            // r2 = |dd|^2 + 1e-4
-            const V4 dd = sub(f.c, xp);
-            const float r2 = dot(dd, dd) + 1e-4f;
-            const float inv = powf(r2, -1.5f);
-            const float k = f.strength * inv;
-            const float g_k = dot(g_a, dd);
-            gs += g_k * inv;
-            const float g_r2 = g_k * f.strength * (-1.5f) * inv / r2;
-            const V4 g_dd = madd(scale(g_a, k), 2.0f * g_r2, dd);
-            gc = add(gc, g_dd);
-            gx = sub(add(g_x1, g_xp), g_dd);
+            if (expr) {
+                // a = the material's program at xp
+                V4 g_f = vzero();
+                if constexpr (kExpr) vm_adjoint(f, g_a, val, adj, &g_f, gp, &gt);
+                gx = add(add(g_x1, g_xp), g_f);
+            } else {
+                // a = dd * k, dd = c - xp, k = strength r2^-1.5,
+                // r2 = |dd|^2 + 1e-4
+                const V4 dd = sub(f.c, xp);
+                const float r2 = dot(dd, dd) + 1e-4f;
+                const float inv = powf(r2, -1.5f);
+                const float k = f.strength * inv;
+                const float g_k = dot(g_a, dd);
+                gs += g_k * inv;
+                const float g_r2 = g_k * f.strength * (-1.5f) * inv / r2;
+                const V4 g_dd = madd(scale(g_a, k), 2.0f * g_r2, dd);
+                gc = add(gc, g_dd);
+                gx = sub(add(g_x1, g_xp), g_dd);
+            }
             gv = g_u;
             xc = xp;
             vc = vp;
         }
     }
-    add4(grad + off.wc + 4 * mat, gc);
-    grad[off.ws + mat] += gs;
+    if (expr) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) grad[off.ep + 8 * mat + k] += gp[k];
+        grad[CAM_TIME] += gt;
+    } else {
+        add4(grad + off.wc + 4 * mat, gc);
+        grad[off.ws + mat] += gs;
+    }
     grad[off.wh + mat] += gh;
     *d_org = gx;
     *d_dir = gv;
@@ -281,13 +434,28 @@ __device__ void march_reverse(const Offs& off, int mat, const Field& f,
 
 // --- one node ---------------------------------------------------------------
 
+// a marched node's recorded end (the straight build records none)
+__device__ __forceinline__ int rec_n(const NodeRec<true>& r) { return r.n; }
+__device__ __forceinline__ int rec_n(const NodeRec<false>&) { return 0; }
+__device__ __forceinline__ float rec_lam(const NodeRec<true>& r) {
+    return r.lam;
+}
+__device__ __forceinline__ float rec_lam(const NodeRec<false>&) {
+    return 0.0f;
+}
+
 // Recompute node `in` under its recorded decisions and return the adjoint
 // of its input slot (origin, direction, weight), given the cotangent G of
 // the pixel colour and the input adjoints of the children it shaded.
-template <bool kWarp>
-__device__ void node_adj(const Scene& s, const Offs& off, const TapeNode& T,
-                         const float G[3], const TapeNode* tape, float* grad,
-                         V4* d_org, V4* d_dir, float* d_w) {
+template <int kB>
+__device__ void node_adj(const Scene& s, const Offs& off,
+                         const TapeNode<kB != BUILD_STRAIGHT>& T,
+                         const float G[3],
+                         const TapeNode<kB != BUILD_STRAIGHT>* tape,
+                         float* grad, V4* d_org, V4* d_dir, float* d_w) {
+    constexpr bool kWarp = kB != BUILD_STRAIGHT;
+    constexpr bool kExpr = kB == BUILD_EXPR;
+    using Tape = TapeNode<kWarp>;
     const V4 o = T.org;
     const float w = T.w;
     *d_org = vzero();
@@ -309,15 +477,15 @@ __device__ void node_adj(const Scene& s, const Offs& off, const TapeNode& T,
     const bool sphere = s.node_kind[node] == NODE_SPHERE;
 
     // ---- recompute: the hit point p and the direction d there ----
-    const bool marched = kWarp && s.mat_warp[T.mat] != 0;
+    const bool marched = kWarp && s.mat_warp[T.mat] != MAT_STRAIGHT;
     float t = 0.0f, b = 0.0f, sq = 1.0f, nd = 1.0f;
     V4 oc = vzero(), p, d;
-    Field f;
+    Field<kExpr> f;
     MarchTape mt;
     if (marched) {
-        f = field(s, T.mat);
-        march_replay(f, o, T.dir, T.rec.n, &mt);
-        p = lerp_rn(mt.xb, mt.xe, T.rec.lam);
+        f = field<kExpr>(s, T.mat);
+        march_replay<kExpr>(f, o, T.dir, rec_n(T.rec), &mt);
+        p = lerp_rn(mt.xb, mt.xe, rec_lam(T.rec));
         d = mt.ve;
     } else {
         d = T.dir;
@@ -376,7 +544,7 @@ __device__ void node_adj(const Scene& s, const Offs& off, const TapeNode& T,
     //      pd = normalize(q), q = lin d, origin pp + PUSH pd ----
     const int portal = kWarp ? s.ent_portal[ent] : -1;
     if (T.child[0] >= 0 && portal >= 0) {
-        const TapeNode& C = tape[T.child[0]];
+        const Tape& C = tape[T.child[0]];
         const float* lin = s.portal_lin + 16 * portal;
         const V4 q = matvec(lin, d);
         const V4 dq = normalize_adj(q, madd(C.dir, PUSH, C.org));
@@ -399,7 +567,7 @@ __device__ void node_adj(const Scene& s, const Offs& off, const TapeNode& T,
 
     // ---- transmission child: refract, PUSH offset, w (1-refl)(1-alpha) ----
     if (T.child[0] >= 0 && portal < 0) {
-        const TapeNode& C = tape[T.child[0]];
+        const Tape& C = tape[T.child[0]];
         const int m_to = T.rec.m_to;
         const float ia = s.mat_ior[T.mat], ib = s.mat_ior[m_to];
         const float eta = ia / ib;
@@ -431,7 +599,7 @@ __device__ void node_adj(const Scene& s, const Offs& off, const TapeNode& T,
 
     // ---- reflection child: reflect, PUSH offset, w refl ----
     if (T.child[1] >= 0) {
-        const TapeNode& C = tape[T.child[1]];
+        const Tape& C = tape[T.child[1]];
         const float kk = 2.0f * dot(d, n);
         dp = add(dp, C.org);
         const V4 drd = madd(C.dir, PUSH, C.org);
@@ -507,9 +675,10 @@ __device__ void node_adj(const Scene& s, const Offs& off, const TapeNode& T,
 
     if (marched) {
         // ---- p = sx0 (1 - lambda) + sx1 lambda, d = sv: the march (K4) ----
-        const float lam = T.rec.lam;
-        march_reverse(off, T.mat, f, mt, T.rec.n, scale(dp, 1.0f - lam),
-                      scale(dp, lam), dd, grad, &dorg, &dd);
+        const float lam = rec_lam(T.rec);
+        march_reverse<kExpr>(off, T.mat, f, mt, rec_n(T.rec),
+                             scale(dp, 1.0f - lam), scale(dp, lam), dd, grad,
+                             &dorg, &dd);
         add4(grad + off.sv + 4 * row, dc);
         *d_org = dorg;
         *d_dir = dd;
@@ -602,28 +771,28 @@ __device__ void camera_adj(const float* cam, int x, int y, int H, int W,
 
 // Forward sweep, seed, reverse sweep for one pixel; adds its gradient (and,
 // fused, its loss term) into grad.
-template <bool kWarp>
+template <int kB>
 __device__ void pixel_backward(const Scene& s, const Offs& off,
                                const float* cam, int x, int y, int H, int W,
                                const float* gin, float norm, bool fused,
                                float* grad) {
+    using Tape = TapeNode<kB != BUILD_STRAIGHT>;
     const V4 d0 = camera_ray(cam, x, y, H, W, nullptr);
     float acc[3] = {0.0f, 0.0f, 0.0f};
     Slot stack[MAX_SLOTS];
     int sp = 0;
-    TapeNode tape[MAX_TAPE];
+    Tape tape[MAX_TAPE];
     const Slot root{load4(cam), d0, 1.0f, s.ambient, s.max_depth, -1, 0};
-    tape[0] = TapeNode{root.org, root.dir, root.w, root.mat, root.depth,
-                       {-1, -1}, {}};
-    shade<kWarp>(s, root, 0, acc, stack, &sp, &tape[0].rec);
+    tape[0] = Tape{root.org, root.dir, root.w, root.mat, root.depth,
+                   {-1, -1}, {}};
+    shade<kB>(s, root, 0, acc, stack, &sp, &tape[0].rec);
     int n = 1;
     for (int it = 0; it < s.max_nodes - 1 && sp > 0; ++it, ++n) {
         --sp;
         const Slot nd = stack[sp];
-        tape[n] = TapeNode{nd.org, nd.dir, nd.w, nd.mat, nd.depth, {-1, -1},
-                           {}};
+        tape[n] = Tape{nd.org, nd.dir, nd.w, nd.mat, nd.depth, {-1, -1}, {}};
         tape[nd.parent].child[nd.branch] = n;
-        shade<kWarp>(s, nd, n, acc, stack, &sp, &tape[n].rec);
+        shade<kB>(s, nd, n, acc, stack, &sp, &tape[n].rec);
     }
 
     const float* gp = gin + 3 * ((size_t)y * W + x);
@@ -646,7 +815,7 @@ __device__ void pixel_backward(const Scene& s, const Offs& off,
     for (int i = n - 1; i >= 0; --i) {
         V4 dorg, ddir;
         float dw;
-        node_adj<kWarp>(s, off, tape[i], G, tape, grad, &dorg, &ddir, &dw);
+        node_adj<kB>(s, off, tape[i], G, tape, grad, &dorg, &ddir, &dw);
         tape[i].org = dorg;
         tape[i].dir = ddir;
         tape[i].w = dw;
@@ -657,7 +826,7 @@ __device__ void pixel_backward(const Scene& s, const Offs& off,
 
 // One thread per pixel of the row slab; one row of partial sums per block
 // into partials[p * n_blocks + block].
-template <bool kWarp>
+template <int kB>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 trace_bwd_kernel(Scene s, Offs off, const float* __restrict__ cam, int H,
                  int W, int rows, const float* __restrict__ gin, float norm,
@@ -667,8 +836,8 @@ trace_bwd_kernel(Scene s, Offs off, const float* __restrict__ cam, int H,
     float grad[MAX_PARAMS];
     for (int p = 0; p < off.n; ++p) grad[p] = 0.0f;
     if (x < W && y < rows)
-        pixel_backward<kWarp>(s, off, cam, x, y, H, W, gin, norm, fused != 0,
-                               grad);
+        pixel_backward<kB>(s, off, cam, x, y, H, W, gin, norm, fused != 0,
+                            grad);
 
     __shared__ float red[NWARPS][MAX_PARAMS];
     const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
@@ -711,13 +880,19 @@ sum_partials_kernel(const float* __restrict__ partials, int n_blocks,
 
 }  // namespace
 
-// The gradient vector out[n_params + 1]: the camera row [0, 24), then the
-// float tables in FLOAT_FIELDS order (shape_vec, shape_sc, mat_ior,
-// surf_color, surf_color2, surf_refl, surf_fresnel, surf_uv_scale,
-// background, mat_warp_center, mat_warp_strength, mat_warp_step,
-// portal_lin, portal_tr), then the loss (fused mode; 0 in vjp mode).
-// ints, floats, params: the scene (trace_common.cuh make_scene); sizes:
-// the rows of shape_vec, mat_ior, surf_color and portal_tr.  partials:
+// The gradient vector out[n_params + 1]: the camera row [0, 24) (the
+// scene time's gradient at 17), then the float tables in FLOAT_FIELDS order
+// (shape_vec, shape_sc, mat_ior, surf_color, surf_color2, surf_refl,
+// surf_fresnel, surf_uv_scale, background, mat_warp_center,
+// mat_warp_strength, mat_warp_step, portal_lin, portal_tr, mat_expr_params),
+// then the loss (fused mode; 0 in vjp mode).  A table the scene's build
+// never reads takes no entries (its gradient is zero): every thread
+// reduces the whole vector, so its length is paid per pixel.  ints,
+// floats, params: the scene (trace_common.cuh make_scene); sizes: the rows
+// of shape_vec, mat_ior and surf_color, and the rows in the gradient of
+// the march's tables (mat_warp_*: n_mat, or 0 in the straight build), of
+// the portals' (portal_*: their rows, or 0 in the straight build) and of
+// mat_expr_params (n_mat in the VM build, else 0).  partials:
 // scratch of (n_params + 1) * n_blocks floats, n_blocks = ceil(W/32) *
 // ceil(rows/8).
 extern "C" int euclider_trace_bwd(
@@ -725,13 +900,18 @@ extern "C" int euclider_trace_bwd(
     float t_max, const int* sizes, const float* cam, int H, int W, int rows,
     const float* gin, float norm, int fused, float* partials,
     long long partials_len, float* out, int device, void* stream) {
-    const Scene s = make_scene(ints, floats, params, t_max);
+    const Scene s = make_scene(ints, floats, params, t_max, cam);
     if (s.max_depth + 1 > MAX_SLOTS || s.max_nodes > MAX_TAPE ||
         s.max_nodes < 1 || s.n_ent > 32 ||
         s.march_steps > MARCH_CB * MAX_MARCH_CK)
         return (int)cudaErrorInvalidValue;
     const int n_shape = sizes[0], n_mat = sizes[1], n_surf = sizes[2],
-              n_portal = sizes[3];
+              n_warp = sizes[3], n_portal = sizes[4], n_expr = sizes[5];
+    const int build = scene_build(params);
+    if (n_warp != (build != BUILD_STRAIGHT ? n_mat : 0) ||
+        (build == BUILD_STRAIGHT && n_portal != 0) ||
+        n_expr != (build == BUILD_EXPR ? n_mat : 0))
+        return (int)cudaErrorInvalidValue;
     Offs off;
     off.sv = 24;
     off.ssc = off.sv + 4 * n_shape;
@@ -743,11 +923,12 @@ extern "C" int euclider_trace_bwd(
     off.uvs = off.fres + n_surf;
     off.bg = off.uvs + n_surf;
     off.wc = off.bg + 3;
-    off.ws = off.wc + 4 * n_mat;
-    off.wh = off.ws + n_mat;
-    off.plin = off.wh + n_mat;
+    off.ws = off.wc + 4 * n_warp;
+    off.wh = off.ws + n_warp;
+    off.plin = off.wh + n_warp;
     off.ptr = off.plin + 16 * n_portal;
-    off.loss = off.ptr + 4 * n_portal;
+    off.ep = off.ptr + 4 * n_portal;
+    off.loss = off.ep + 8 * n_expr;
     off.n = off.loss + 1;
     if (off.n > MAX_PARAMS) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
@@ -758,12 +939,19 @@ extern "C" int euclider_trace_bwd(
     const long long n_blocks = (long long)grid.x * grid.y;
     if (partials_len < n_blocks * off.n) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    if (s.march_steps > 0)
-        trace_bwd_kernel<true><<<grid, block, 0, st>>>(
-            s, off, cam, H, W, rows, gin, norm, fused, partials);
-    else
-        trace_bwd_kernel<false><<<grid, block, 0, st>>>(
-            s, off, cam, H, W, rows, gin, norm, fused, partials);
+    switch (build) {
+        case BUILD_STRAIGHT:
+            trace_bwd_kernel<BUILD_STRAIGHT><<<grid, block, 0, st>>>(
+                s, off, cam, H, W, rows, gin, norm, fused, partials);
+            break;
+        case BUILD_WARP:
+            trace_bwd_kernel<BUILD_WARP><<<grid, block, 0, st>>>(
+                s, off, cam, H, W, rows, gin, norm, fused, partials);
+            break;
+        default:
+            trace_bwd_kernel<BUILD_EXPR><<<grid, block, 0, st>>>(
+                s, off, cam, H, W, rows, gin, norm, fused, partials);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     sum_partials_kernel<<<off.n, RED_THREADS, 0, st>>>(

@@ -11,15 +11,24 @@
 // division, floorf and sinf stay IEEE float32 / full-range libm.
 //
 // Supported: sphere, half-space and hyperplane leaves with their UV maps;
-// uniform, checker and smooth surfaces; vacuum, dielectric and attractor
-// ('warp') materials, whose rays march (ops/march.py); portals.  The Python
-// wrappers refuse every other feature before launching.
+// uniform, checker and smooth surfaces; vacuum, dielectric, attractor
+// ('warp') and expression ('expr') materials, whose rays march
+// (ops/march.py); portals.  The Python wrappers refuse every other feature
+// before launching.
 //
 // The march repeats its step up to 320 times, which would amplify any
 // rounding difference from the plain version: its arithmetic (the step,
-// the side tests, the bisection) is written with __fmul_rn / __fadd_rn, so
-// nvcc contracts nothing into an FMA and every operation rounds as the
-// plain version's separate torch operations do.
+// the side tests, the bisection, the expression VM) is written with
+// __fmul_rn / __fadd_rn / __fdiv_rn, so nvcc contracts nothing into an FMA
+// and every operation rounds as the plain version's separate torch
+// operations do; the VM's sinf, cosf, tanhf, expf, logf and sqrtf are the
+// libm functions torch's CUDA operators call.
+//
+// Three builds of every kernel (the template parameter kB): straight space
+// only, + the march with the attractor field and the portal teleport, + the
+// expression VM.  Each launch takes the smallest build that renders its
+// scene, so scenes without expressions run the code they ran before the VM
+// existed.
 
 #pragma once
 
@@ -29,6 +38,7 @@
 namespace trace {
 
 constexpr int MAX_SLOTS = 16;     // DFS stack capacity (max_depth + 1 <= 16)
+constexpr int MAX_EXPR = 128;     // VM instructions of one material's field
 constexpr float EPS_T = 1e-4f;    // minimum accepted hit distance
 constexpr float PUSH = 1e-3f;     // offset of a secondary ray's origin
 constexpr float W_EPS = 1e-4f;    // path-weight cutoff for a push
@@ -39,6 +49,15 @@ constexpr int NODE_HYPERPLANE = 1;
 constexpr int SURF_UNIFORM = 0;
 constexpr int SURF_CHECKER = 1;
 constexpr int SURF_SMOOTH = 2;
+// Scene::mat_warp: how a material's rays travel
+constexpr int MAT_STRAIGHT = 0;
+constexpr int MAT_ATTRACTOR = 1;
+constexpr int MAT_EXPR = 2;
+
+// the builds (template parameter kB of shade and the kernels)
+constexpr int BUILD_STRAIGHT = 0;  // no march, no portal
+constexpr int BUILD_WARP = 1;      // + the march (attractor field), portals
+constexpr int BUILD_EXPR = 2;      // + the expression VM
 
 constexpr float PI_F = 3.141592653589793f;
 constexpr float HALF_PI_F = 1.5707963267948966f;
@@ -159,6 +178,11 @@ __device__ __forceinline__ float acos_p(float x) {  // callers clip |x| < 1
     const float s = sqrtf(fmaxf(1.0f - x * x, 1e-12f));
     return HALF_PI_F - atan_p(x / s);
 }
+// mathx.asin, uncontracted (the VM's): atan(x / sqrt(max(1 - x^2, 1e-12)))
+__device__ __forceinline__ float asin_p(float x) {
+    const float s = sqrtf(fmaxf(__fsub_rn(1.0f, __fmul_rn(x, x)), 1e-12f));
+    return atan_p(__fdiv_rn(x, s));
+}
 
 // --- the scene --------------------------------------------------------------
 
@@ -167,7 +191,10 @@ struct Scene {
     const int32_t *ent_portal;                     // portal row, -1 for none
     const int32_t *node_kind, *node_row;           // per shape node
     const int32_t *surf_kind;                      // per surface
-    const int32_t *mat_warp;                       // per material: 1 marches
+    const int32_t *mat_warp;                       // per material: MAT_*
+    const int32_t *expr_off;   // [4 M + 1] start of material m's component
+                               // program c at 4 m + c (expressions only)
+    const int32_t *expr_code;  // [L, 4] VM instructions (see vm_eval)
     const float *shape_vec, *shape_sc;             // [S, 4], [S]
     const float *mat_ior;                          // [M]
     const float *surf_color, *surf_color2;         // [U, 4]
@@ -175,24 +202,33 @@ struct Scene {
     const float *background;                       // [3]
     const float *warp_center, *warp_strength, *warp_step;  // [M, 4], [M], [M]
     const float *portal_lin, *portal_tr;           // [P, 4, 4], [P, 4]
+    const float *expr_params;                      // [M, 8] p0..p7
+    const float *time;   // the scene time t: &cam[17], set by the entry point
     int n_ent, ambient, max_depth, max_nodes, dim, march_steps;
     float t_max;
 };
 
 // The entry points' scene arguments, as host arrays of device pointers:
 //   ints:   ent_root, ent_mat, ent_surf, ent_portal, node_kind, node_row,
-//           surf_kind, mat_warp (ops/cuda_kernel.py::encode_scene);
+//           surf_kind, mat_warp, expr_off, expr_code
+//           (ops/cuda_kernel.py::encode_scene);
 //   floats: the tables in ops/cuda_kernel.py FLOAT_FIELDS order;
 //   params: n_ent, ambient, max_depth, max_nodes, dim, march_steps (0 when
-//           no material marches and no entity is a portal).
-constexpr int N_INTS = 8, N_FLOATS = 14, N_PARAMS = 6;
+//           no material marches and no entity is a portal), expr (1 when a
+//           material is an expression: the launch takes BUILD_EXPR).
+constexpr int N_INTS = 10, N_FLOATS = 15, N_PARAMS = 7;
 
 inline Scene make_scene(const int32_t* const* i, const float* const* f,
-                        const int* prm, float t_max) {
-    return Scene{i[0], i[1], i[2], i[3], i[4], i[5], i[6], i[7],
+                        const int* prm, float t_max, const float* cam) {
+    return Scene{i[0], i[1], i[2], i[3], i[4], i[5], i[6], i[7], i[8], i[9],
                  f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8],
-                 f[9], f[10], f[11], f[12], f[13],
+                 f[9], f[10], f[11], f[12], f[13], f[14], cam + 17,
                  prm[0], prm[1], prm[2], prm[3], prm[4], prm[5], t_max};
+}
+
+// The build that renders a scene of these params.
+inline int scene_build(const int* prm) {
+    return prm[5] == 0 ? BUILD_STRAIGHT : prm[6] ? BUILD_EXPR : BUILD_WARP;
 }
 
 struct Slot {  // one deferred branch of the ray tree
@@ -203,15 +239,30 @@ struct Slot {  // one deferred branch of the ray tree
 };
 
 // The discrete decisions of one shaded node: what the backward sweep must
-// not decide again.
+// not decide again.  Only the builds that march record a march's end, so
+// the straight build's tape entry carries no march words.
+template <bool kWarp>
 struct NodeRec {
     int ent;    // winning entity, -1 on a miss
     int root;   // which sphere root won (0: -b - sq, 1: -b + sq)
     int flip;   // the normal was turned against the ray
     int m_to;   // material past the surface (transmission only)
+};
+template <>
+struct NodeRec<true> {
+    int ent, root, flip, m_to;
     int n;      // marched node: steps walked, round(dist / h)
     float lam;  // marched node: bisection parameter of the winning crossing
 };
+
+__device__ __forceinline__ void set_rec(NodeRec<false>* r, int ent, int root,
+                                        int, float) {
+    *r = NodeRec<false>{ent, root, 0, 0};
+}
+__device__ __forceinline__ void set_rec(NodeRec<true>* r, int ent, int root,
+                                        int n, float lam) {
+    *r = NodeRec<true>{ent, root, 0, 0, n, lam};
+}
 
 // Two orthonormal tangents of a plane: Gram-Schmidt the coordinate axes of
 // the two smallest |n| components among the first dim (strict '<' argmin).
@@ -287,28 +338,165 @@ __device__ __forceinline__ uint32_t sides(const Scene& s, V4 p) {
     return m;
 }
 
-// The attractor field of one material at x: warp_accel,
-//   a = (c - x) * (strength * (|c - x|^2 + 1e-4)^-1.5)
+// The field of one marching material: the attractor of a 'warp' material,
+//   a = (c - x) * (strength * (|c - x|^2 + 1e-4)^-1.5)        (warp_accel),
+// or, in BUILD_EXPR, the expression program of an 'expr' material.  The
+// builds without expressions keep the attractor's three members only.
+template <bool kExpr>
 struct Field {
     V4 c;
     float strength, h;
 };
+template <>
+struct Field<true> {
+    V4 c;
+    float strength, h;
+    const int32_t* code;  // the material's VM program, nullptr: attractor
+    int end[4];           // one past component c's last instruction
+    const float* prm;     // p0..p7
+    float t;              // the scene time
+};
 
-__device__ __forceinline__ Field field(const Scene& s, int mat) {
-    return Field{load4(s.warp_center + 4 * mat), s.warp_strength[mat],
-                 s.warp_step[mat]};
+template <bool kExpr>
+__device__ __forceinline__ Field<kExpr> field(const Scene& s, int mat) {
+    Field<kExpr> f;
+    f.c = load4(s.warp_center + 4 * mat);
+    f.strength = s.warp_strength[mat];
+    f.h = s.warp_step[mat];
+    if constexpr (kExpr) {
+        f.code = nullptr;
+        f.prm = nullptr;
+        f.t = 0.0f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) f.end[c] = 0;
+        if (s.mat_warp[mat] == MAT_EXPR) {
+            const int base = s.expr_off[4 * mat];
+            f.code = s.expr_code + 4 * base;
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+                f.end[c] = s.expr_off[4 * mat + c + 1] - base;
+            f.prm = s.expr_params + 8 * mat;
+            f.t = *s.time;
+        }
+    }
+    return f;
 }
 
-__device__ __forceinline__ V4 accel(const Field& f, V4 x) {
-    const V4 d = sub(f.c, x);
+// --- the expression VM (scene/expr.py, the kernels' encoding of
+// ops/cuda_kernel.py::expr_program) ------------------------------------------
+//
+// A material's four component programs lie back to back, each in postfix
+// order; instruction i is (op, a, b, c): op an opcode of scene/expr.py
+// OPS, a and b the indices of the instructions that computed its operands
+// (worked out on the host by replaying the postfix stack; 0 where it has
+// fewer, so val[b] is always an earlier value), a the variable index for
+// OP_VAR (x y z w p0..p7 t), c the float32 bits of OP_CONST's value or
+// OP_POWI's exponent.  The VM evaluates the
+// instructions in order into one value per instruction, which is also what
+// the adjoint (trace_bwd.cu vm_adjoint) reads.  Every operation is that of
+// scene/expr.py::torch_lib(safe=True): the partial-domain functions are
+// guarded (sqrt and log: x > 0, fallback 0; asin and acos: |x| < 1,
+// fallbacks sign(x) pi/2 and x > 0 ? 0 : pi; div: b == 0 gives 0), powi is
+// repeated multiplication (a negative exponent takes the guarded
+// reciprocal, 0 gives 1), powf is exp(b * guarded log(a)), and the arc
+// functions are the mathx polynomials.
+
+enum : int {
+    OP_CONST = 0, OP_VAR, OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_NEG, OP_POWI,
+    OP_POWF, OP_SIN, OP_COS, OP_TANH, OP_EXP, OP_LOG, OP_SQRT, OP_ABS,
+    OP_FLOOR, OP_SIGN, OP_ATAN, OP_ASIN, OP_ACOS, OP_MIN, OP_MAX, OP_ATAN2
+};
+
+__device__ __forceinline__ float safe_div(float a, float b) {
+    return b != 0.0f ? __fdiv_rn(a, b) : 0.0f;
+}
+__device__ __forceinline__ float safe_log(float a) {
+    return a > 0.0f ? logf(a) : 0.0f;
+}
+// a^|n| by repeated multiplication (n != 0)
+__device__ __forceinline__ float powi_abs(float a, int n) {
+    float acc = a;
+    for (int k = 1; k < abs(n); ++k) acc = __fmul_rn(acc, a);
+    return acc;
+}
+
+// One instruction's value from its operands' values (n: OP_POWI's
+// exponent).
+__device__ __forceinline__ float vm_op(int op, float A, float B, int n) {
+    switch (op) {
+        case OP_ADD: return __fadd_rn(A, B);
+        case OP_SUB: return __fsub_rn(A, B);
+        case OP_MUL: return __fmul_rn(A, B);
+        case OP_DIV: return safe_div(A, B);
+        case OP_NEG: return -A;
+        case OP_POWI:
+            if (n == 0) return 1.0f;
+            return n > 0 ? powi_abs(A, n) : safe_div(1.0f, powi_abs(A, n));
+        case OP_POWF: return expf(__fmul_rn(B, safe_log(A)));
+        case OP_SIN: return sinf(A);
+        case OP_COS: return cosf(A);
+        case OP_TANH: return tanhf(A);
+        case OP_EXP: return expf(A);
+        case OP_LOG: return safe_log(A);
+        case OP_SQRT: return A > 0.0f ? sqrtf(A) : 0.0f;
+        case OP_ABS: return fabsf(A);
+        case OP_FLOOR: return floorf(A);
+        case OP_SIGN: return A > 0.0f ? 1.0f : A < 0.0f ? -1.0f : A;
+        case OP_ATAN: return atan_p(A);
+        case OP_ASIN:
+            if (fabsf(A) < 1.0f) return asin_p(A);
+            return A > 0.0f ? HALF_PI_F : -HALF_PI_F;
+        case OP_ACOS:
+            if (fabsf(A) < 1.0f) return __fsub_rn(HALF_PI_F, asin_p(A));
+            return A > 0.0f ? 0.0f : PI_F;
+        case OP_MIN: return fminf(A, B);
+        case OP_MAX: return fmaxf(A, B);
+        default: return atan2_p(A, B);  // OP_ATAN2
+    }
+}
+
+// Evaluate the material's field at x; val[i] receives instruction i's value.
+__device__ __forceinline__ V4 vm_eval(const Field<true>& f, V4 x,
+                                      float* val) {
+    for (int i = 0; i < f.end[3]; ++i) {
+        const int32_t* in = f.code + 4 * i;
+        const int op = in[0], a = in[1];
+        float r;
+        if (op == OP_CONST) {
+            r = __int_as_float(in[3]);
+        } else if (op == OP_VAR) {
+            r = a < 4 ? comp(x, a) : a < 12 ? f.prm[a - 4] : f.t;
+        } else {
+            r = vm_op(op, val[a], val[in[2]], in[3]);
+        }
+        val[i] = r;
+    }
+    return {val[f.end[0] - 1], val[f.end[1] - 1], val[f.end[2] - 1],
+            val[f.end[3] - 1]};
+}
+
+__device__ __forceinline__ V4 attractor(V4 c, float strength, V4 x) {
+    const V4 d = sub(c, x);
     const float r2 = __fadd_rn(dot_rn(d, d), 1e-4f);
-    return scale_rn(d, __fmul_rn(f.strength, powf(r2, -1.5f)));
+    return scale_rn(d, __fmul_rn(strength, powf(r2, -1.5f)));
+}
+
+template <bool kExpr>
+__device__ __forceinline__ V4 accel(const Field<kExpr>& f, V4 x) {
+    if constexpr (kExpr) {
+        if (f.code) {
+            float val[MAX_EXPR];
+            return vm_eval(f, x, val);
+        }
+    }
+    return attractor(f.c, f.strength, x);
 }
 
 // one march step: v1 = normalize(v + h a(x)), x1 = x + h v1
-__device__ __forceinline__ void march_step(const Field& f, V4 x, V4 v, V4* x1,
-                                           V4* v1) {
-    *v1 = normalize_rn(madd_rn(v, f.h, accel(f, x)));
+template <bool kExpr>
+__device__ __forceinline__ void march_step(const Field<kExpr>& f, V4 x, V4 v,
+                                           V4* x1, V4* v1) {
+    *v1 = normalize_rn(madd_rn(v, f.h, accel<kExpr>(f, x)));
     *x1 = madd_rn(x, f.h, *v1);
 }
 
@@ -338,15 +526,16 @@ __device__ __forceinline__ float bisect(const Scene& s, int e, V4 x0, V4 x1) {
 // smallest lambda (strict '<' in entity order).  With primitive entities
 // (CSG is refused) the entity's one leaf is the leaf that boundary_abs
 // would pick in march_finish.
+template <bool kExpr>
 __device__ __forceinline__ MarchHit march(const Scene& s, V4 org, V4 d0,
                                           int mat) {
-    const Field f = field(s, mat);
+    const Field<kExpr> f = field<kExpr>(s, mat);
     uint32_t sd = sides(s, org), crossed = 0;
     V4 x = org, v = d0, sx0 = org, sx1 = org, sv = d0;
     float dist = 0.0f;
     for (int i = 0; i < s.march_steps; ++i) {
         V4 x1, v1;
-        march_step(f, x, v, &x1, &v1);
+        march_step<kExpr>(f, x, v, &x1, &v1);
         const uint32_t nsd = sides(s, x1);
         const bool beyond = dist > s.t_max;
         dist = dist + f.h;
@@ -494,26 +683,28 @@ __device__ __forceinline__ void push(Slot* stack, int* sp, V4 org, V4 dir,
 // Shade one DFS node: accumulate its colour term into acc and push up to
 // two children (transmission first, then reflection).  `self` is the
 // node's index in shading order (the children's parent); rec, when given,
-// receives the node's discrete decisions.  kWarp = false compiles the
-// march and the portal teleport out, for scenes with neither (the entry
-// points pick it: march_steps is 0 then).
-template <bool kWarp>
+// receives the node's discrete decisions.  The build kB (BUILD_*) compiles
+// out what the scene does not have: BUILD_STRAIGHT the march and the portal
+// teleport (the entry points pick it when march_steps is 0), BUILD_WARP the
+// expression VM.
+template <int kB>
 __device__ __forceinline__ void shade(const Scene& s, const Slot& r, int self,
                                       float acc[3], Slot* stack, int* sp,
-                                      NodeRec* rec) {
+                                      NodeRec<kB != BUILD_STRAIGHT>* rec) {
+    constexpr bool kWarp = kB != BUILD_STRAIGHT;
     // propagate: a ray in a warped material marches, any other flies
     // straight to its nearest hit
     int ent;
     V4 p, d;
-    if (kWarp && s.mat_warp[r.mat]) {
-        const MarchHit m = march(s, r.org, r.dir, r.mat);
-        if (rec) *rec = NodeRec{m.ent, 0, 0, 0, m.n, m.lam};
+    if (kWarp && s.mat_warp[r.mat] != MAT_STRAIGHT) {
+        const MarchHit m = march<kB == BUILD_EXPR>(s, r.org, r.dir, r.mat);
+        if (rec) set_rec(rec, m.ent, 0, m.n, m.lam);
         ent = m.ent;
         p = m.p;
         d = m.dir;
     } else {
         const Hit h = nearest(s, r.org, r.dir);
-        if (rec) *rec = NodeRec{h.ent, h.root, 0, 0, 0, 0.0f};
+        if (rec) set_rec(rec, h.ent, h.root, 0, 0.0f);
         ent = h.ent;
         d = r.dir;
         p = madd(r.org, h.t, d);

@@ -13,9 +13,13 @@
 // steps per thread, each testing every entity's side, ended at the first
 // flip (or after the step that starts beyond t_max) and refined by
 // bisection; the thread's loop stops where its ray is done, which gives the
-// JAX package's early-exit while loop the same value.  A portal's
-// transmitted ray is teleported.  The node's device code lives in
-// trace_common.cuh, which the backward kernel (trace_bwd.cu) shares.
+// JAX package's early-exit while loop the same value.  The step's field is
+// the attractor of a 'warp' material or, for an 'expr' material, its
+// expression program run by a per-thread VM over the material's four
+// component programs (the field of ops/trace.py::make_accel, the scene
+// time read from the camera row).  A portal's transmitted ray is
+// teleported.  The node's device code lives in trace_common.cuh, which the
+// backward kernel (trace_bwd.cu) shares.
 //
 // What bounds it: FP32 ALU work and warp divergence, not bytes.  The output
 // is 12 B per pixel and the scene tables are under 1 KB.  The design keeps a
@@ -37,7 +41,7 @@ namespace {
 // One thread per pixel of the row slab [y0, y0 + rows) of the H x W frame.
 // cam: the 24-float row of pallas_kernel._pack_camera (position, forward,
 // up, right, tan_half_fov, time, y0, padding).
-template <bool kWarp>
+template <int kB>
 __global__ void trace_fwd_kernel(Scene s, const float* __restrict__ cam,
                                  int H, int W, int rows,
                                  float* __restrict__ out) {
@@ -50,11 +54,11 @@ __global__ void trace_fwd_kernel(Scene s, const float* __restrict__ cam,
     Slot stack[MAX_SLOTS];
     int sp = 0;
     const Slot root{load4(cam), d, 1.0f, s.ambient, s.max_depth, -1, 0};
-    shade<kWarp>(s, root, 0, acc, stack, &sp, nullptr);
+    shade<kB>(s, root, 0, acc, stack, &sp, nullptr);
     for (int it = 0; it < s.max_nodes - 1 && sp > 0; ++it) {
         --sp;
         const Slot node = stack[sp];
-        shade<kWarp>(s, node, it + 1, acc, stack, &sp, nullptr);
+        shade<kB>(s, node, it + 1, acc, stack, &sp, nullptr);
     }
     float* o = out + 3 * ((size_t)y * W + x);
     o[0] = acc[0];
@@ -69,7 +73,7 @@ extern "C" int euclider_trace_fwd(
     const int32_t* const* ints, const float* const* floats, const int* params,
     float t_max, const float* cam, int H, int W, int rows, float* out,
     int device, void* stream) {
-    const Scene s = make_scene(ints, floats, params, t_max);
+    const Scene s = make_scene(ints, floats, params, t_max, cam);
     if (s.max_depth + 1 > MAX_SLOTS || s.n_ent > 32)
         return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
@@ -78,11 +82,19 @@ extern "C" int euclider_trace_fwd(
     const dim3 block(32, 8);
     const dim3 grid((W + block.x - 1) / block.x,
                     (rows + block.y - 1) / block.y);
-    if (s.march_steps > 0)
-        trace_fwd_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
-            s, cam, H, W, rows, out);
-    else
-        trace_fwd_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-            s, cam, H, W, rows, out);
+    const cudaStream_t st = (cudaStream_t)stream;
+    switch (scene_build(params)) {
+        case BUILD_STRAIGHT:
+            trace_fwd_kernel<BUILD_STRAIGHT><<<grid, block, 0, st>>>(
+                s, cam, H, W, rows, out);
+            break;
+        case BUILD_WARP:
+            trace_fwd_kernel<BUILD_WARP><<<grid, block, 0, st>>>(
+                s, cam, H, W, rows, out);
+            break;
+        default:
+            trace_fwd_kernel<BUILD_EXPR><<<grid, block, 0, st>>>(
+                s, cam, H, W, rows, out);
+    }
     return (int)cudaGetLastError();
 }

@@ -8,8 +8,10 @@ reverse-mode VJP of the render: ``pallas_vjp.py::_ckpt_kernel`` plain (K3,
 in two modes, and shallow and deep trees alike, so there is no routing
 between K3 and K5.  The march backward that K2 and K3 nest for warped
 space (K4, ``pallas_vjp.py::make_march_ckpt``) runs inside the same kernel
-in both modes.  ``render_image_diff`` is the port of
-``render_image_pallas_diff``: the forward kernel, then ``vjp_cuda``.
+in both modes, through the attractor field or an expression material's VM
+program (gradients of ``mat_expr_params`` and of the scene time).
+``render_image_diff`` is the port of ``render_image_pallas_diff``: the
+forward kernel, then ``vjp_cuda``.
 
 The wrappers take CUDA tensors only and never fall back: on any other
 device they raise.  The plain version is ``ops/vjp.py::vjp_blocked``.
@@ -56,9 +58,31 @@ def _device(tables, what):
     return device
 
 
+MARCH_TABLES = ("mat_warp_center", "mat_warp_strength", "mat_warp_step",
+                "portal_lin", "portal_tr")
+
+
+def _in_grad(static, name) -> bool:
+    """Whether the kernel's gradient vector holds the table: not the tables
+    a scene's build never reads (their gradient is zero), the march's and
+    the portals' in the straight build and mat_expr_params outside the VM
+    build.  Every thread reduces the whole vector in the kernel's epilogue,
+    so its length is paid per pixel."""
+    if name in MARCH_TABLES:
+        return CK.marches(static)
+    return name != "mat_expr_params" or CK.has_expr(static)
+
+
+def _grad_sizes(static, floats):
+    """numel of each float table in the kernel's gradient vector."""
+    return [t.numel() if _in_grad(static, k) else 0
+            for k, t in zip(FLOAT_FIELDS, floats)]
+
+
 def _launch(static, floats, cam_row, H, W, rows, gin, norm, fused):
     """Run trace_bwd on the slab -> the flat gradient vector [P + 1]: the
-    camera row (24), the float tables in FLOAT_FIELDS order, the loss."""
+    camera row (24, the scene time's gradient at 17), the float tables in
+    FLOAT_FIELDS order (``_grad_sizes``), the loss."""
     global LAUNCHES
     device = cam_row.device
     if static.max_nodes > MAX_TAPE:
@@ -68,9 +92,11 @@ def _launch(static, floats, cam_row, H, W, rows, gin, norm, fused):
         raise ValueError(f"march_steps {static.march_steps} exceeds the "
                          f"backward kernel's {MAX_MARCH_STEPS}")
     fields = dict(zip(FLOAT_FIELDS, floats))
-    sizes = (ctypes.c_int * 4)(*(fields[k].shape[0] for k in (
-        "shape_vec", "mat_ior", "surf_color", "portal_tr")))
-    n = 24 + sum(t.numel() for t in floats) + 1
+    sizes = (ctypes.c_int * 6)(*(
+        fields[k].shape[0] if _in_grad(static, k) else 0
+        for k in ("shape_vec", "mat_ior", "surf_color", "mat_warp_strength",
+                  "portal_tr", "mat_expr_params")))
+    n = 24 + sum(_grad_sizes(static, floats)) + 1
     if n > MAX_PARAMS:
         raise ValueError(f"the scene has {n - 1} parameters; the backward "
                          f"kernel holds {MAX_PARAMS - 1}")
@@ -93,12 +119,13 @@ def _launch(static, floats, cam_row, H, W, rows, gin, norm, fused):
     return out
 
 
-def _split(flat, floats):
+def _split(static, flat, floats):
     """Flat gradient -> (d_cam_row [24], [d_table per FLOAT_FIELDS], loss)."""
     parts, i = [], 24
-    for t in floats:
-        parts.append(flat[i:i + t.numel()].view(t.shape))
-        i += t.numel()
+    for t, k in zip(floats, _grad_sizes(static, floats)):
+        parts.append(flat[i:i + k].view(t.shape) if k else
+                     torch.zeros_like(t))
+        i += k
     return flat[:24], parts, flat[i]
 
 
@@ -106,7 +133,7 @@ def _grads(static, tables, cam, flat, floats):
     """(d_tables, d_cam, d_time, loss) with shapes matching the primals:
     the inverse of _pack_camera and of the table order on the cotangents
     (pallas_kernel._grads_from_rows).  y0 gets no gradient."""
-    dc, dts, loss = _split(flat, floats)
+    dc, dts, loss = _split(static, flat, floats)
     d_tables, _ = zero_grads(tables, cam)
     d_tables = d_tables._replace(**dict(zip(FLOAT_FIELDS, dts)))
     d_cam = CameraParams(position=dc[0:4].view_as(cam.position),
@@ -166,7 +193,7 @@ class RenderImageFn(torch.autograd.Function):
         H, W, rows = ctx.shape
         flat = _launch(ctx.static, floats, cam_row, H, W, rows, g, 0.0,
                        False)
-        d_cam_row, d_tables, _ = _split(flat, floats)
+        d_cam_row, d_tables, _ = _split(ctx.static, flat, floats)
         return (None, None, None, None, d_cam_row, *d_tables)
 
 

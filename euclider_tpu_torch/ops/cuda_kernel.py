@@ -10,10 +10,12 @@ current stream.
 
 The scene is passed as data: ``encode_scene`` flattens the static topology
 into int32 arrays (the node encoding of ``oracle/native_oracle.py``, so the
-kernel and the C++ oracle read one scene encoding), and the float tables
-go in as the device tensors of ``tables_to_torch``.  Features the kernel
-does not render raise ``NotImplementedError`` before any launch; nothing is
-approximated.  Its plain version is ``ops/trace.render_image``.
+kernel and the C++ oracle read one scene encoding, and the expression
+materials' programs of ``scene/expr.py`` with the operand index of every
+instruction, for the kernels' VM), and the float tables go in as the device
+tensors of ``tables_to_torch``.  Features the kernel does not render raise
+``NotImplementedError`` before any launch; nothing is approximated.  Its
+plain version is ``ops/trace.render_image``.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ import subprocess
 import numpy as np
 import torch
 
-from ..oracle.native_oracle import SURF_KINDS, _encode_nodes
+from ..oracle.native_oracle import SURF_KINDS, _encode_exprs, _encode_nodes
+from ..scene import expr as E
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -40,6 +43,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 MAX_SLOTS = 16     # the kernels' DFS stack capacity (trace_common.cuh)
 MAX_ENTITIES = 32  # the march's side masks hold one bit per entity
+MAX_EXPR = 128     # VM instructions of one material's four programs
+# how a material's rays travel (trace_common.cuh MAT_*)
+MAT_MARCH = {"warp": 1, "expr": 2}
 
 LAUNCHES = 0       # kernel launches made by render_image_cuda
 PTXAS = {}         # name -> ptxas's resource lines of the build made here
@@ -48,7 +54,7 @@ PTXAS = {}         # name -> ptxas's resource lines of the build made here
 FLOAT_FIELDS = ("shape_vec", "shape_sc", "mat_ior", "surf_color",
                 "surf_color2", "surf_refl", "surf_fresnel", "surf_uv_scale",
                 "background", "mat_warp_center", "mat_warp_strength",
-                "mat_warp_step", "portal_lin", "portal_tr")
+                "mat_warp_step", "portal_lin", "portal_tr", "mat_expr_params")
 
 
 def _nvcc() -> str:
@@ -111,20 +117,89 @@ def _entry():
     return fn
 
 
+def expr_program(programs):
+    """The kernels' VM program of one expression material's four components
+    (trace_common.cuh vm_eval) from their postfix programs, four ``(ops,
+    vals)`` pairs of ``scene/expr.py::to_postfix`` -> (code [L, 4] int32,
+    ends): instruction i is (op, a, b, c); ``ends[k]`` is one past
+    component k's last instruction, which computes its value.
+
+    Each postfix program is replayed on a stack of instruction indices, so
+    a and b are the indices of the instructions that computed an
+    operation's operands (0 where it has fewer; a is the variable index of
+    OP_VAR), and c is the float32 bits of OP_CONST's value or OP_POWI's
+    exponent.  A subexpression that
+    ``eval_ast`` computes in Python floats (constants joined by + - * and
+    unary minus, and integer powers of those) is folded here in float64, as
+    Python does it, and becomes one constant: the kernel then rounds it to
+    float32 where the plain version does."""
+    name = {v: k for k, v in E.OPS.items()}
+    arity = {"neg": 1, "powi": 1, "add": 2, "sub": 2, "mul": 2, "div": 2,
+             "powf": 2, "min": 2, "max": 2, "atan2": 2}
+    py = {"add": lambda a, b: a + b, "sub": lambda a, b: a - b,
+          "mul": lambda a, b: a * b}
+    code, ends = [], []
+
+    def emit(op, a=0, b=0, c=0):
+        code.append((E.OPS[op], a, b, c))
+        return len(code) - 1
+
+    def index(item):        # an operand as an instruction index
+        kind, v = item
+        if kind == "ins":
+            return v
+        return emit("const", c=int(np.asarray(v, np.float32).view(np.int32)))
+
+    for ops, vals in programs:
+        stack = []          # ("py", float) or ("ins", index)
+        for op, val in zip(ops, vals):
+            op = name[int(op)]
+            if op == "const":
+                stack.append(("py", val))
+            elif op == "var":
+                stack.append(("ins", emit("var", int(val))))
+            elif arity.get(op, 1) == 2:
+                b, a = stack.pop(), stack.pop()
+                if op in py and a[0] == b[0] == "py":
+                    stack.append(("py", py[op](a[1], b[1])))
+                else:
+                    stack.append(("ins", emit(op, index(a), index(b))))
+            else:
+                a = stack.pop()
+                n = int(val)
+                if a[0] == "py" and op == "neg":
+                    stack.append(("py", -a[1]))
+                elif a[0] == "py" and op == "powi" and n > 0:
+                    acc = a[1]
+                    for _ in range(n - 1):
+                        acc = acc * a[1]
+                    stack.append(("py", acc))
+                else:
+                    stack.append(("ins", emit(op, index(a),
+                                              c=n if op == "powi" else 0)))
+        top, = stack
+        assert index(top) == len(code) - 1   # the root comes last
+        ends.append(len(code))
+    return np.asarray(code, np.int32).reshape(-1, 4), tuple(ends)
+
+
 def encode_scene(static):
     """Flatten ``static`` into the kernels' int32 arrays.
 
     Returns ``(ints, offsets)``: one int32 array holding ent_root, ent_mat,
-    ent_surf, ent_portal (-1 for none), node_kind, node_row, surf_kind and
-    mat_warp (1 for a material that marches) back to back, and the start of
-    each.  Raises ``NotImplementedError`` naming the first feature the
-    kernels do not render, and ``ValueError`` for a ray tree deeper than
-    their stack or more entities than their side masks hold."""
+    ent_surf, ent_portal (-1 for none), node_kind, node_row, surf_kind,
+    mat_warp (MAT_MARCH: 1 for an attractor, 2 for an expression, 0 for a
+    material that does not march), expr_off (the start of material m's
+    component program c at 4 m + c, 4 M + 1 entries) and expr_code (the
+    materials' ``expr_program`` instructions, 4 ints each) back to back, and
+    the start of each.  Raises ``NotImplementedError`` naming the first
+    feature the kernels do not render, and ``ValueError`` for a ray tree
+    deeper than their stack, more entities than their side masks hold, or an
+    expression material longer than their VM holds."""
     for kind in static.mat_kinds:
-        if kind not in ("vacuum", "dielectric", "warp"):
+        if kind not in ("vacuum", "dielectric", "warp", "expr"):
             raise NotImplementedError(
-                f"the CUDA kernel does not render {kind!r} materials "
-                "(expression space) yet")
+                f"the CUDA kernel does not render {kind!r} materials yet")
     for kind in static.surf_kinds:
         if kind not in ("uniform", "checker", "smooth"):
             raise NotImplementedError(
@@ -145,6 +220,22 @@ def encode_scene(static):
                          f"holds {MAX_ENTITIES}")
     ent_root, node_kind, node_row, _, _, _ = _encode_nodes(static)
     ents = static.entities
+    eops, evals, eoff = _encode_exprs(static)
+    expr_off, expr_code = [0], []
+    for m, kind in enumerate(static.mat_kinds):
+        ends = (0, 0, 0, 0)
+        if kind == "expr":
+            spans = [slice(eoff[4 * m + c], eoff[4 * m + c + 1])
+                     for c in range(4)]
+            code, ends = expr_program([(eops[sp], evals[sp])
+                                       for sp in spans])
+            if len(code) > MAX_EXPR:
+                raise ValueError(
+                    f"material {m}'s expressions take {len(code)} VM "
+                    f"instructions; the CUDA kernels hold {MAX_EXPR}")
+            expr_code.append(code.reshape(-1))
+        base = expr_off[-1]
+        expr_off.extend(base + e for e in ends)
     parts = [ent_root,
              np.asarray([e.material for e in ents], np.int32),
              np.asarray([e.surface for e in ents], np.int32),
@@ -152,7 +243,10 @@ def encode_scene(static):
                         np.int32),
              node_kind, node_row,
              np.asarray([SURF_KINDS[k] for k in static.surf_kinds], np.int32),
-             np.asarray([k == "warp" for k in static.mat_kinds], np.int32)]
+             np.asarray([MAT_MARCH.get(k, 0) for k in static.mat_kinds],
+                        np.int32),
+             np.asarray(expr_off, np.int32),
+             np.concatenate(expr_code + [np.zeros(0, np.int32)])]
     offsets = np.cumsum([0] + [len(p) for p in parts[:-1]])
     return np.concatenate(parts).astype(np.int32), tuple(int(o) for o in offsets)
 
@@ -163,23 +257,34 @@ def _scene_ints(static, device: torch.device):
     return torch.from_numpy(ints).to(device), offsets
 
 
+def has_expr(static) -> bool:
+    """A material is an expression: the kernels take their VM build."""
+    return "expr" in static.mat_kinds
+
+
+def marches(static) -> bool:
+    """A material marches or an entity is a portal: the kernels take a
+    build with the march and the teleport, else the straight one."""
+    return static.has_warp or static.has_portal
+
+
 def scene_args(static, floats, device):
     """The kernels' scene arguments (trace_common.cuh make_scene): host
     arrays of the int32 arrays' and the float tables' device pointers, the
     int parameters, and the device int32 tensor they point into (keep it
     alive across the launch).  march_steps goes in as 0 when no material
     marches and no entity is a portal: the kernels then run their build
-    without the march and the teleport."""
+    without the march and the teleport; the last parameter is 1 when a
+    material is an expression, for the build with the VM."""
     ints, offsets = _scene_ints(static, device)
     iptr = (ctypes.c_void_p * len(offsets))(
         *(ints.data_ptr() + 4 * o for o in offsets))
     fptr = (ctypes.c_void_p * len(floats))(*(t.data_ptr() for t in floats))
-    params = (ctypes.c_int * 6)(len(static.entities), static.ambient,
+    params = (ctypes.c_int * 7)(len(static.entities), static.ambient,
                                 static.max_depth, static.max_nodes,
                                 static.dim,
-                                static.march_steps
-                                if static.has_warp or static.has_portal
-                                else 0)
+                                static.march_steps if marches(static) else 0,
+                                int(has_expr(static)))
     return iptr, fptr, params, ints
 
 
@@ -211,7 +316,8 @@ def _check_tables(static, tables, device):
               "surf_refl": (U,), "surf_fresnel": (U,), "surf_uv_scale": (U,),
               "background": (3,), "mat_warp_center": (M, 4),
               "mat_warp_strength": (M,), "mat_warp_step": (M,),
-              "portal_lin": (P, 4, 4), "portal_tr": (P, 4)}
+              "portal_lin": (P, 4, 4), "portal_tr": (P, 4),
+              "mat_expr_params": (M, 8)}
     out = []
     for name in FLOAT_FIELDS:
         t = getattr(tables, name)

@@ -8,6 +8,11 @@ CUDA kernels carry the same coefficients (``csrc/trace_common.cuh``).
 
 atan core: odd degree-19 polynomial in x on [-1, 1] (max error 1.8e-9),
 range-reduced via atan(x) = pi/2 - atan(1/x).
+
+``abs`` is torch.abs with jax's gradient: jax differentiates |x| as
+select(x >= 0, g, -g), so d|x|/dx is 1 at 0 where torch.abs gives 0.  The
+polynomials take |x| through it, so their gradients at 0 are jax's too
+(atan'(0) = the first coefficient, not 0).
 """
 from __future__ import annotations
 
@@ -24,6 +29,23 @@ HALF_PI = 1.5707963267948966
 PI = 3.141592653589793
 
 
+class _Abs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def abs(x):  # noqa: A001 - jax.numpy's name
+    """|x| with jax's gradient (1 at x == 0)."""
+    return _Abs.apply(x)
+
+
 def _atan_core(x):
     """atan on |x| <= 1."""
     t = x * x
@@ -34,7 +56,7 @@ def _atan_core(x):
 
 
 def atan(x):
-    ax = torch.abs(x)
+    ax = abs(x)
     big = ax > 1.0
     inv = 1.0 / torch.where(big, ax, 1.0)    # safe reciprocal
     core = _atan_core(torch.where(big, inv, ax))

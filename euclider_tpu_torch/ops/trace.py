@@ -12,14 +12,14 @@ second.  The scene topology is unrolled in Python over the static entity
 list; only float parameters come from the tables.
 
 ``render_image`` here is what ``ops/cuda_kernel.render_image_cuda`` is held
-against on the card, and what the package renders with on the CPU.
-Expression space, CSG, cylinders and textured or noise surfaces raise
-``NotImplementedError``.
+against on the card, and what the package renders with on the CPU.  CSG,
+cylinders and textured or noise surfaces raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
 
+from ..scene import expr as E
 from . import geometry as G
 from . import march as M
 from . import shading
@@ -75,26 +75,49 @@ def warp_step(static, tables, mat_ids):
     return h
 
 
-def make_accel(static, tables, mat_ids):
+def make_accel(static, tables, mat_ids, time=0.0):
     """Acceleration field a(x) of the marching rays, dispatched per ray over
-    the scene's attractor ('warp') materials; 'expr' materials, whose field
-    is a compiled expression, raise ``NotImplementedError``."""
-    if any(k == "expr" for k in static.mat_kinds):
-        raise NotImplementedError(
-            "the torch port does not render expression space yet")
-    zf = torch.zeros(mat_ids.shape, dtype=tables.mat_warp_step.dtype,
-                     device=mat_ids.device)
+    the scene's warped materials: 'warp' materials contribute the attractor
+    field, 'expr' materials their expression field (scene/expr.py), which
+    reads the scene ``time`` as ``t``.
+
+    The expressions run with ``torch_lib(safe=True)``: the field is
+    evaluated at every ray position and selected by material afterwards,
+    and a NaN on an unselected ray would ride 0*NaN through the where's
+    backward into every gradient.  A constant component (config6's "0") is
+    broadcast to the batch."""
+    dev = mat_ids.device
+    dt = tables.mat_warp_step.dtype
+    zf = torch.zeros(mat_ids.shape, dtype=dt, device=dev)
     wc = Vec(zf, zf, zf, zf)
     ws = zf
+    any_attractor = "warp" in static.mat_kinds
     for m, kind in enumerate(static.mat_kinds):
         if kind == "warp":
             sel = mat_ids == m
             row = tables.mat_warp_center[m]
             wc = V.where(sel, Vec(row[0], row[1], row[2], row[3]), wc)
             ws = torch.where(sel, tables.mat_warp_strength[m], ws)
+    expr_mats = [m for m, k in enumerate(static.mat_kinds) if k == "expr"]
+    lib = E.torch_lib(safe=True, device=dev) if expr_mats else None
+    # the time as a float32 tensor, as the kernels read it (cam_row[17])
+    tm = torch.as_tensor(time, dtype=dt, device=dev)
 
     def accel(x: Vec) -> Vec:
-        return M.warp_accel(wc, ws, x)   # ws == 0 where not an attractor
+        if any_attractor:
+            a = M.warp_accel(wc, ws, x)   # ws == 0 where not an attractor
+        else:
+            z = torch.zeros_like(x.x)
+            a = Vec(z, z, z, z)
+        for m in expr_mats:
+            env = {"x": x.x, "y": x.y, "z": x.z, "w": x.w, "t": tm}
+            for i in range(8):
+                env[f"p{i}"] = tables.mat_expr_params[m, i]
+            comps = (torch.as_tensor(E.eval_ast(c, env, lib), dtype=dt,
+                                     device=dev).expand(x.x.shape)
+                     for c in static.mat_exprs[m])
+            a = V.where(mat_ids == m, Vec(*comps), a)
+        return a
 
     return accel
 
@@ -126,18 +149,18 @@ def nearest_hit_straight(static, tables, org: Vec, d: Vec):
     return best_t, hit, ent, n, u, v
 
 
-def propagate(static, tables, org: Vec, d: Vec, mat_ids):
+def propagate(static, tables, org: Vec, d: Vec, mat_ids, time=0.0):
     """One segment: from org along d inside material mat_ids until the first
     entity boundary.  Returns (hit, p, dir_at_hit, ent, normal, u, v).  Rays
-    in a warped material march (ops/march.py); the march replaces their
-    analytic hit."""
+    in a warped material march (ops/march.py) through the field at scene
+    time ``time``; the march replaces their analytic hit."""
     t, hit, ent, n, u, v = nearest_hit_straight(static, tables, org, d)
     p = V.madd(org, t, d)
     dout = d
     if static.has_warp:
         wm = warp_mask(static, mat_ids)
         h = warp_step(static, tables, mat_ids)
-        accel_fn = make_accel(static, tables, mat_ids)
+        accel_fn = make_accel(static, tables, mat_ids, time)
         mh_hit, mh_p, mh_d, mh_ent, mh_n, mh_u, mh_v = M.march_hit(
             static, tables, org, d, accel_fn, h, active=wm)
         hit = torch.where(wm, mh_hit, hit)
@@ -182,7 +205,7 @@ def write_slot(slots, idx, mask, val, kmax=None):
 
 def _shade_node(static, tables, org: Vec, d: Vec, wgt, mat, depth, active,
                 differentiable, used_surfs, do_transmit, do_reflect,
-                depth_ge2):
+                depth_ge2, time=0.0):
     """Shade one DFS node: propagate to the nearest boundary, accumulate the
     local colour term, and emit up to two deferred branches.
 
@@ -194,7 +217,7 @@ def _shade_node(static, tables, org: Vec, d: Vec, wgt, mat, depth, active,
     ents = static.entities
     zf = torch.zeros_like(org.x)
 
-    hit, p, dout, ent, n, u, v = propagate(static, tables, org, d, mat)
+    hit, p, dout, ent, n, u, v = propagate(static, tables, org, d, mat, time)
     hit = hit & active
     miss = active & ~hit
 
@@ -307,7 +330,8 @@ def _bounce_plan(static, differentiable):
             D >= 2 and (any_reflect or not prune))
 
 
-def bounce_init(static, tables, org0: Vec, d0: Vec, differentiable=False):
+def bounce_init(static, tables, org0: Vec, d0: Vec, differentiable=False,
+                time=0.0):
     """Peel the primary node; returns (ar, ag, ab, slots, sp), with
     slots = sp = None when the scene statically has no deferred branches."""
     used_surfs, do_transmit, do_reflect = _bounce_plan(static,
@@ -321,7 +345,7 @@ def bounce_init(static, tables, org0: Vec, d0: Vec, differentiable=False):
         static, tables, org0, d0, torch.ones_like(zf),
         torch.full_like(zi, static.ambient), torch.full_like(zi, D),
         torch.ones_like(zf, dtype=torch.bool), differentiable,
-        used_surfs, do_transmit, do_reflect, depth_ge2=None)
+        used_surfs, do_transmit, do_reflect, depth_ge2=None, time=time)
     if not branches:
         return ar, ag, ab, None, None
 
@@ -334,7 +358,7 @@ def bounce_init(static, tables, org0: Vec, d0: Vec, differentiable=False):
     return ar, ag, ab, slots, sp
 
 
-def make_bounce_body(static, tables, differentiable=False):
+def make_bounce_body(static, tables, differentiable=False, time=0.0):
     """One trip of the DFS loop: body(carry) with
     carry = (sp, ar, ag, ab, slots)."""
     used_surfs, do_transmit, do_reflect = _bounce_plan(static,
@@ -350,7 +374,7 @@ def make_bounce_body(static, tables, differentiable=False):
         dr, dg, db, branches = _shade_node(
             static, tables, org, d, wgt, mat, depth, active,
             differentiable, used_surfs, do_transmit, do_reflect,
-            depth_ge2=(depth >= 2))
+            depth_ge2=(depth >= 2), time=time)
         ar, ag, ab = ar + dr, ag + dg, ab + db
 
         for mask, val in branches:
@@ -362,7 +386,7 @@ def make_bounce_body(static, tables, differentiable=False):
 
 
 def trace_batch(static, tables, org0: Vec, d0: Vec,
-                differentiable: bool = False):
+                differentiable: bool = False, time=0.0):
     """Trace a batch of primary rays; returns (r, g, b) shaped like org0.x.
 
     The primary node is peeled out of the loop; then at most
@@ -372,13 +396,14 @@ def trace_batch(static, tables, org0: Vec, d0: Vec,
     only because lax.while_loop has no reverse-mode rule).
     ``differentiable=True`` turns off the pruning that is exact for values
     but not for gradients (``_bounce_plan`` and the Schlick skip); pass it
-    when taking gradients through the render.
+    when taking gradients through the render.  ``time`` is the scene time
+    the expression materials read as ``t``.
     """
     ar, ag, ab, slots, sp = bounce_init(static, tables, org0, d0,
-                                        differentiable)
+                                        differentiable, time)
     if slots is None:
         return ar, ag, ab
-    body = make_bounce_body(static, tables, differentiable)
+    body = make_bounce_body(static, tables, differentiable, time)
     carry = (sp, ar, ag, ab, slots)
     it = 0
     while it < static.max_nodes - 1 and bool(torch.any(carry[0] > 0)):
@@ -418,14 +443,15 @@ def render_image(static, tables, cam, H: int, W: int, time=0.0, y0: int = 0,
                  differentiable: bool = False) -> torch.Tensor:
     """Render rows [y0, y0 + rows) of the H x W frame -> [rows or H, W, 3]
     float32 on the tables' device.  The camera's NDC mapping stays the full
-    frame's, so slabs tile the frame exactly.  ``time`` is the scene time of
-    time-dependent materials, which this slice does not render.  Pass
-    ``differentiable=True`` when taking gradients (``trace_batch``)."""
+    frame's, so slabs tile the frame exactly.  ``time`` is the scene time
+    of time-dependent (expression) materials, a float or a float32 tensor
+    that autograd differentiates.  Pass ``differentiable=True`` when taking
+    gradients (``trace_batch``)."""
     dev = tables.surf_color.device
     R = H if rows is None else rows
     yi = (torch.arange(R, dtype=torch.float32, device=dev) + float(y0))
     xi = torch.arange(W, dtype=torch.float32, device=dev)
     yi, xi = yi[:, None].expand(R, W), xi[None, :].expand(R, W)
     org, d = camera_rays(cam, xi, yi, W, H)
-    r, g, b = trace_batch(static, tables, org, d, differentiable)
+    r, g, b = trace_batch(static, tables, org, d, differentiable, time)
     return torch.stack([r, g, b], dim=-1)

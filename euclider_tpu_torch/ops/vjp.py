@@ -43,29 +43,34 @@ def vjp_blocked(static, tables, cam, H: int, W: int, g,
     the cotangent ``g`` [rows or H, W, 3] -> (d_tables, d_cam, d_time).
 
     Gradients flow to the float tables of ``FLOAT_FIELDS``, to every camera
-    field and to ``time`` (zero here: no material of this slice depends on
-    it); the other tables get zeros."""
+    field and to ``time`` (through the expression materials that read
+    ``t``); the other tables get zeros."""
     R = H if rows is None else rows
     if tuple(g.shape) != (R, W, 3):
         raise ValueError(f"cotangent shape {tuple(g.shape)} != {(R, W, 3)}")
     d_tables, d_cam = zero_grads(tables, cam)
-    acc = [getattr(d_tables, k) for k in FLOAT_FIELDS] + list(d_cam)
+    d_time = torch.zeros((), dtype=torch.float32, device=g.device)
+    acc = [getattr(d_tables, k) for k in FLOAT_FIELDS] + list(d_cam) + [
+        d_time]
     for by0 in range(0, R, block_rows):
         bh = min(block_rows, R - by0)
         with torch.enable_grad():
             leaves = [getattr(tables, k).detach().requires_grad_(True)
                       for k in FLOAT_FIELDS]
             cam_l = [v.detach().requires_grad_(True) for v in cam]
+            time_l = torch.as_tensor(time, dtype=torch.float32,
+                                     device=g.device).detach().requires_grad_(
+                                         True)
             tab = tables._replace(**dict(zip(FLOAT_FIELDS, leaves)))
             img = trace.render_image(static, tab, CameraParams(*cam_l), H, W,
-                                     time, y0 + by0, bh, differentiable=True)
-            grads = torch.autograd.grad(img, leaves + cam_l,
+                                     time_l, y0 + by0, bh,
+                                     differentiable=True)
+            grads = torch.autograd.grad(img, leaves + cam_l + [time_l],
                                         g[by0:by0 + bh].to(img.dtype),
                                         allow_unused=True)
         for a, gr in zip(acc, grads):
             if gr is not None:
                 a += gr
-    d_tables = d_tables._replace(**dict(zip(FLOAT_FIELDS,
-                                            acc[:len(FLOAT_FIELDS)])))
-    d_time = torch.zeros((), dtype=torch.float32, device=g.device)
-    return d_tables, CameraParams(*acc[len(FLOAT_FIELDS):]), d_time
+    n = len(FLOAT_FIELDS)
+    d_tables = d_tables._replace(**dict(zip(FLOAT_FIELDS, acc[:n])))
+    return d_tables, CameraParams(*acc[n:-1]), acc[-1]

@@ -1,8 +1,10 @@
 """ctypes wrapper for the C++ oracle, the float64 ground-truth renderer.
 
 Port of ``euclider_tpu/oracle/native_oracle.py`` that loads without jax.  It
-compiles the JAX package's source ``euclider_tpu/oracle/native/oracle.cpp``,
-read by path, with g++ into ``euclider_tpu_torch/build/``; encodes the
+compiles the port's own copy of the oracle source,
+``euclider_tpu_torch/oracle/native/oracle.cpp`` (held identical to the JAX
+package's by ``tests/test_torch_expr.py``), with g++ into
+``euclider_tpu_torch/build/``; encodes the
 compiled scene (SceneStatic topology + SceneTables parameters, numpy arrays
 or torch tensors) into flat arrays; and exposes
 ``render_native(static, tables, cam, H, W)``.  ``_encode_nodes`` is also the
@@ -19,8 +21,7 @@ from functools import lru_cache
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_PKG), "euclider_tpu", "oracle", "native",
-                    "oracle.cpp")
+_SRC = os.path.join(_PKG, "oracle", "native", "oracle.cpp")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 NODE_KINDS = {"sphere": 0, "hyperplane": 1, "halfspace": 2, "cylinder": 3,

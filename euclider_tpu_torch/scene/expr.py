@@ -1,9 +1,9 @@
 """Tiny math-expression language for expression-driven space warps.
 
-Port note: a copy of ``euclider_tpu/scene/expr.py`` without its jax function
-library, so that the scene front end loads without jax.  The parser, the
-postfix lowering and the VM depth check are unchanged; a torch evaluator for
-expression materials comes with the slice that renders them.
+Port note: a copy of ``euclider_tpu/scene/expr.py`` whose jax function
+library ``jax_lib`` becomes ``torch_lib``, so that the scene front end loads
+without jax.  The parser, the postfix lowering and the VM depth check are
+unchanged.
 
 Reference parity: euclider's expression-driven warped-space material
 (the ``ComponentTransformation``-style material whose behaviour is given by
@@ -263,6 +263,79 @@ def eval_ast(node: Ast, env: Dict[str, Any], lib):
         args = [eval_ast(a, env, lib) for a in node[2]]
         return lib[node[1]](*args)
     raise ExprError(f"bad AST node {node!r}")
+
+
+def torch_lib(safe: bool = False, device=None):
+    """Function library for batched torch evaluation: the port of
+    ``jax_lib`` (the plain version's field, ``ops/trace.py::make_accel``).
+
+    The arc family comes from ``ops/mathx.py`` (the polynomial, as lax and
+    the CUDA kernels use), not ``torch.atan2``/``torch.asin``.  A function
+    applied to a Python float (a constant argument) computes in float32 on
+    ``device``, as jax does with a weak-typed float.  ``safe=True``
+    domain-guards sqrt, log, asin, acos and div with the double-where
+    pattern of ``jax_lib(safe=True)``: the out-of-domain input is replaced
+    before the primitive runs, so neither the value nor its gradient is
+    NaN or inf there.  Gradients are autograd's, which agree with jax's on
+    every function: zero for floor and sign, select(x >= 0, 1, -1) for abs
+    (``mathx.abs``), half to each side of a tie of min and max."""
+    import torch
+
+    from ..ops import mathx
+
+    def t(x):
+        return (x if isinstance(x, torch.Tensor)
+                else torch.tensor(float(x), dtype=torch.float32,
+                                  device=device))
+
+    def f1(fn):
+        return lambda x: fn(t(x))
+
+    def f2(fn):
+        return lambda a, b: fn(*torch.broadcast_tensors(t(a), t(b)))
+
+    lib = {
+        "const": float,
+        "ones_like": lambda a: torch.ones_like(t(a)),
+        "sin": f1(torch.sin), "cos": f1(torch.cos), "tanh": f1(torch.tanh),
+        "exp": f1(torch.exp), "log": f1(torch.log), "sqrt": f1(torch.sqrt),
+        "abs": f1(mathx.abs), "floor": f1(torch.floor),
+        "sign": f1(torch.sign),
+        "min": f2(torch.minimum), "max": f2(torch.maximum),
+        "atan": f1(mathx.atan), "asin": f1(mathx.asin),
+        "acos": f1(mathx.acos), "atan2": f2(mathx.atan2),
+    }
+    if not safe:
+        return lib
+
+    def guard1(ok_fn, fn, inner, fallback):
+        """where(ok, fn(where(ok, x, inner)), fallback(x)): both branches
+        finite everywhere, so the VJP never sees 0*NaN."""
+        def g(x):
+            x = t(x)
+            ok = ok_fn(x)
+            return torch.where(ok, fn(torch.where(ok, x, inner)),
+                               fallback(x))
+        return g
+
+    half_pi = math.pi / 2.0
+    lib["sqrt"] = guard1(lambda x: x > 0, torch.sqrt, 1.0,
+                         lambda x: torch.zeros_like(x))
+    lib["log"] = guard1(lambda x: x > 0, torch.log, 1.0,
+                        lambda x: torch.zeros_like(x))
+    lib["asin"] = guard1(lambda x: torch.abs(x) < 1, mathx.asin, 0.0,
+                         lambda x: torch.sign(x) * half_pi)
+    lib["acos"] = guard1(lambda x: torch.abs(x) < 1, mathx.acos, 0.0,
+                         lambda x: torch.where(x > 0, 0.0, math.pi))
+
+    def safe_div(a, b):
+        # guard only b == 0, the true singularity (jax_lib's rule)
+        b = t(b)
+        ok = b != 0
+        return torch.where(ok, a / torch.where(ok, b, 1.0), 0.0)
+
+    lib["div"] = safe_div
+    return lib
 
 
 def numpy_lib():

@@ -36,7 +36,10 @@ class InverseParams(NamedTuple):
 
 def make_loss_fn(static, H: int, W: int, backend: str = "cuda"):
     """MSE loss against a target [H, W, 3], differentiable by autograd:
-    ``loss(params, target, time=0.0)``.  backend 'torch' or 'cuda'."""
+    ``loss(params, target, time=0.0)``.  backend 'torch' or 'cuda'.  The
+    scene ``time`` may be a float32 tensor that requires grad: the
+    expression materials read it, and it gets its gradient through both
+    backends (the backward kernel's camera-row slot 17 on 'cuda')."""
     if backend == "torch":
         from ..ops.trace import render_image
 
@@ -67,7 +70,9 @@ def make_fused_value_and_grad(static, H: int, W: int,
     """``value_and_grad(params, target, time=0.0) -> (loss, grads)`` with
     grads an InverseParams shaped like params (zeros for the tables the
     render does not read).  'cuda-fused' is one kernel launch; 'torch' and
-    'cuda' take autograd through make_loss_fn."""
+    'cuda' take autograd through make_loss_fn.  As in the JAX package, the
+    time's gradient is not returned here: ``make_loss_fn`` gives it, and
+    ``ops.cuda_bwd.train_step_cuda`` returns it."""
     if backend == "cuda-fused":
         from ..ops.cuda_bwd import train_step_cuda
 

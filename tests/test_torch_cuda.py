@@ -45,9 +45,26 @@ def warp_gradient_scene():
                                                background=(0.1, 0.1, 0.2)))
 
 
+def expr_gradient_scene():
+    """tests/test_expr_space.py::_tiny_expr_scene with a time-dependent
+    field: an expression sphere in front of a smooth hyperplane wall."""
+    from euclider_tpu_torch.scene import ir
+    region = ir.Entity(ir.Sphere((0, 0, -4), 1.8),
+                       material=ir.ExprSpace(ax="p0 * sin(p1 * z + t)",
+                                             ay="0", step=0.06,
+                                             params=(0.5, 2.0)),
+                       surface=ir.UniformSurface((0, 0, 0, 0.0)))
+    wall = ir.Entity(ir.Hyperplane((0, 0, 1), -8.0),
+                     surface=ir.SmoothSurface(uv_scale=0.5))
+    return ir.Scene(dim=3, entities=(region, wall),
+                    settings=ir.RenderSettings(max_depth=3, march_steps=96,
+                                               background=(0.1, 0.1, 0.2)))
+
+
 def scene_on(name, device, **settings):
-    sc = (warp_gradient_scene() if name == "warp_gradient_scene"
-          else ett.get_scene(name))
+    sc = {"warp_gradient_scene": warp_gradient_scene,
+          "expr_gradient_scene": expr_gradient_scene}.get(
+              name, lambda: ett.get_scene(name))()
     if settings:
         sc = replace(sc, settings=replace(sc.settings, **settings))
     static, tables = ett.compile_scene(sc)
@@ -69,6 +86,7 @@ def test_encoder_refuses_a_tree_deeper_than_the_stack():
                                   "config2_mirror_glass",
                                   "config4_hypersphere",
                                   "config5_warp_portal",
+                                  "config6_expr_space",
                                   "config7_warp4d"])
 def test_kernel_matches_plain(cuda, name):
     static, tables, cam = scene_on(name, cuda)
@@ -129,15 +147,15 @@ def cotangent(shape, seed, device):
     return torch.from_numpy(g).to(device)
 
 
-def off_seams(g, static, tables, cam):
+def off_seams(g, static, tables, cam, time=0.0):
     """g, zero where the comparison would measure float32 noise: where the
     kernel's and the plain forward take different branches, and within a
     pixel of an image seam (second difference above 0.02), where per-pixel
     gradients such as dt/dr ~ 1/sqrt(disc) amplify a rounding without
     bound (chip_smoke.py phase 6 holds the frame to the same rule)."""
     H, W = g.shape[:2]
-    k1 = cuda_kernel.render_image_cuda(static, tables, cam, H, W)
-    img = trace.render_image(static, tables, cam, H, W)
+    k1 = cuda_kernel.render_image_cuda(static, tables, cam, H, W, time)
+    img = trace.render_image(static, tables, cam, H, W, time)
     d2x = (img[:, 2:] + img[:, :-2] - 2 * img[:, 1:-1]).abs().amax(-1)
     d2y = (img[2:] + img[:-2] - 2 * img[1:-1]).abs().amax(-1)
     m = (k1 - img).abs().amax(-1) > 1e-4
@@ -197,6 +215,61 @@ def test_fused_step_matches_unfused_on_a_marching_scene(cuda):
     assert abs(float(loss) - float(ref_loss)) <= 1e-5 * float(ref_loss)
     assert float(gt.mat_warp_strength.abs().max()) > 0
     grads_close(ref[:2], (gt, gc))
+
+
+@pytest.mark.cuda
+def test_vjp_kernel_matches_plain_through_an_expression(cuda):
+    """vjp_cuda against the plain backward on the expression gradient scene
+    at scene time 0.3: the expression VM's adjoint inside K4, with
+    mat_expr_params' and the time's gradients nonzero; the time's within
+    the same rule."""
+    from euclider_tpu_torch.ops import cuda_bwd, vjp
+    static, tables, cam = scene_on("expr_gradient_scene", cuda)
+    g = off_seams(cotangent((BH, BW, 3), 5, cuda), static, tables, cam, 0.3)
+    got = cuda_bwd.vjp_cuda(static, tables, cam, BH, BW, g, time=0.3)
+    ref = vjp.vjp_blocked(static, tables, cam, BH, BW, g, time=0.3)
+    grads_close(ref, got)
+    assert float(ref[0].mat_expr_params.abs().max()) > 0
+    assert abs(float(ref[2])) > 0
+    assert abs(float(got[2]) - float(ref[2])) <= 1e-3 * max(
+        abs(float(ref[2])), 1.0)
+
+
+@pytest.mark.cuda
+def test_fused_step_matches_unfused_on_config6(cuda):
+    """One fused training step of config6 against the forward kernel + MSE
+    + vjp_cuda: the expression VM in both modes of trace_bwd."""
+    from euclider_tpu_torch.ops import cuda_bwd
+    static, tables, cam = scene_on("config6_expr_space", cuda)
+    target = cotangent((BH, BW, 3), 6, cuda).sigmoid()
+    loss, gt, gc, _ = cuda_bwd.train_step_cuda(static, tables, cam, target,
+                                               BH, BW)
+    img = cuda_kernel.render_image_cuda(static, tables, cam, BH, BW)
+    ref_loss = torch.mean((img - target) ** 2)
+    ref = cuda_bwd.vjp_cuda(static, tables, cam, BH, BW,
+                            2.0 * (img - target) / img.numel())
+    assert abs(float(loss) - float(ref_loss)) <= 1e-5 * float(ref_loss)
+    grads_close(ref[:2], (gt, gc))
+
+
+@pytest.mark.cuda
+def test_loss_fn_differentiates_the_scene_time(cuda):
+    """The 'cuda' backend's loss gives the scene time the gradient the
+    fused step (train_step_cuda, 'cuda-fused') returns: both through the
+    backward kernel's camera-row slot."""
+    from euclider_tpu_torch.ops import cuda_bwd
+    from euclider_tpu_torch.train.inverse import InverseParams, make_loss_fn
+    static, tables, cam = scene_on("expr_gradient_scene", cuda)
+    target = cotangent((BH, BW, 3), 7, cuda).sigmoid()
+    tm = torch.tensor(0.3, device=cuda, requires_grad=True)
+    loss = make_loss_fn(static, BH, BW, "cuda")(InverseParams(tables, cam),
+                                                target, tm)
+    g_tm, = torch.autograd.grad(loss, tm)
+    d_time = cuda_bwd.train_step_cuda(static, tables, cam, target, BH, BW,
+                                      0.3)[3]
+    assert float(d_time) != 0.0
+    assert abs(float(g_tm) - float(d_time)) <= 1e-3 * max(
+        abs(float(d_time)), 1.0)
 
 
 @pytest.mark.cuda

@@ -86,12 +86,11 @@ def test_row_slab_matches_full_frame(compiled_scenes, y0, rows):
     torch.testing.assert_close(slab, full[y0:y0 + rows], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("name", ["config3_csg_textured",
-                                  "config6_expr_space"])
+@pytest.mark.parametrize("name", ["config3_csg_textured", "perlin_probe"])
 def test_cuda_encoder_refuses_unsupported_features(compiled_scenes, name):
     what = {"config3_csg_textured": "torch port does not",
-            "config6_expr_space":
-                "torch port does not render expression space"}[name]
+            "perlin_probe":
+                "torch port does not render 'perlin' surfaces"}[name]
     _, static, _, _ = compiled_scenes[name]
     with pytest.raises(NotImplementedError, match="CUDA kernel does not"):
         cuda_kernel.encode_scene(static)
