@@ -12,17 +12,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                together.
   3. kernel  - render_image_cuda against the plain torch version on the card
                at 1280x720, config1, config2, grad_probe, fresnel_probe,
-               config5, config7 and config6 (expression space): at least
-               99.9% of pixels within 1e-4 (max over channels); where
-               config2's differing pixels lie.
+               config5, config7, config6 (expression space), config3 (CSG
+               and a texture), perlin_probe, the cylinder scene of
+               tests/test_cylinder.py and config4 (4D): at least 99.9% of
+               pixels within 1e-4 (max over channels); where config2's
+               differing pixels lie.
   4. truth   - the kernel against tests/goldens.npz at 48x64 (at most 1% of
                pixels beyond 2e-3) and against the float64 C++ oracle at
-               48x128 (at least 99% within 2e-3), same seven scenes.
+               48x128 (at least 99% within 2e-3), same scenes (the cylinder
+               scene has no golden: the oracle only).
   5. main    - the render path: euclider_tpu_torch.render_image at 1280x720
-               for config1, config2, config5 and config6 and the CLI with
-               --backend cuda on config2, config5 and config6; the forward
-               kernel's launch count must rise on this path.
-  6. bwd     - grad_probe and config2 at 1280x720, and a 64-row slab of the
+               for config1, config2, config5, config6 and config3 and the
+               CLI with --backend cuda on config2, config5, config6 and
+               config3; the forward kernel's launch count must rise on this
+               path.
+  6. bwd     - grad_probe, config2, config3 (every texel of its texture
+               too, whose gradient must be nonzero), perlin_probe and the
+               cylinder scene with smooth surfaces (its cylinders' rows of
+               shape_vec must get a nonzero gradient) at 1280x720, and a
+               64-row slab of the
                1280x720 frame across the warp or expression region of the
                warp gradient scene, of config5, of config5 with smooth
                surfaces, of the expression gradient scene (at scene time
@@ -37,8 +45,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                losses, the sphere-position error below half its start,
                trace_bwd launched once a step and trace_fwd not at all),
                then 2 steps with --backend cuda (both kernels launch), then
-               5 fused steps on config5 and on config6 (finite, falling
-               losses), and one config6 step through the unfused cuda
+               5 fused steps on config5, config6 and config3 (finite,
+               falling losses), and one config6 step through the unfused cuda
                backend against the fused one (loss within 1e-5 relative,
                gradients by phase 6's rule).
   8. time    - ms/frame of the render, ms/step of the fused and unfused
@@ -63,8 +71,13 @@ SCENES = ("config1_sphere_room", "config2_mirror_glass")
 PROBES = ("grad_probe", "fresnel_probe")
 WARP = ("config5_warp_portal", "config7_warp4d")
 EXPR = ("config6_expr_space",)
-BWD_SCENES = ("grad_probe", "config2_mirror_glass")
-TRAIN_SCENES = BWD_SCENES + WARP[:1] + EXPR   # timed training steps
+# CSG, cylinders, perlin and textures (the kernels' BUILD_SHAPES), and 4D
+SHAPES = ("config3_csg_textured", "perlin_probe", "cylinder_test",
+          "config4_hypersphere")
+BWD_SCENES = ("grad_probe", "config2_mirror_glass", "config3_csg_textured",
+              "perlin_probe", "cylinder_smooth")
+# timed training steps
+TRAIN_SCENES = BWD_SCENES[:2] + WARP[:1] + EXPR + SHAPES[:2]
 # marching scenes of phase 6: a 64-row slab [y0, y0 + 64) across the warp
 # or expression region (the plain backward keeps every march step of every
 # pixel), and the scene time it is taken at
@@ -129,6 +142,31 @@ def build_scene(name):
                         settings=ir.RenderSettings(
                             max_depth=3, march_steps=96,
                             background=(0.1, 0.1, 0.2)))
+    if name in ("cylinder_test", "cylinder_smooth"):
+        # tests/test_cylinder.py::_cyl_scene (a pillar, a sphere bored out
+        # by a cylinder, a floor); cylinder_smooth puts smooth surfaces on
+        # all three (on checker and uniform ones the geometry's gradient is
+        # zero, as in JAX)
+        smooth = name == "cylinder_smooth"
+        pillar = ir.Entity(
+            ir.Cylinder((1.2, 0.0, -5.0), (0.0, 1.0, 0.0), 0.5),
+            surface=ir.SmoothSurface(uv_scale=3.0) if smooth
+            else ir.CheckerSurface(uv_scale=3.0), name="pillar")
+        bored = ir.Csg("difference", (
+            ir.Sphere((-1.2, 0.0, -4.5), 1.0),
+            ir.Cylinder((-1.2, 0.0, -4.5), (0.0, 0.0, 1.0), 0.45)))
+        ring = ir.Entity(bored, surface=ir.SmoothSurface(
+            uv_scale=2.0, reflectivity=0.1) if smooth else ir.UniformSurface(
+                (0.8, 0.5, 0.2, 1.0), reflectivity=0.1), name="ring")
+        floor = ir.Entity(ir.HalfSpace((0.0, -1.0, 0.0), 1.2),
+                          surface=ir.SmoothSurface(uv_scale=0.8) if smooth
+                          else ir.CheckerSurface(uv_scale=0.8), name="floor")
+        return ir.Scene(
+            dim=3, name=name, entities=(pillar, ring, floor),
+            camera=ir.Camera(position=(0.0, 0.4, 1.0),
+                             forward=(0.0, -0.12, -1.0)),
+            settings=ir.RenderSettings(max_depth=3,
+                                       background=(0.05, 0.06, 0.1)))
     if name == "config5_smooth":
         sc = et.get_scene("config5_warp_portal")
         return replace(sc, entities=tuple(
@@ -253,12 +291,13 @@ def ground_truth(name, device, goldens):
     from euclider_tpu_torch.utils.validate import assert_oracle_match
 
     static, tables, cam = load(name, device)
-    img = cuda_kernel.render_image_cuda(static, tables, cam, 48, 64)
-    err = np.abs(img.cpu().numpy() - goldens[name]).max(axis=-1)
-    bad = float((err > GOLD_TOL).mean())
-    say("truth", f"{name}: goldens 48x64 bad_frac(>{GOLD_TOL:g})={bad:.4f} "
-        f"(limit {GOLD_BAD:g}), max_err={err.max():.3e}")
-    assert bad <= GOLD_BAD, f"{name}: goldens gate failed"
+    if name in goldens:
+        img = cuda_kernel.render_image_cuda(static, tables, cam, 48, 64)
+        err = np.abs(img.cpu().numpy() - goldens[name]).max(axis=-1)
+        bad = float((err > GOLD_TOL).mean())
+        say("truth", f"{name}: goldens 48x64 bad_frac(>{GOLD_TOL:g})="
+            f"{bad:.4f} (limit {GOLD_BAD:g}), max_err={err.max():.3e}")
+        assert bad <= GOLD_BAD, f"{name}: goldens gate failed"
     frac = assert_oracle_match(static, tables, cam,
                                cuda_kernel.render_image_cuda, h=48, w=128,
                                tol=ORACLE_TOL, min_frac=ORACLE_FRAC,
@@ -295,7 +334,7 @@ def main_path(device):
     import euclider_tpu_torch as et
     from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel
 
-    names = SCENES + WARP[:1] + EXPR
+    names = SCENES + WARP[:1] + EXPR + SHAPES[:1]
     scenes = [load(name, device) for name in names]
     cuda_kernel.LAUNCHES = cuda_bwd.LAUNCHES = 0
     imgs = [et.render_image(static, tables, cam, H, W)
@@ -309,7 +348,7 @@ def main_path(device):
             f"{[round(float(c), 4) for c in img.mean(dim=(0, 1))]}")
     say("main", f"kernel launches on the render path: {launches}")
     assert launches >= len(names), "the render path did not run the kernel"
-    for name in (SCENES[1], WARP[0], EXPR[0]):
+    for name in (SCENES[1], WARP[0], EXPR[0], SHAPES[0]):
         cli_render(name)
     return launches
 
@@ -319,6 +358,7 @@ def main_path(device):
 def leaves(d_tables, d_cam):
     from euclider_tpu_torch.ops.cuda_kernel import FLOAT_FIELDS
     return ([(k, getattr(d_tables, k)) for k in FLOAT_FIELDS]
+            + [(f"textures[{i}]", t) for i, t in enumerate(d_tables.textures)]
             + [(f"cam.{k}", v) for k, v in d_cam._asdict().items()])
 
 
@@ -333,25 +373,13 @@ def grads_err(ref, got):
     return worst
 
 
-def seams(img):
-    """Pixels within one pixel of an image seam (second difference above
-    SMOOTH_TAU along a row or a column): silhouettes, total internal
-    reflection and weight cuts, checker edges."""
-    import torch
-    d2x = (img[:, 2:] + img[:, :-2] - 2 * img[:, 1:-1]).abs().amax(-1)
-    d2y = (img[2:] + img[:-2] - 2 * img[1:-1]).abs().amax(-1)
-    m = torch.zeros(img.shape[:2], dtype=torch.bool, device=img.device)
-    m[:, 1:-1] |= d2x > SMOOTH_TAU
-    m[1:-1] |= d2y > SMOOTH_TAU
-    return torch.nn.functional.max_pool2d(m[None, None].float(), 3, 1,
-                                          1)[0, 0] > 0
-
-
 def backward_check(name, device, y0=0, rows=H, tm=0.0):
     """Phase 6 for one scene on rows [y0, y0 + rows) at scene time tm ->
     numbers for the record."""
     import torch
     from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel, trace, vjp
+    from euclider_tpu_torch.ops import geometry as G
+    from euclider_tpu_torch.utils.validate import seams
 
     static, tables, cam = load(name, device)
     k1 = cuda_kernel.render_image_cuda(static, tables, cam, H, W, tm, y0=y0,
@@ -364,7 +392,7 @@ def backward_check(name, device, y0=0, rows=H, tm=0.0):
     # rounding without bound (tests/test_gradients.py masks silhouettes
     # alike).
     flips = (k1 - plain).abs().amax(-1) > TOL
-    keep = ~(flips | seams(plain))
+    keep = ~(flips | seams(plain, SMOOTH_TAU))
     g = seeded((rows, W, 3), 0, device) * keep[..., None]
     got = cuda_bwd.vjp_cuda(static, tables, cam, H, W, g, tm, y0=y0,
                             rows=rows)
@@ -404,6 +432,27 @@ def backward_check(name, device, y0=0, rows=H, tm=0.0):
             f"{name}: mat_expr_params got no gradient"
         assert float(ref[2]) != 0.0 and float(got[2]) != 0.0, \
             f"{name}: the scene time got no gradient"
+    extra = {}
+    for i, (a, b) in enumerate(zip(ref[0].textures, got[0].textures)):
+        extra[f"textures[{i}]_max"] = (float(a.abs().max()),
+                                       float(b.abs().max()))
+        say("bwd", f"{name}: textures[{i}] ({a.numel()} texels x channels) "
+            f"max|ref| {extra[f'textures[{i}]_max'][0]:.4g}, max|kernel| "
+            f"{extra[f'textures[{i}]_max'][1]:.4g}")
+        assert min(extra[f"textures[{i}]_max"]) > 0, \
+            f"{name}: the texture got no gradient"
+    for e in static.entities:
+        for leaf in (G.leaves(e.shape)):
+            if leaf[0] != "cylinder":
+                continue
+            cyl_rows = slice(leaf[1], leaf[1] + 2)   # centre and axis
+            a = float(ref[0].shape_vec[cyl_rows].abs().max())
+            b = float(got[0].shape_vec[cyl_rows].abs().max())
+            extra[f"cylinder_rows_{leaf[1]}_max"] = (a, b)
+            say("bwd", f"{name}: cylinder at shape_vec rows {leaf[1]}-"
+                f"{leaf[1] + 1}: max|ref| {a:.4g}, max|kernel| {b:.4g}")
+            if name == "cylinder_smooth":
+                assert min(a, b) > 0, f"{name}: a cylinder got no gradient"
 
     target = seeded((rows, W, 3), 1, device, "uniform")
     loss, gt, gc, _ = cuda_bwd.train_step_cuda(
@@ -422,6 +471,7 @@ def backward_check(name, device, y0=0, rows=H, tm=0.0):
     assert lrel <= LOSS_RTOL, f"{name}: fused loss disagrees"
     assert ratio2 <= 1.0, f"{name}: fused gradients disagree"
     return {"vjp_err_over_tol": ratio, "vjp_leaf": leaf, "vjp_err": err,
+            **extra,
             "time_grad": float(got[2]), "time_err_over_tol": t_ratio,
             "masked_frac": float((~keep).float().mean()),
             "fused_loss_rel": lrel, "fused_err_over_tol": ratio2,
@@ -464,6 +514,7 @@ def train_path(device):
                         "--backend", "cuda"])
     warp = fit.main(["--scene", WARP[0], "--steps", str(TRAIN_STEPS)])
     expr = fit.main(["--scene", EXPR[0], "--steps", str(TRAIN_STEPS)])
+    shapes = fit.main(["--scene", SHAPES[0], "--steps", str(TRAIN_STEPS)])
     step = fused_vs_unfused(EXPR[0], device)
     launches = {"trace_fwd": cuda_kernel.LAUNCHES,
                 "trace_bwd": cuda_bwd.LAUNCHES}
@@ -475,23 +526,24 @@ def train_path(device):
         f"criterion, below half: {fused['recovered']})")
     say("train", f"grad_probe unfused (--backend cuda): launches during the "
         f"steps {unfused['launches']}")
-    for name, run in ((WARP[0], warp), (EXPR[0], expr)):
+    runs = ((WARP[0], warp), (EXPR[0], expr), (SHAPES[0], shapes))
+    for name, run in runs:
         say("train", f"{name} fused: losses "
             f"{[round(x, 6) for x in run['losses']]}, launches during the "
             f"steps {run['launches']}")
     say("train", f"launches on the training path {launches}")
     assert all(x == x and abs(x) != float("inf")
                for x in losses + unfused["losses"] + warp["losses"]
-               + expr["losses"])
+               + expr["losses"] + shapes["losses"])
     assert fused["recovered"], "the example's criterion failed"
     assert fused["launches"] == {"trace_fwd": 0, "trace_bwd": EXAMPLE_STEPS}
     assert min(unfused["launches"].values()) >= 2, "an unfused kernel idled"
-    for name, run in ((WARP[0], warp), (EXPR[0], expr)):
+    for name, run in runs:
         assert run["launches"] == {"trace_fwd": 0, "trace_bwd": TRAIN_STEPS}
         assert all(b < a for a, b in zip(run["losses"], run["losses"][1:])), \
             f"{name}: the fused steps did not lower the loss"
     return launches, {"grad_probe": losses, WARP[0]: warp["losses"],
-                      EXPR[0]: expr["losses"],
+                      EXPR[0]: expr["losses"], SHAPES[0]: shapes["losses"],
                       "grad_probe_error": fused["error"],
                       f"{EXPR[0]}_fused_vs_unfused": step}
 
@@ -549,13 +601,29 @@ def node_count(static, tables, cam):
 
 
 def march_count(static, tables, cam):
-    """node_count, plus the march's work that the plain render's data needs:
-    -> (nodes [H, W], live march steps summed over the frame, marched
-    nodes).  Counted by wrapping the plain version's march step for the
-    length of the count."""
-    from euclider_tpu_torch.ops import march
+    """node_count, plus the march's work that the plain render's data needs
+    and the entity each node hits: -> (nodes [H, W], live march steps
+    summed over the frame, marched nodes, hits [n_ent]: nodes that hit
+    each entity).  Counted by wrapping the plain version's march step, its
+    node shading and its propagation for the length of the count."""
+    import torch
+    from euclider_tpu_torch.ops import march, trace
     counts = {"steps": 0, "marches": 0}
+    hits = torch.zeros(len(static.entities), dtype=torch.int64,
+                       device=tables.surf_color.device)
     make_body = march.make_march_body
+    shade_node, propagate = trace._shade_node, trace.propagate
+    active = [None]
+
+    def shading(*args, **kw):
+        active[0] = args[7]          # _shade_node's `active`
+        return shade_node(*args, **kw)
+
+    def propagating(*args, **kw):
+        out = propagate(*args, **kw)
+        hit = out[0] & active[0]
+        hits.add_(torch.bincount(out[3][hit].long(), minlength=len(hits)))
+        return out
 
     def counting(*args):
         body = make_body(*args)
@@ -572,24 +640,41 @@ def march_count(static, tables, cam):
         return step
 
     march.make_march_body = counting
+    trace._shade_node, trace.propagate = shading, propagating
     try:
         nodes = node_count(static, tables, cam)
     finally:
         march.make_march_body = make_body
-    return nodes, counts["steps"], counts["marches"]
+        trace._shade_node, trace.propagate = shade_node, propagate
+    return nodes, counts["steps"], counts["marches"], hits.tolist()
 
 
 # FP32 operations of the kernels' code (trace_common.cuh), counted as one
-# per add, multiply, compare-free select, sqrt, rsqrt, divide, sine or pow:
+# per add, multiply, compare-free select, sqrt, rsqrt, divide, sine, pow
+# or floor:
 CAMERA_OPS = 125          # camera_ray: 4 normalize, 3 projections, NDC
-SPHERE_TEST_OPS = 25      # nearest(): one sphere, both roots
-PLANE_TEST_OPS = 16       # nearest(): one plane
+# nearest(): one leaf's roots
+TEST_OPS = {"sphere": 25, "halfspace": 16, "hyperplane": 16, "cylinder": 70}
 MISS_OPS = 6              # the cheapest shading: w * background
 MARCH_STEP_OPS = 47       # march_step: the field (18), v + h a, normalize, x + h v
 ATTRACTOR_OPS = 18        # the attractor field of march_step
-SPHERE_SIDE_OPS = 12      # side(): one sphere, at every march step
-PLANE_SIDE_OPS = 8        # side(): one plane
+# leaf_member() / side(): one leaf; a bare hyperplane's side is a
+# half-space test, inside a composite it is free
+SIDE_OPS = {"sphere": 12, "halfspace": 8, "hyperplane": 8, "cylinder": 27}
 BISECT_OPS = 240          # bisect(): 10 halvings of lerp + side, one entity
+PROBE_POINT_OPS = 9       # csg_flips(): t -+ PROBE and o + t d, per point
+PERLIN_OCTAVE_OPS = 45    # perlin_sum(): one octave (scale, floor, fraction,
+                          # 4 gradient dots, 2 fades, 3 lerps, the sum)
+TEXTURE_OPS = 39          # tex_cell() and 3 channels of bilinear()
+
+
+def side_ops(node):
+    """Operations of member() or side() on a shape: its leaves' tests."""
+    from euclider_tpu_torch.ops import geometry as G
+    if G.is_primitive(node):
+        return SIDE_OPS[node[0]]
+    return sum(0 if leaf[0] == "hyperplane" else SIDE_OPS[leaf[0]]
+               for leaf in G.leaves(node))
 
 
 def field_ops(static):
@@ -613,27 +698,41 @@ def field_ops(static):
     return min(ops, default=ATTRACTOR_OPS)
 
 
-def bound(static, nodes, backward, steps=0, marches=0):
-    """Least time for the frame: the larger of 12 B/pixel (the image out,
-    or the cotangent or target in) over HBM bandwidth and a lower bound on
-    the FP32 operations over the FP32 peak.  The operations count the
-    camera ray, every straight node's nearest-hit test over every entity,
-    every live march step with its field (``field_ops``) and its side tests
-    over every entity, one bisection per marched node, and the cheapest
-    shading of every node; the backward counts them twice (its forward
-    sweep and the recompute of its reverse sweep) and no adjoint
-    arithmetic.  -> (ms, bound_by, ops)."""
-    test = sum(SPHERE_TEST_OPS if e.shape[0] == "sphere" else PLANE_TEST_OPS
-               for e in static.entities)
-    side = sum(SPHERE_SIDE_OPS if e.shape[0] == "sphere" else PLANE_SIDE_OPS
-               for e in static.entities)
+def bound(static, nodes, backward, steps=0, marches=0, hits=(),
+          tex_bytes=0):
+    """Least time for the frame: the larger of the bytes (12 B/pixel: the
+    image out, or the cotangent or target in; the textures read once) over
+    HBM bandwidth and a lower bound on the FP32 operations over the FP32
+    peak.  The operations count the camera ray, every straight node's
+    nearest-hit test over every leaf of every entity, every live march step
+    with its field (``field_ops``) and its side tests over every entity,
+    one bisection per marched node, and the cheapest shading of every node;
+    for each node that hits an entity (``hits``), the membership probe of
+    its winning crossing where that entity is a composite (two member()
+    evaluations), and the octaves of a perlin surface or the bilinear
+    sample of a texture.  The backward counts them twice (its forward sweep
+    and the recompute of its reverse sweep) and no adjoint arithmetic.
+    -> (ms, bound_by, ops)."""
+    from euclider_tpu_torch.ops import geometry as G
+    test = sum(TEST_OPS[leaf[0]] for e in static.entities
+               for leaf in G.leaves(e.shape))
+    side = sum(side_ops(e.shape) for e in static.entities)
     step = MARCH_STEP_OPS - ATTRACTOR_OPS + field_ops(static)
     ops = (H * W * CAMERA_OPS + nodes * MISS_OPS + (nodes - marches) * test
            + steps * (step + side) + marches * BISECT_OPS)
+    perlin = static.surf_perlin or (None,) * len(static.surf_kinds)
+    for e, n in zip(static.entities, hits):
+        if not G.is_primitive(e.shape):
+            ops += n * 2 * (PROBE_POINT_OPS + side_ops(e.shape))
+        kind = static.surf_kinds[e.surface]
+        if kind == "perlin":
+            ops += n * perlin[e.surface][0] * PERLIN_OCTAVE_OPS
+        elif kind == "texture":
+            ops += n * TEXTURE_OPS
     if backward:
         ops *= 2
     t_ops = ops / PEAK_FP32 * 1e3
-    t_bytes = H * W * 12 / PEAK_BYTES * 1e3
+    t_bytes = (H * W * 12 + tex_bytes) / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
                                  else "bytes"), ops
 
@@ -655,14 +754,18 @@ def timing(name, device, card):
         lambda: trace.render_image(static, tables, cam, H, W), device, 1)
     out["fwd_device_ms"] = device_ms(fwd, ["trace_fwd_kernel"])[
         "trace_fwd_kernel"]
-    nodes, steps, marches = march_count(static, tables, cam)
+    nodes, steps, marches, hits = march_count(static, tables, cam)
     nodes = int(nodes.sum())
+    tex_bytes = 4 * sum(t.numel() for t in tables.textures)
     out["nodes_per_pixel"] = nodes / (H * W)
     out["march_steps_per_pixel"] = steps / (H * W)
+    out["hits_per_pixel"] = {e.name or f"entity{i}": n / (H * W)
+                             for i, (e, n) in enumerate(zip(static.entities,
+                                                            hits))}
     out["fwd_bound_ms"], out["fwd_bound_by"], _ = bound(
-        static, nodes, False, steps, marches)
+        static, nodes, False, steps, marches, hits, tex_bytes)
     out["bwd_bound_ms"], out["bwd_bound_by"], _ = bound(
-        static, nodes, True, steps, marches)
+        static, nodes, True, steps, marches, hits, tex_bytes)
     if name in TRAIN_SCENES:
         target = seeded((H, W, 3), 2, device, "uniform")
         params = InverseParams(tables, cam)
@@ -809,10 +912,10 @@ def main() -> int:
             say("build", f"{name}: {line}")
 
     errs = {name: kernel_vs_plain(name, device)
-            for name in SCENES + PROBES + WARP + EXPR}
+            for name in SCENES + PROBES + WARP + EXPR + SHAPES}
     locate_diffs(SCENES[1], device, errs[SCENES[1]][2])
     goldens = np.load(os.path.join(ROOT, "tests", "goldens.npz"))
-    for name in SCENES + PROBES + WARP + EXPR:
+    for name in SCENES + PROBES + WARP + EXPR + SHAPES:
         ground_truth(name, device, goldens)
     fwd_launches = main_path(device)
     bwd = {name: backward_check(name, device) for name in BWD_SCENES}
@@ -820,7 +923,7 @@ def main() -> int:
                 for name, (y0, tm) in SLAB_SCENES.items()})
     train_launches, losses = train_path(device)
     times = {name: timing(name, device, card)
-             for name in SCENES + ("grad_probe",) + WARP + EXPR}
+             for name in SCENES + ("grad_probe",) + WARP + EXPR + SHAPES[:2]}
     probe = probe_check(device, card)
     for name, (ms, by) in queued_bounds(load(SCENES[1], device)[0]).items():
         say("time", f"still to port, {name}: bound {ms:.6g} ms ({by}; "
@@ -832,9 +935,10 @@ def main() -> int:
         "name": "trace_fwd", "route": "cuda",
         "source": "euclider_tpu_torch/csrc/trace_fwd.cu",
         "replaces": "euclider_tpu/ops/pallas_kernel.py:127",
-        "covers": "K1: straight space, the march through the attractor "
-                  "field and the expression VM (trace_common.cuh vm_eval), "
-                  "portals",
+        "covers": "K1, every feature: straight space, CSG, cylinders, "
+                  "uniform/checker/smooth/perlin/texture surfaces, the "
+                  "march through the attractor field and the expression VM "
+                  "(trace_common.cuh vm_eval), portals",
         "launches": fwd_launches + train_launches["trace_fwd"],
         "max_abs_err": max(e[0] for e in errs.values()),
         "ms": c2["fwd_device_ms"], "plain_ms": c2["plain_frame_ms"],
@@ -855,10 +959,12 @@ def main() -> int:
                     "euclider_tpu/ops/pallas_vjp.py:611 (plain, K3), "
                     "euclider_tpu/ops/pallas_vjp.py:173 (K4), "
                     "euclider_tpu/ops/pallas_kernel.py:270 (K5)",
-        "covers": "K2/K3/K5: the backward of straight space and portals; "
-                  "K4: the reversible march backward through the attractor "
-                  "field and the expression VM's adjoint (trace_bwd.cu "
-                  "vm_adjoint: mat_expr_params and the scene time)",
+        "covers": "K2/K3/K5: the backward of straight space, CSG (through "
+                  "the winning leaf), cylinders, perlin and texture surfaces "
+                  "(the texels' gradient by atomics) and portals; K4: the "
+                  "reversible march backward through the attractor field and "
+                  "the expression VM's adjoint (trace_bwd.cu vm_adjoint: "
+                  "mat_expr_params and the scene time)",
         "launches": train_launches["trace_bwd"],
         "max_abs_err": max(b["vjp_err"] for b in bwd.values()),
         "ms": gp["bwd_device_ms"], "plain_ms": bwd["grad_probe"]["plain_ms"],

@@ -28,8 +28,11 @@
 // material past the surface) and the indices of the children it shaded.
 // The reverse sweep walks the tape backwards, recomputes each node from
 // its slot under the recorded decisions and applies hand-written adjoints
-// (nearest hit or march, normal and flip, UV through the mathx
-// polynomials, the surface colour, Schlick always, the local term,
+// (nearest hit or march over the winning leaf, a CSG node adding none:
+// the probe's validity is discrete; normal and flip, UV through the mathx
+// polynomials, the surface colour: smooth, perlin through its fade and
+// fractional coordinates, the texture through its bilinear weights and its
+// texels; Schlick always, the local term,
 // refraction or the portal, reflection, the PUSH offsets), leaving the
 // node's input adjoint in its tape entry for
 // its parent.  The camera-ray adjoint comes last.  The adjoint of the
@@ -40,8 +43,12 @@
 // order of ops/cuda_kernel.py FLOAT_FIELDS, then the loss) in local
 // memory; the block sums them with warp shuffles and shared memory in a
 // fixed order and writes one row of partial sums per block; a second small
-// kernel sums the rows, again in a fixed order.  No atomics: the result is
-// deterministic.
+// kernel sums the rows, again in a fixed order.  These sums use no atomics
+// and are deterministic.  The one exception is the textures' gradient
+// (12,288 floats for one 64 x 64 texture, far beyond a thread's vector):
+// each textured node adds its four texels' 3 channels into a separate
+// device buffer with atomicAdd, so that table alone is summed in an order
+// that may change from run to run.
 //
 // What bounds it: FP32 ALU work, warp divergence and the local-memory
 // traffic of the tape (at most MAX_TAPE entries of 17 words per thread, 19
@@ -49,10 +56,12 @@
 // value and adjoint arrays (one float each per instruction), not
 // device-memory bytes: it reads 12 B and writes nothing per pixel.  The
 // per-thread gradient vector holds only the tables the build reads, since
-// every thread reduces all of it.
+// every thread reduces all of it.  A textured node's 12 atomicAdds go to
+// a buffer of 48 KB per 64 x 64 texture, which stays in L2.
 //
 // Built like trace_fwd.cu: nvcc -gencode arch=compute_90a,code=sm_90a
-// -std=c++17 -O3, without --use_fast_math.
+// -std=c++17 -O3, without --use_fast_math, twice (the BUILD_SHAPES builds
+// with -fmad=false -DTRACE_SHAPES_BUILDS).
 
 #include "trace_common.cuh"
 
@@ -152,34 +161,187 @@ __device__ __forceinline__ V4 sphere_uv_adj(V4 p, V4 c, float du, float dv) {
     return dloc;
 }
 
-// adjoint of (u, v) = (p . t1, p . t2) with (t1, t2) = tangent_frame(c):
-// adds to dp and dc
-__device__ __forceinline__ void plane_uv_adj(V4 p, V4 c, int dim, float du,
-                                             float dv, V4* dp, V4* dc) {
+// adjoint of (t1, t2) = tangent_frame(n, dim): from dt1, dt2 -> dn
+__device__ __forceinline__ V4 frame_adj(V4 n, int dim, V4 dt1, V4 dt2) {
     int a, b;
-    tangent_axes(c, dim, &a, &b);
+    tangent_axes(n, dim, &a, &b);
     const V4 ea = axis(a), eb = axis(b);
-    const V4 a1 = madd(ea, -dot(c, ea), c);
+    const V4 a1 = madd(ea, -dot(n, ea), n);
     const V4 t1 = normalize(a1);
-    const V4 b1 = madd(eb, -dot(c, eb), c);
+    const V4 b1 = madd(eb, -dot(n, eb), n);
     const float kb = dot(t1, b1);
     const V4 b2 = madd(b1, -kb, t1);
-    const V4 t2 = normalize(b2);
-    *dp = madd(madd(*dp, du, t1), dv, t2);
-    V4 dt1 = scale(p, du);
-    const V4 db2 = normalize_adj(b2, scale(p, dv));
+    const V4 db2 = normalize_adj(b2, dt2);
     V4 db1 = db2;
     dt1 = madd(dt1, -kb, db2);
     const float dkb = -dot(db2, t1);
     dt1 = madd(dt1, dkb, b1);
     db1 = madd(db1, dkb, t1);
     const V4 da1 = normalize_adj(a1, dt1);
-    // a1 = ea - c[a] c and b1 = eb - c[b] c
-    V4 g = madd(scale(da1, -comp(c, a)), -comp(c, b), db1);
-    const float ga = -dot(da1, c), gb = -dot(db1, c);
+    // a1 = ea - n[a] n and b1 = eb - n[b] n
+    V4 g = madd(scale(da1, -comp(n, a)), -comp(n, b), db1);
+    const float ga = -dot(da1, n), gb = -dot(db1, n);
     g = add(g, scale(ea, ga));
-    g = add(g, scale(eb, gb));
-    *dc = add(*dc, g);
+    return add(g, scale(eb, gb));
+}
+
+// adjoint of (u, v) = (p . t1, p . t2) with (t1, t2) = tangent_frame(c):
+// adds to dp and dc
+__device__ __forceinline__ void plane_uv_adj(V4 p, V4 c, int dim, float du,
+                                             float dv, V4* dp, V4* dc) {
+    V4 t1, t2;
+    tangent_frame(c, dim, &t1, &t2);
+    *dp = madd(madd(*dp, du, t1), dv, t2);
+    *dc = add(*dc, frame_adj(c, dim, scale(p, du), scale(p, dv)));
+}
+
+// --- cylinders -------------------------------------------------------------
+
+// adjoint of cyl_uv(p, c, a): u = atan2(qy, qx) / (2 pi) + 1/2 with
+// (qx, qy) = (q . t1, q . t2), q = pc - (pc . a) a, pc = p - c,
+// (t1, t2) = tangent_frame(a); v = pc . a.  Adds to dp, dc and da.
+__device__ __forceinline__ void cyl_uv_adj(V4 p, V4 c, V4 a, int dim,
+                                           float du, float dv, V4* dp,
+                                           V4* dc, V4* da) {
+    const V4 pc = sub(p, c);
+    const float ax = dot(pc, a);
+    const V4 q = madd(pc, -ax, a);
+    V4 t1, t2;
+    tangent_frame(a, dim, &t1, &t2);
+    const float qx = dot(q, t1), qy = dot(q, t2);
+    // the atan2 pole guard of sphere_uv_adj
+    const bool guard = (fabsf(qx) + fabsf(qy)) < 1e-12f;
+    const float X = guard ? 1.0f : qx;
+    float dqx = 0.0f, dqy = 0.0f;
+    if (X != 0.0f) {
+        const float z = qy / X;
+        const float dz = atan_p_grad(z) * (du * INV_TWO_PI_F);
+        dqy = dz / X;
+        if (!guard) dqx = -dz * z / X;
+    }
+    const V4 dq = madd(scale(t1, dqx), dqy, t2);
+    *da = add(*da, frame_adj(a, dim, scale(q, dqx), scale(q, dqy)));
+    const float dax = dv - dot(dq, a);
+    *da = madd(*da, -ax, dq);
+    *da = madd(*da, dax, pc);
+    const V4 dpc = madd(dq, dax, a);
+    *dp = add(*dp, dpc);
+    *dc = sub(*dc, dpc);
+}
+
+// adjoint of n0 = normalize(q), q = pc - (pc . a) a, pc = p - c: adds to
+// dp, dc and da
+__device__ __forceinline__ void cyl_normal_adj(V4 p, V4 c, V4 a, V4 dn0,
+                                               V4* dp, V4* dc, V4* da) {
+    const V4 pc = sub(p, c);
+    const float k = dot(pc, a);
+    const V4 dq = normalize_adj(madd(pc, -k, a), dn0);
+    const float dk = -dot(dq, a);
+    *da = madd(madd(*da, -k, dq), dk, pc);
+    const V4 dpc = madd(dq, dk, a);
+    *dp = add(*dp, dpc);
+    *dc = sub(*dc, dpc);
+}
+
+// --- perlin and texture surfaces ---------------------------------------------
+
+// d fade / dt = 30 t^2 (t - 1)^2
+__device__ __forceinline__ float fade_grad(float t) {
+    const float m = t - 1.0f;
+    return 30.0f * t * t * m * m;
+}
+
+// gradient of perlin2 at (pu, pv) (the hash and floor are piecewise
+// constant: only the fractional coordinates carry it)
+__device__ __forceinline__ void perlin2_grad(float pu, float pv,
+                                             uint32_t seedk, float* gx,
+                                             float* gy) {
+    const PerlinCell k = perlin_cell(pu, pv, seedk);
+    const float xm = k.xf - 1.0f, ym = k.yf - 1.0f;
+    const float n00 = grad_dot(k.h[0], k.xf, k.yf);
+    const float n01 = grad_dot(k.h[1], xm, k.yf);
+    const float n10 = grad_dot(k.h[2], k.xf, ym);
+    const float n11 = grad_dot(k.h[3], xm, ym);
+    const float sx = fade(k.xf), sy = fade(k.yf);
+    const float dsx = fade_grad(k.xf), dsy = fade_grad(k.yf);
+    const float gx0 = perlin_gx(k.h[0]), gx1 = perlin_gx(k.h[1]),
+                gx2 = perlin_gx(k.h[2]), gx3 = perlin_gx(k.h[3]);
+    const float gy0 = perlin_gy(k.h[0]), gy1 = perlin_gy(k.h[1]),
+                gy2 = perlin_gy(k.h[2]), gy3 = perlin_gy(k.h[3]);
+    // nx0 = n00 + sx (n01 - n00), nx1 = n10 + sx (n11 - n10),
+    // r = nx0 + sy (nx1 - nx0)
+    const float ax0 = gx0 + dsx * (n01 - n00) + sx * (gx1 - gx0);
+    const float ax1 = gx2 + dsx * (n11 - n10) + sx * (gx3 - gx2);
+    const float ay0 = gy0 + sx * (gy1 - gy0);
+    const float ay1 = gy2 + sx * (gy3 - gy2);
+    const float nx0 = n00 + sx * (n01 - n00), nx1 = n10 + sx * (n11 - n10);
+    *gx = ax0 + sy * (ax1 - ax0);
+    *gy = ay0 + dsy * (nx1 - nx0) + sy * (ay1 - ay0);
+}
+
+// adjoint of f = clip(perlin_sum(u, v, sc), 0, 1) under df -> du, dv, dsc.
+// jnp.clip is maximum then minimum: its gradient is 1 inside (0, 1), half
+// at either bound, 0 outside.
+__device__ __forceinline__ void perlin_adj(float u, float v, float sc,
+                                           int octaves, uint32_t seedk,
+                                           float df, float* du, float* dv,
+                                           float* dsc) {
+    const float x = perlin_sum(u, v, sc, octaves, seedk);
+    const float clip = (x > 0.0f && x < 1.0f) ? 1.0f
+                     : (x == 0.0f || x == 1.0f) ? 0.5f : 0.0f;
+    const float dacc = df * clip * 0.5f;
+    const float us = __fmul_rn(u, sc), vs = __fmul_rn(v, sc);
+    float amp = 1.0f, freq = 1.0f;
+    *du = 0.0f;
+    *dv = 0.0f;
+    *dsc = 0.0f;
+    for (int o = 0; o < octaves; ++o) {
+        float gx, gy;
+        perlin2_grad(__fmul_rn(us, freq), __fmul_rn(vs, freq),
+                     seedk + 974711u * o, &gx, &gy);
+        const float g = dacc * amp * freq;  // pu = u sc freq
+        *du += g * gx * sc;
+        *dv += g * gy * sc;
+        *dsc += g * (gx * u + gy * v);
+        amp *= 0.5f;
+        freq *= 2.0f;
+    }
+}
+
+// adjoint of the bilinear texture sample of surface sf at (u, v) under the
+// colour cotangent dcol[0..2] -> du, dv, dsc; the texels' gradients are
+// added into gtex (atomically: neighbouring pixels share texels).  The
+// texel indices are discrete; jnp.mod's gradient is 1.
+__device__ __forceinline__ void texture_adj(const Scene& s, int sf, float u,
+                                            float v, const float dcol[4],
+                                            float* gtex, float* du,
+                                            float* dv, float* dsc) {
+    const int tid = s.surf_aux[2 * sf];
+    const float sc = s.surf_uv_scale[sf];
+    const TexCell k = tex_cell(s, tid, u, v, sc);
+    const float ex = 1.0f - k.dx, ey = 1.0f - k.dy;
+    float ddx = 0.0f, ddy = 0.0f;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+        const float g = dcol[ch];
+        if (g == 0.0f) continue;
+        const float v00 = __ldg(s.tex + k.i00 + ch);
+        const float v01 = __ldg(s.tex + k.i01 + ch);
+        const float v10 = __ldg(s.tex + k.i10 + ch);
+        const float v11 = __ldg(s.tex + k.i11 + ch);
+        ddx += g * ((v01 - v00) * ey + (v11 - v10) * k.dy);
+        ddy += g * ((v10 * ex + v11 * k.dx) - (v00 * ex + v01 * k.dx));
+        atomicAdd(gtex + k.i00 + ch, g * ex * ey);
+        atomicAdd(gtex + k.i01 + ch, g * k.dx * ey);
+        atomicAdd(gtex + k.i10 + ch, g * ex * k.dy);
+        atomicAdd(gtex + k.i11 + ch, g * k.dx * k.dy);
+    }
+    // fu = mod(u sc, 1) (w - 1), fv = mod(v sc, 1) (h - 1)
+    const float wu = (float)(s.tex_info[3 * tid + 2] - 1);
+    const float wv = (float)(s.tex_info[3 * tid + 1] - 1);
+    *du = ddx * wu * sc;
+    *dv = ddy * wv * sc;
+    *dsc = ddx * wu * u + ddy * wv * v;
 }
 
 // --- the expression VM's adjoint ----------------------------------------
@@ -446,15 +608,18 @@ __device__ __forceinline__ float rec_lam(const NodeRec<false>&) {
 
 // Recompute node `in` under its recorded decisions and return the adjoint
 // of its input slot (origin, direction, weight), given the cotangent G of
-// the pixel colour and the input adjoints of the children it shaded.
+// the pixel colour and the input adjoints of the children it shaded; the
+// textures' gradient goes to gtex.
 template <int kB>
 __device__ void node_adj(const Scene& s, const Offs& off,
-                         const TapeNode<kB != BUILD_STRAIGHT>& T,
+                         const TapeNode<has_march(kB)>& T,
                          const float G[3],
-                         const TapeNode<kB != BUILD_STRAIGHT>* tape,
-                         float* grad, V4* d_org, V4* d_dir, float* d_w) {
-    constexpr bool kWarp = kB != BUILD_STRAIGHT;
-    constexpr bool kExpr = kB == BUILD_EXPR;
+                         const TapeNode<has_march(kB)>* tape,
+                         float* grad, float* gtex, V4* d_org, V4* d_dir,
+                         float* d_w) {
+    constexpr bool kWarp = has_march(kB);
+    constexpr bool kExpr = has_vm(kB);
+    constexpr bool kShapes = has_shapes(kB);
     using Tape = TapeNode<kWarp>;
     const V4 o = T.org;
     const float w = T.w;
@@ -469,17 +634,24 @@ __device__ void node_adj(const Scene& s, const Offs& off,
         }
         return;
     }
+    // the winning leaf (a CSG node adds no adjoint: the gradient flows
+    // through the leaf, and the probe's validity is discrete)
     const int ent = T.rec.ent;
-    const int node = s.ent_root[ent];
-    const int row = s.node_row[node];
+    const int leaf = hit_leaf<kShapes>(s, ent, T.rec.root);
+    const int row = s.node_row[leaf];
+    const int lkind = s.node_kind[leaf];
     const V4 c = load4(s.shape_vec + 4 * row);
     const float sc = s.shape_sc[row];
-    const bool sphere = s.node_kind[node] == NODE_SPHERE;
+    const bool sphere = lkind == NODE_SPHERE;
+    const bool cyl = kShapes && lkind == NODE_CYLINDER;
+    const V4 ca = cyl ? load4(s.shape_vec + 4 * row + 4) : vzero();  // axis
+    const bool root1 = T.rec.root & 1;
 
     // ---- recompute: the hit point p and the direction d there ----
     const bool marched = kWarp && s.mat_warp[T.mat] != MAT_STRAIGHT;
     float t = 0.0f, b = 0.0f, sq = 1.0f, nd = 1.0f;
-    V4 oc = vzero(), p, d;
+    float w2 = 1.0f, cc = 0.0f, ka = 0.0f, kd = 0.0f;  // cylinder
+    V4 oc = vzero(), cq = vzero(), cw = vzero(), p, d;
     Field<kExpr> f;
     MarchTape mt;
     if (marched) {
@@ -494,14 +666,27 @@ __device__ void node_adj(const Scene& s, const Offs& off,
             b = dot(oc, d);
             const float q = dot(oc, oc) - sc * sc;
             sq = sqrtf(b * b - q);
-            t = T.rec.root ? -b + sq : -b - sq;
+            t = root1 ? -b + sq : -b - sq;
+        } else if (cyl) {
+            // the roots of cyl_roots: b = q . w / w2, cc = (q . q - r^2) / w2
+            oc = sub(o, c);
+            ka = dot(oc, ca);
+            cq = madd(oc, -ka, ca);
+            kd = dot(d, ca);
+            cw = madd(d, -kd, ca);
+            w2 = dot(cw, cw);
+            b = dot(cq, cw) / w2;
+            cc = (dot(cq, cq) - sc * sc) / w2;
+            sq = sqrtf(b * b - cc);
+            t = root1 ? -b + sq : -b - sq;
         } else {
             nd = dot(c, d);
             t = (sc - dot(c, o)) / nd;
         }
         p = madd(o, t, d);
     }
-    const V4 n0 = sphere ? normalize(sub(p, c)) : c;
+    const V4 n0 = sphere ? normalize(sub(p, c))
+                  : cyl ? normalize(cyl_radial(p, c, ca)) : c;
     const V4 n = T.rec.flip ? scale(n0, -1.0f) : n0;
     const int sf = s.ent_surf[ent];
     const int skind = s.surf_kind[sf];
@@ -509,6 +694,8 @@ __device__ void node_adj(const Scene& s, const Offs& off,
     if (skind != SURF_UNIFORM) {
         if (sphere) {
             sphere_uv(p, c, &u, &v);
+        } else if (cyl) {
+            cyl_uv(p, c, ca, s.dim, &u, &v);
         } else {
             V4 t1, t2;
             tangent_frame(c, s.dim, &t1, &t2);
@@ -517,7 +704,7 @@ __device__ void node_adj(const Scene& s, const Offs& off,
         }
     }
     float col[4];
-    surface_color(s, sf, u, v, col);
+    surface_color<kShapes>(s, sf, u, v, col);
     const float alpha = col[3];
     const float refl0 = s.surf_refl[sf];
     const float fres = s.surf_fresnel[sf];
@@ -531,6 +718,7 @@ __device__ void node_adj(const Scene& s, const Offs& off,
 
     float dw = 0.0f, drefl = 0.0f, dcol[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     V4 dn = vzero(), dp = vzero(), dd = vzero(), dorg = vzero(), dc = vzero();
+    V4 da = vzero();  // a cylinder's axis
 
     // ---- local term: lw * col ----
     const float dlw = G[0] * col[0] + G[1] * col[1] + G[2] * col[2];
@@ -643,6 +831,29 @@ __device__ void node_adj(const Scene& s, const Offs& off,
         du = dA * TWO_PI_F * uvs;
         dv = dB * TWO_PI_F * uvs;
         grad[off.uvs + sf] += dA * TWO_PI_F * u + dB * TWO_PI_F * v;
+    } else if (kShapes && skind == SURF_PERLIN) {
+        // col = c1 + (c2 - c1) f, f the clipped fBm
+        const float uvs = s.surf_uv_scale[sf];
+        const int oct = s.surf_aux[2 * sf];
+        const uint32_t seedk = (uint32_t)s.surf_aux[2 * sf + 1];
+        const float f = fminf(fmaxf(perlin_sum(u, v, uvs, oct, seedk), 0.0f),
+                              1.0f);
+        float df = 0.0f;
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch) {
+            grad[off.col + 4 * sf + ch] += dcol[ch] * (1.0f - f);
+            grad[off.col2 + 4 * sf + ch] += dcol[ch] * f;
+            df += dcol[ch] * (c2[ch] - c1[ch]);
+        }
+        float dsc;
+        perlin_adj(u, v, uvs, oct, seedk, df, &du, &dv, &dsc);
+        grad[off.uvs + sf] += dsc;
+    } else if (kShapes && skind == SURF_TEXTURE) {
+        // rgb the bilinear sample, alpha surf_color[3]
+        grad[off.col + 4 * sf + 3] += dcol[3];
+        float dsc;
+        texture_adj(s, sf, u, v, dcol, gtex, &du, &dv, &dsc);
+        grad[off.uvs + sf] += dsc;
     } else {
         int base = off.col;
         if (skind == SURF_CHECKER) {
@@ -653,11 +864,14 @@ __device__ void node_adj(const Scene& s, const Offs& off,
 #pragma unroll
         for (int ch = 0; ch < 4; ++ch) grad[base + 4 * sf + ch] += dcol[ch];
     }
-    if (skind == SURF_SMOOTH) {
+    if (skind == SURF_SMOOTH ||
+        (kShapes && (skind == SURF_PERLIN || skind == SURF_TEXTURE))) {
         if (sphere) {
             const V4 dloc = sphere_uv_adj(p, c, du, dv);
             dp = add(dp, dloc);
             dc = sub(dc, dloc);
+        } else if (cyl) {
+            cyl_uv_adj(p, c, ca, s.dim, du, dv, &dp, &dc, &da);
         } else {
             plane_uv_adj(p, c, s.dim, du, dv, &dp, &dc);
         }
@@ -666,9 +880,11 @@ __device__ void node_adj(const Scene& s, const Offs& off,
     // ---- normal: orientation flip, then the leaf normal ----
     const V4 dn0 = T.rec.flip ? scale(dn, -1.0f) : dn;
     if (sphere) {
-        const V4 da = normalize_adj(sub(p, c), dn0);
-        dp = add(dp, da);
-        dc = sub(dc, da);
+        const V4 dq = normalize_adj(sub(p, c), dn0);
+        dp = add(dp, dq);
+        dc = sub(dc, dq);
+    } else if (cyl) {
+        cyl_normal_adj(p, c, ca, dn0, &dp, &dc, &da);
     } else {
         dc = add(dc, dn0);
     }
@@ -680,6 +896,7 @@ __device__ void node_adj(const Scene& s, const Offs& off,
                              scale(dp, 1.0f - lam), scale(dp, lam), dd, grad,
                              &dorg, &dd);
         add4(grad + off.sv + 4 * row, dc);
+        if (cyl) add4(grad + off.sv + 4 * row + 4, da);
         *d_org = dorg;
         *d_dir = dd;
         *d_w = dw;
@@ -694,7 +911,7 @@ __device__ void node_adj(const Scene& s, const Offs& off,
     // ---- hit distance ----
     if (sphere) {
         float db = -dt;
-        const float dsq = T.rec.root ? dt : -dt;
+        const float dsq = root1 ? dt : -dt;
         const float ddisc = dsq * 0.5f / sq;
         db += 2.0f * b * ddisc;
         const float dq = -ddisc;
@@ -702,6 +919,28 @@ __device__ void node_adj(const Scene& s, const Offs& off,
         grad[off.ssc + row] += -2.0f * sc * dq;
         doc = madd(doc, db, d);
         dd = madd(dd, db, oc);
+        dorg = add(dorg, doc);
+        dc = sub(dc, doc);
+    } else if (cyl) {
+        // t = -b -+ sq, sq = sqrt(b^2 - cc), b = q . w / w2,
+        // cc = (q . q - r^2) / w2, w2 = w . w, q = oc - ka a, ka = oc . a,
+        // w = d - kd a, kd = d . a
+        float db = -dt;
+        const float ddisc = (root1 ? dt : -dt) * 0.5f / sq;
+        db += 2.0f * b * ddisc;
+        const float dcc = -ddisc;
+        const float dqw = db / w2;
+        const float dqq = dcc / w2;
+        const float dw2 = -(db * b + dcc * cc) / w2;
+        grad[off.ssc + row] += -2.0f * sc * dqq;
+        const V4 dq = madd(scale(cw, dqw), 2.0f * dqq, cq);
+        const V4 dcw = madd(scale(cq, dqw), 2.0f * dw2, cw);
+        const float dkd = -dot(dcw, ca);
+        dd = madd(add(dd, dcw), dkd, ca);
+        da = madd(madd(da, -kd, dcw), dkd, d);
+        const float dka = -dot(dq, ca);
+        const V4 doc = madd(dq, dka, ca);
+        da = madd(madd(da, -ka, dq), dka, oc);
         dorg = add(dorg, doc);
         dc = sub(dc, doc);
     } else {
@@ -714,6 +953,7 @@ __device__ void node_adj(const Scene& s, const Offs& off,
         dd = madd(dd, dnd, c);
     }
     add4(grad + off.sv + 4 * row, dc);
+    if (cyl) add4(grad + off.sv + 4 * row + 4, da);
     *d_org = dorg;
     *d_dir = dd;
     *d_w = dw;
@@ -770,13 +1010,13 @@ __device__ void camera_adj(const float* cam, int x, int y, int H, int W,
 }
 
 // Forward sweep, seed, reverse sweep for one pixel; adds its gradient (and,
-// fused, its loss term) into grad.
+// fused, its loss term) into grad, the textures' into gtex.
 template <int kB>
 __device__ void pixel_backward(const Scene& s, const Offs& off,
                                const float* cam, int x, int y, int H, int W,
                                const float* gin, float norm, bool fused,
-                               float* grad) {
-    using Tape = TapeNode<kB != BUILD_STRAIGHT>;
+                               float* grad, float* gtex) {
+    using Tape = TapeNode<has_march(kB)>;
     const V4 d0 = camera_ray(cam, x, y, H, W, nullptr);
     float acc[3] = {0.0f, 0.0f, 0.0f};
     Slot stack[MAX_SLOTS];
@@ -815,7 +1055,8 @@ __device__ void pixel_backward(const Scene& s, const Offs& off,
     for (int i = n - 1; i >= 0; --i) {
         V4 dorg, ddir;
         float dw;
-        node_adj<kB>(s, off, tape[i], G, tape, grad, &dorg, &ddir, &dw);
+        node_adj<kB>(s, off, tape[i], G, tape, grad, gtex, &dorg, &ddir,
+                     &dw);
         tape[i].org = dorg;
         tape[i].dir = ddir;
         tape[i].w = dw;
@@ -825,19 +1066,19 @@ __device__ void pixel_backward(const Scene& s, const Offs& off,
 }
 
 // One thread per pixel of the row slab; one row of partial sums per block
-// into partials[p * n_blocks + block].
+// into partials[p * n_blocks + block]; the textures' gradient into gtex.
 template <int kB>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 trace_bwd_kernel(Scene s, Offs off, const float* __restrict__ cam, int H,
                  int W, int rows, const float* __restrict__ gin, float norm,
-                 int fused, float* __restrict__ partials) {
+                 int fused, float* __restrict__ partials, float* gtex) {
     const int x = blockIdx.x * BLOCK_X + threadIdx.x;
     const int y = blockIdx.y * BLOCK_Y + threadIdx.y;
     float grad[MAX_PARAMS];
     for (int p = 0; p < off.n; ++p) grad[p] = 0.0f;
     if (x < W && y < rows)
         pixel_backward<kB>(s, off, cam, x, y, H, W, gin, norm, fused != 0,
-                            grad);
+                            grad, gtex);
 
     __shared__ float red[NWARPS][MAX_PARAMS];
     const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
@@ -894,12 +1135,14 @@ sum_partials_kernel(const float* __restrict__ partials, int n_blocks,
 // the portals' (portal_*: their rows, or 0 in the straight build) and of
 // mat_expr_params (n_mat in the VM build, else 0).  partials:
 // scratch of (n_params + 1) * n_blocks floats, n_blocks = ceil(W/32) *
-// ceil(rows/8).
+// ceil(rows/8).  gtex: the textures' gradient, shaped like their texels
+// (floats[15]), zeroed by the caller; the kernel adds into it.
 extern "C" int euclider_trace_bwd(
     const int32_t* const* ints, const float* const* floats, const int* params,
     float t_max, const int* sizes, const float* cam, int H, int W, int rows,
     const float* gin, float norm, int fused, float* partials,
-    long long partials_len, float* out, int device, void* stream) {
+    long long partials_len, float* out, float* gtex, int device,
+    void* stream) {
     const Scene s = make_scene(ints, floats, params, t_max, cam);
     if (s.max_depth + 1 > MAX_SLOTS || s.max_nodes > MAX_TAPE ||
         s.max_nodes < 1 || s.n_ent > 32 ||
@@ -908,9 +1151,9 @@ extern "C" int euclider_trace_bwd(
     const int n_shape = sizes[0], n_mat = sizes[1], n_surf = sizes[2],
               n_warp = sizes[3], n_portal = sizes[4], n_expr = sizes[5];
     const int build = scene_build(params);
-    if (n_warp != (build != BUILD_STRAIGHT ? n_mat : 0) ||
-        (build == BUILD_STRAIGHT && n_portal != 0) ||
-        n_expr != (build == BUILD_EXPR ? n_mat : 0))
+    if (n_warp != (has_march(build) ? n_mat : 0) ||
+        (!has_march(build) && n_portal != 0) ||
+        n_expr != (has_vm(build) ? n_mat : 0))
         return (int)cudaErrorInvalidValue;
     Offs off;
     off.sv = 24;
@@ -939,19 +1182,24 @@ extern "C" int euclider_trace_bwd(
     const long long n_blocks = (long long)grid.x * grid.y;
     if (partials_len < n_blocks * off.n) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    switch (build) {
-        case BUILD_STRAIGHT:
-            trace_bwd_kernel<BUILD_STRAIGHT><<<grid, block, 0, st>>>(
-                s, off, cam, H, W, rows, gin, norm, fused, partials);
-            break;
-        case BUILD_WARP:
-            trace_bwd_kernel<BUILD_WARP><<<grid, block, 0, st>>>(
-                s, off, cam, H, W, rows, gin, norm, fused, partials);
-            break;
-        default:
-            trace_bwd_kernel<BUILD_EXPR><<<grid, block, 0, st>>>(
-                s, off, cam, H, W, rows, gin, norm, fused, partials);
+#define TRACE_BWD_CASE(kB)                                                 \
+    case kB:                                                               \
+        trace_bwd_kernel<kB><<<grid, block, 0, st>>>(                      \
+            s, off, cam, H, W, rows, gin, norm, fused, partials, gtex);    \
+        break;
+    switch (build) {  // this library's builds (trace_common.cuh)
+#ifdef TRACE_SHAPES_BUILDS
+        TRACE_BWD_CASE(BUILD_SHAPES)
+        TRACE_BWD_CASE(BUILD_SHAPES | BUILD_WARP)
+        TRACE_BWD_CASE(BUILD_SHAPES | BUILD_EXPR)
+#else
+        TRACE_BWD_CASE(BUILD_STRAIGHT)
+        TRACE_BWD_CASE(BUILD_WARP)
+        TRACE_BWD_CASE(BUILD_EXPR)
+#endif
+        default: return (int)cudaErrorInvalidValue;
     }
+#undef TRACE_BWD_CASE
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     sum_partials_kernel<<<off.n, RED_THREADS, 0, st>>>(

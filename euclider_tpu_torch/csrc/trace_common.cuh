@@ -10,11 +10,26 @@
 // them to float32 rounding.  Compiled without --use_fast_math: sqrtf,
 // division, floorf and sinf stay IEEE float32 / full-range libm.
 //
-// Supported: sphere, half-space and hyperplane leaves with their UV maps;
-// uniform, checker and smooth surfaces; vacuum, dielectric, attractor
-// ('warp') and expression ('expr') materials, whose rays march
-// (ops/march.py); portals.  The Python wrappers refuse every other feature
-// before launching.
+// Supported: every feature of the JAX package's render: sphere, half-space,
+// hyperplane and cylinder leaves with their UV maps and CSG composites of
+// them (union, intersection, difference, symdiff, complement); uniform,
+// checker, smooth, perlin and texture surfaces; vacuum, dielectric,
+// attractor ('warp') and expression ('expr') materials, whose rays march
+// (ops/march.py); portals.  The Python wrappers refuse only scenes beyond
+// the kernels' fixed limits (stack depth, entities, nodes per entity, VM
+// length, texture size) before launching.
+//
+// A CSG entity's shape tree is one post-order range of nodes
+// [ent_first, ent_root]; membership is one pass over it with one bit per
+// node (no recursion).  A leaf's crossing is a boundary of the composite
+// where membership flips between t - PROBE and t + PROBE, probed with
+// uncontracted arithmetic as the plain version computes the probe points.
+// The perlin lattice hash is native uint32 wraparound; the lattice and
+// texel coordinates, whose floorf decides a discrete cell, are uncontracted
+// too.  A texture is sampled by gathering its four texels from global
+// memory (__ldg) and weighting them in float32, as the plain version's
+// gather does (no texture objects: their filter weights are 9-bit fixed
+// point).
 //
 // The march repeats its step up to 320 times, which would amplify any
 // rounding difference from the plain version: its arithmetic (the step,
@@ -24,11 +39,19 @@
 // operations do; the VM's sinf, cosf, tanhf, expf, logf and sqrtf are the
 // libm functions torch's CUDA operators call.
 //
-// Three builds of every kernel (the template parameter kB): straight space
-// only, + the march with the attractor field and the portal teleport, + the
-// expression VM.  Each launch takes the smallest build that renders its
-// scene, so scenes without expressions run the code they ran before the VM
-// existed.
+// Six builds of every kernel (the template parameter kB, a set of BUILD_*
+// bits): straight space, + the march with the attractor field and the
+// portal teleport, + the expression VM; each with or without the shapes
+// and surfaces beyond spheres, planes and uniform, checker and smooth
+// colour (BUILD_SHAPES: CSG, cylinders, perlin, textures).  Each launch
+// takes the smallest build that renders its scene, so a scene runs no code
+// of a feature it does not have.  The BUILD_SHAPES builds live in a second
+// library of each kernel, compiled with -fmad=false (TRACE_SHAPES_BUILDS):
+// a texture or a noise surface multiplies any rounding of the hit point or
+// its UV by its UV scale (up to 32 cells a unit in perlin_probe), so there
+// every operation rounds as the plain version's separate torch operations
+// do.  Contracted, 0.1% of config3's pixels moved past 1e-4 and
+// perlin_probe's camera gradient past its tolerance (PERF.md §6).
 
 #pragma once
 
@@ -39,25 +62,44 @@ namespace trace {
 
 constexpr int MAX_SLOTS = 16;     // DFS stack capacity (max_depth + 1 <= 16)
 constexpr int MAX_EXPR = 128;     // VM instructions of one material's field
+constexpr int MAX_NODES = 32;     // shape nodes of one entity: a bit each
+constexpr float PROBE = 2e-4f;    // CSG membership probe offset
 constexpr float EPS_T = 1e-4f;    // minimum accepted hit distance
 constexpr float PUSH = 1e-3f;     // offset of a secondary ray's origin
 constexpr float W_EPS = 1e-4f;    // path-weight cutoff for a push
 
 // codes of oracle/native_oracle.py NODE_KINDS / SURF_KINDS
-constexpr int NODE_SPHERE = 0;
-constexpr int NODE_HYPERPLANE = 1;
+enum : int {
+    NODE_SPHERE = 0, NODE_HYPERPLANE, NODE_HALFSPACE, NODE_CYLINDER,
+    NODE_UNION, NODE_INTERSECTION, NODE_DIFFERENCE, NODE_SYMDIFF,
+    NODE_COMPLEMENT
+};
 constexpr int SURF_UNIFORM = 0;
 constexpr int SURF_CHECKER = 1;
 constexpr int SURF_SMOOTH = 2;
+constexpr int SURF_TEXTURE = 3;
+constexpr int SURF_PERLIN = 4;
 // Scene::mat_warp: how a material's rays travel
 constexpr int MAT_STRAIGHT = 0;
 constexpr int MAT_ATTRACTOR = 1;
 constexpr int MAT_EXPR = 2;
 
-// the builds (template parameter kB of shade and the kernels)
+// the builds (template parameter kB of shade and the kernels): bits
 constexpr int BUILD_STRAIGHT = 0;  // no march, no portal
-constexpr int BUILD_WARP = 1;      // + the march (attractor field), portals
-constexpr int BUILD_EXPR = 2;      // + the expression VM
+constexpr int BUILD_MARCH = 1;     // + the march (attractor field), portals
+constexpr int BUILD_VM = 2;        // + the expression VM (with BUILD_MARCH)
+constexpr int BUILD_SHAPES = 4;    // + CSG, cylinders, perlin, textures
+constexpr int BUILD_WARP = BUILD_MARCH;
+constexpr int BUILD_EXPR = BUILD_MARCH | BUILD_VM;
+__host__ __device__ constexpr bool has_march(int kB) {
+    return (kB & BUILD_MARCH) != 0;
+}
+__host__ __device__ constexpr bool has_vm(int kB) {
+    return (kB & BUILD_VM) != 0;
+}
+__host__ __device__ constexpr bool has_shapes(int kB) {
+    return (kB & BUILD_SHAPES) != 0;
+}
 
 constexpr float PI_F = 3.141592653589793f;
 constexpr float HALF_PI_F = 1.5707963267948966f;
@@ -195,6 +237,12 @@ struct Scene {
     const int32_t *expr_off;   // [4 M + 1] start of material m's component
                                // program c at 4 m + c (expressions only)
     const int32_t *expr_code;  // [L, 4] VM instructions (see vm_eval)
+    const int32_t *node_cstart, *node_ccount;      // a composite's children:
+    const int32_t *child_idx;  // child_idx[cstart .. cstart + ccount)
+    const int32_t *ent_first;  // first node of the entity's post-order range
+    const int32_t *surf_aux;   // [U, 2]: perlin (octaves, seed * 974711 mod
+                               // 2^32), texture (texture id, 0)
+    const int32_t *tex_info;   // [T, 3]: offset in tex, height, width
     const float *shape_vec, *shape_sc;             // [S, 4], [S]
     const float *mat_ior;                          // [M]
     const float *surf_color, *surf_color2;         // [U, 4]
@@ -203,6 +251,7 @@ struct Scene {
     const float *warp_center, *warp_strength, *warp_step;  // [M, 4], [M], [M]
     const float *portal_lin, *portal_tr;           // [P, 4, 4], [P, 4]
     const float *expr_params;                      // [M, 8] p0..p7
+    const float *tex;    // the textures' [h, w, 3] texels, back to back
     const float *time;   // the scene time t: &cam[17], set by the entry point
     int n_ent, ambient, max_depth, max_nodes, dim, march_steps;
     float t_max;
@@ -210,25 +259,31 @@ struct Scene {
 
 // The entry points' scene arguments, as host arrays of device pointers:
 //   ints:   ent_root, ent_mat, ent_surf, ent_portal, node_kind, node_row,
-//           surf_kind, mat_warp, expr_off, expr_code
+//           surf_kind, mat_warp, expr_off, expr_code, node_cstart,
+//           node_ccount, child_idx, ent_first, surf_aux, tex_info
 //           (ops/cuda_kernel.py::encode_scene);
-//   floats: the tables in ops/cuda_kernel.py FLOAT_FIELDS order;
+//   floats: the tables in ops/cuda_kernel.py FLOAT_FIELDS order, then the
+//           textures' texels;
 //   params: n_ent, ambient, max_depth, max_nodes, dim, march_steps (0 when
 //           no material marches and no entity is a portal), expr (1 when a
-//           material is an expression: the launch takes BUILD_EXPR).
-constexpr int N_INTS = 10, N_FLOATS = 15, N_PARAMS = 7;
+//           material is an expression), shapes (1 when the scene has a CSG
+//           node, a cylinder, or a perlin or texture surface).
+constexpr int N_INTS = 16, N_FLOATS = 16, N_PARAMS = 8;
 
 inline Scene make_scene(const int32_t* const* i, const float* const* f,
                         const int* prm, float t_max, const float* cam) {
     return Scene{i[0], i[1], i[2], i[3], i[4], i[5], i[6], i[7], i[8], i[9],
+                 i[10], i[11], i[12], i[13], i[14], i[15],
                  f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8],
-                 f[9], f[10], f[11], f[12], f[13], f[14], cam + 17,
+                 f[9], f[10], f[11], f[12], f[13], f[14], f[15], cam + 17,
                  prm[0], prm[1], prm[2], prm[3], prm[4], prm[5], t_max};
 }
 
 // The build that renders a scene of these params.
 inline int scene_build(const int* prm) {
-    return prm[5] == 0 ? BUILD_STRAIGHT : prm[6] ? BUILD_EXPR : BUILD_WARP;
+    const int warp = prm[5] == 0 ? BUILD_STRAIGHT
+                                 : prm[6] ? BUILD_EXPR : BUILD_WARP;
+    return warp | (prm[7] ? BUILD_SHAPES : 0);
 }
 
 struct Slot {  // one deferred branch of the ray tree
@@ -244,7 +299,8 @@ struct Slot {  // one deferred branch of the ray tree
 template <bool kWarp>
 struct NodeRec {
     int ent;    // winning entity, -1 on a miss
-    int root;   // which sphere root won (0: -b - sq, 1: -b + sq)
+    int root;   // (winning leaf - ent_first) << 1 | which root of a sphere
+                // or cylinder won (0: -b - sq, 1: -b + sq)
     int flip;   // the normal was turned against the ray
     int m_to;   // material past the surface (transmission only)
 };
@@ -294,21 +350,87 @@ __device__ __forceinline__ void tangent_frame(V4 n, int dim, V4* t1, V4* t2) {
     *t2 = normalize(madd(t, -dot(*t1, t), *t1));
 }
 
-__device__ __forceinline__ bool member(const Scene& s, int node, V4 p) {
+// --- membership (geometry.py::member), uncontracted as the plain version's
+// separate operations round (cylinders and composites exist only in the
+// BUILD_SHAPES builds, compiled with -fmad=false) ----------------------------
+
+// (p - c) less its component along the unit axis a: a cylinder's radial part
+__device__ __forceinline__ V4 cyl_radial(V4 p, V4 c, V4 a) {
+    const V4 pc = sub(p, c);
+    return madd(pc, -dot(pc, a), a);
+}
+
+// Is p inside leaf `node`?  A hyperplane contains no point.
+template <bool kShapes>
+__device__ __forceinline__ bool leaf_member(const Scene& s, int node, V4 p) {
     const int row = s.node_row[node];
+    const int kind = s.node_kind[node];
     const V4 c = load4(s.shape_vec + 4 * row);
     const float sc = s.shape_sc[row];
-    switch (s.node_kind[node]) {
-        case NODE_SPHERE: { const V4 q = sub(p, c); return dot(q, q) < sc * sc; }
-        case NODE_HYPERPLANE: return false;
-        default: return dot(c, p) < sc;  // half-space
+    if (kind == NODE_SPHERE) {
+        const V4 q = sub(p, c);
+        return dot_rn(q, q) < __fmul_rn(sc, sc);
     }
+    if (kind == NODE_HYPERPLANE) return false;
+    if (kShapes && kind == NODE_CYLINDER) {
+        const V4 q = cyl_radial(p, c, load4(s.shape_vec + 4 * row + 4));
+        return dot(q, q) < sc * sc;
+    }
+    return dot_rn(c, p) < sc;  // NODE_HALFSPACE
+}
+
+// Is p inside entity e's shape?  A composite is one pass over its
+// post-order node range with one bit per node: every child precedes its
+// parent, so a composite combines bits already set.
+template <bool kShapes>
+__device__ __forceinline__ bool member(const Scene& s, int e, V4 p) {
+    const int root = s.ent_root[e];
+    if constexpr (kShapes) {
+        const int first = s.ent_first[e];
+        if (first != root) {
+            uint32_t bits = 0;
+            for (int i = first; i <= root; ++i) {
+                const int kind = s.node_kind[i];
+                bool in;
+                if (kind <= NODE_CYLINDER) {
+                    in = leaf_member<true>(s, i, p);
+                } else {
+                    const int32_t* ch = s.child_idx + s.node_cstart[i];
+                    const int nc = s.node_ccount[i];
+                    in = bits >> (ch[0] - first) & 1u;
+                    switch (kind) {
+                        case NODE_UNION:
+                            for (int j = 1; j < nc; ++j)
+                                in = in || (bits >> (ch[j] - first) & 1u);
+                            break;
+                        case NODE_INTERSECTION:
+                            for (int j = 1; j < nc; ++j)
+                                in = in && (bits >> (ch[j] - first) & 1u);
+                            break;
+                        case NODE_DIFFERENCE:
+                            in = in && !(bits >> (ch[1] - first) & 1u);
+                            break;
+                        case NODE_SYMDIFF:
+                            for (int j = 1; j < nc; ++j)
+                                in = in != ((bits >> (ch[j] - first) & 1u) != 0);
+                            break;
+                        default:  // NODE_COMPLEMENT
+                            in = !in;
+                    }
+                }
+                bits |= (uint32_t)in << (i - first);
+            }
+            return bits >> (root - first) & 1u;
+        }
+    }
+    return leaf_member<kShapes>(s, root, p);
 }
 
 // first entity (scene order) containing p, else the ambient material
+template <bool kShapes>
 __device__ __forceinline__ int material_at(const Scene& s, V4 p) {
     for (int e = 0; e < s.n_ent; ++e)
-        if (member(s, s.ent_root[e], p)) return s.ent_mat[e];
+        if (member<kShapes>(s, e, p)) return s.ent_mat[e];
     return s.ambient;
 }
 
@@ -316,14 +438,18 @@ __device__ __forceinline__ int material_at(const Scene& s, V4 p) {
 
 constexpr int BISECT_ITERS = 10;
 
-// geometry.py::side, uncontracted: membership, or the half-space side of a
+// geometry.py::side: membership, or the half-space side of a bare
 // hyperplane, whose flips mark the march's crossings
+template <bool kShapes>
 __device__ __forceinline__ bool side(const Scene& s, int ent, V4 p) {
     const int node = s.ent_root[ent];
+    if (kShapes && s.node_kind[node] != NODE_HYPERPLANE)
+        return member<true>(s, ent, p);
+    // a primitive: a sphere's membership, else the half-space side
     const int row = s.node_row[node];
     const V4 c = load4(s.shape_vec + 4 * row);
     const float sc = s.shape_sc[row];
-    if (s.node_kind[node] == NODE_SPHERE) {
+    if (!kShapes && s.node_kind[node] == NODE_SPHERE) {
         const V4 q = sub(p, c);
         return dot_rn(q, q) < __fmul_rn(sc, sc);
     }
@@ -331,11 +457,31 @@ __device__ __forceinline__ bool side(const Scene& s, int ent, V4 p) {
 }
 
 // bit e set: p lies on the inner side of entity e (n_ent <= 32)
+template <bool kShapes>
 __device__ __forceinline__ uint32_t sides(const Scene& s, V4 p) {
     uint32_t m = 0;
     for (int e = 0; e < s.n_ent; ++e)
-        if (side(s, e, p)) m |= 1u << e;
+        if (side<kShapes>(s, e, p)) m |= 1u << e;
     return m;
+}
+
+// geometry.py::boundary_abs of a leaf: picks the leaf whose boundary a
+// marched crossing of a composite lies on (BUILD_SHAPES only)
+__device__ __forceinline__ float boundary_abs(const Scene& s, int leaf, V4 p) {
+    const int row = s.node_row[leaf];
+    const V4 c = load4(s.shape_vec + 4 * row);
+    const float sc = s.shape_sc[row];
+    switch (s.node_kind[leaf]) {
+        case NODE_SPHERE: {
+            const V4 q = sub(p, c);
+            return fabsf(sqrtf(dot(q, q)) - sc);
+        }
+        case NODE_CYLINDER: {
+            const V4 q = cyl_radial(p, c, load4(s.shape_vec + 4 * row + 4));
+            return fabsf(sqrtf(dot(q, q)) - sc);
+        }
+        default: return fabsf(dot(c, p) - sc);
+    }
 }
 
 // The field of one marching material: the attractor of a 'warp' material,
@@ -503,18 +649,20 @@ __device__ __forceinline__ void march_step(const Field<kExpr>& f, V4 x, V4 v,
 // The end of a march: where and in which direction it crossed a boundary.
 struct MarchHit {
     int ent;           // winning entity, -1 when nothing was crossed
+    int leaf;          // its leaf nearest the crossing, less ent_first
     int n;             // steps walked, round(dist / h)
     float lam;         // bisection parameter of the winning crossing
     V4 p, dir;         // the crossing point, the direction of its step
 };
 
 // Bisection of entity e's crossing on the segment [x0, x1] -> lambda.
+template <bool kShapes>
 __device__ __forceinline__ float bisect(const Scene& s, int e, V4 x0, V4 x1) {
-    const bool s0 = side(s, e, x0);
+    const bool s0 = side<kShapes>(s, e, x0);
     float lo = 0.0f, hi = 1.0f;
     for (int k = 0; k < BISECT_ITERS; ++k) {
         const float mid = 0.5f * (lo + hi);
-        if (side(s, e, lerp_rn(x0, x1, mid)) == s0) lo = mid;
+        if (side<kShapes>(s, e, lerp_rn(x0, x1, mid)) == s0) lo = mid;
         else hi = mid;
     }
     return hi;
@@ -523,20 +671,20 @@ __device__ __forceinline__ float bisect(const Scene& s, int e, V4 x0, V4 x1) {
 // March the ray (org, d0) through material mat: at most march_steps steps,
 // stopping at the first step that flips a side (or after the step that
 // starts beyond t_max), then bisect every flipped entity and keep the
-// smallest lambda (strict '<' in entity order).  With primitive entities
-// (CSG is refused) the entity's one leaf is the leaf that boundary_abs
-// would pick in march_finish.
-template <bool kExpr>
+// smallest lambda (strict '<' in entity order).  The crossing's leaf is
+// the one nearest it by boundary_abs (strict '<' in leaf order), as
+// march_finish picks it; a primitive entity is its own leaf.
+template <bool kExpr, bool kShapes>
 __device__ __forceinline__ MarchHit march(const Scene& s, V4 org, V4 d0,
                                           int mat) {
     const Field<kExpr> f = field<kExpr>(s, mat);
-    uint32_t sd = sides(s, org), crossed = 0;
+    uint32_t sd = sides<kShapes>(s, org), crossed = 0;
     V4 x = org, v = d0, sx0 = org, sx1 = org, sv = d0;
     float dist = 0.0f;
     for (int i = 0; i < s.march_steps; ++i) {
         V4 x1, v1;
         march_step<kExpr>(f, x, v, &x1, &v1);
-        const uint32_t nsd = sides(s, x1);
+        const uint32_t nsd = sides<kShapes>(s, x1);
         const bool beyond = dist > s.t_max;
         dist = dist + f.h;
         if (nsd != sd) {
@@ -551,58 +699,113 @@ __device__ __forceinline__ MarchHit march(const Scene& s, V4 org, V4 d0,
         sd = nsd;
         if (beyond) break;
     }
-    MarchHit m{-1, (int)rintf(dist / fmaxf(f.h, 1e-12f)), 2.0f, org, sv};
+    MarchHit m{-1, 0, (int)rintf(dist / fmaxf(f.h, 1e-12f)), 2.0f, org, sv};
     for (int e = 0; e < s.n_ent; ++e) {
         if (!(crossed >> e & 1u)) continue;
-        const float lam = bisect(s, e, sx0, sx1);
+        const float lam = bisect<kShapes>(s, e, sx0, sx1);
         if (lam < m.lam) {
             m.lam = lam;
             m.ent = e;
         }
     }
-    if (m.ent >= 0) m.p = lerp_rn(sx0, sx1, m.lam);
+    if (m.ent >= 0) {
+        m.p = lerp_rn(sx0, sx1, m.lam);
+        if constexpr (kShapes) {
+            const int first = s.ent_first[m.ent], root = s.ent_root[m.ent];
+            float best = 0.0f;
+            for (int i = first, n = 0; i <= root; ++i) {
+                if (s.node_kind[i] > NODE_CYLINDER) continue;
+                const float b = boundary_abs(s, i, m.p);
+                if (n++ == 0 || b < best) {
+                    best = b;
+                    m.leaf = i - first;
+                }
+            }
+        }
+    }
     return m;
 }
 
 struct Hit {
     float t;
-    int ent, root;
+    int ent, root;  // root: NodeRec::root
 };
 
+// The roots of |q + t w|^2 = r^2, q and w the radial parts of o - c and d
+// about the unit axis a (geometry.py::leaf_crossings); false where the ray
+// misses or runs parallel to the axis.
+__device__ __forceinline__ bool cyl_roots(V4 o, V4 d, V4 c, V4 a, float r,
+                                          float ts[2]) {
+    const V4 oc = sub(o, c);
+    const V4 q = madd(oc, -dot(oc, a), a);
+    const V4 w = madd(d, -dot(d, a), a);
+    const float w2 = dot(w, w);
+    if (!(w2 >= 1e-12f)) return false;
+    const float b = dot(q, w) / w2;
+    const float cc = (dot(q, q) - r * r) / w2;
+    const float disc = b * b - cc;
+    if (!(disc > 0.0f)) return false;
+    const float sq = sqrtf(disc);
+    ts[0] = -b - sq;
+    ts[1] = -b + sq;
+    return true;
+}
+
+// Does entity e's membership flip across o + t d?  The probe points
+// o + (t -+ PROBE) d are computed as the plain version computes them.
+__device__ __forceinline__ bool csg_flips(const Scene& s, int e, V4 o, V4 d,
+                                          float t) {
+    return member<true>(s, e, madd_rn(o, __fsub_rn(t, PROBE), d))
+        != member<true>(s, e, madd_rn(o, __fadd_rn(t, PROBE), d));
+}
+
 // Nearest valid boundary crossing over the entities: strict '<' in entity
-// order, then root order, within (EPS_T, t_max).
+// order, then leaf order, then root order, within (EPS_T, t_max); a leaf
+// crossing of a composite counts where its membership flips.
+template <bool kShapes>
 __device__ __forceinline__ Hit nearest(const Scene& s, V4 o, V4 d) {
     Hit h{s.t_max, -1, 0};
     for (int e = 0; e < s.n_ent; ++e) {
-        const int node = s.ent_root[e];
-        const int row = s.node_row[node];
-        const V4 c = load4(s.shape_vec + 4 * row);
-        const float sc = s.shape_sc[row];
-        if (s.node_kind[node] == NODE_SPHERE) {
-            const V4 oc = sub(o, c);
-            const float b = dot(oc, d);
-            const float q = dot(oc, oc) - sc * sc;
-            const float disc = b * b - q;
-            if (!(disc > 0.0f)) continue;
-            const float sq = sqrtf(disc);
-            const float ts[2] = {-b - sq, -b + sq};
+        const int root = s.ent_root[e];
+        const int first = kShapes ? s.ent_first[e] : root;
+        for (int leaf = first; leaf <= root; ++leaf) {
+            const int kind = s.node_kind[leaf];
+            if (kShapes && kind > NODE_CYLINDER)
+                continue;  // a composite (no row): its leaves carry the crossings
+            const int row = s.node_row[leaf];
+            const V4 c = load4(s.shape_vec + 4 * row);
+            const float sc = s.shape_sc[row];
+            float ts[2];
+            int nt = 2;
+            if (kind == NODE_SPHERE) {
+                const V4 oc = sub(o, c);
+                const float b = dot(oc, d);
+                const float q = dot(oc, oc) - sc * sc;
+                const float disc = b * b - q;
+                if (!(disc > 0.0f)) continue;
+                const float sq = sqrtf(disc);
+                ts[0] = -b - sq;
+                ts[1] = -b + sq;
+            } else if (kShapes && kind == NODE_CYLINDER) {
+                if (!cyl_roots(o, d, c, load4(s.shape_vec + 4 * row + 4), sc,
+                               ts))
+                    continue;
+            } else {
+                const float nd = dot(c, d);
+                if (!(fabsf(nd) > 1e-12f)) continue;
+                ts[0] = (sc - dot(c, o)) / nd;
+                nt = 1;
+            }
 #pragma unroll
             for (int k = 0; k < 2; ++k) {
-                if (ts[k] > EPS_T && ts[k] < s.t_max && ts[k] < h.t) {
+                if (k < nt && ts[k] > EPS_T && ts[k] < s.t_max && ts[k] < h.t) {
+                    if (kShapes && first != root && !csg_flips(s, e, o, d, ts[k]))
+                        continue;
                     h.t = ts[k];
                     h.ent = e;
-                    h.root = k;
+                    h.root = (leaf - first) << 1 | k;
                 }
             }
-            continue;
-        }
-        const float nd = dot(c, d);
-        if (!(fabsf(nd) > 1e-12f)) continue;
-        const float tp = (sc - dot(c, o)) / nd;
-        if (tp > EPS_T && tp < s.t_max && tp < h.t) {
-            h.t = tp;
-            h.ent = e;
-            h.root = 0;
         }
     }
     return h;
@@ -619,20 +822,48 @@ __device__ __forceinline__ void sphere_uv(V4 p, V4 c, float* u, float* v) {
     *v = acos_p(cz) / PI_F;
 }
 
-// Unoriented unit normal and UV of entity ent at the point p of its surface
-// (UV only where the surface reads it: zero on a uniform surface).
-__device__ __forceinline__ void surface_at(const Scene& s, int ent, V4 p,
-                                           V4* n, float* u, float* v) {
-    const int node = s.ent_root[ent];
-    const int row = s.node_row[node];
+// The angle of p around the cylinder's axis a in the axis's tangent frame
+// (the atan2 pole guard of the sphere) and its axial coordinate.
+__device__ __forceinline__ void cyl_uv(V4 p, V4 c, V4 a, int dim, float* u,
+                                       float* v) {
+    const V4 pc = sub(p, c);
+    const float ax = dot(pc, a);
+    const V4 q = madd(pc, -ax, a);
+    V4 t1, t2;
+    tangent_frame(a, dim, &t1, &t2);
+    const float qx = dot(q, t1), qy = dot(q, t2);
+    const float safe_x = (fabsf(qx) + fabsf(qy)) < 1e-12f ? 1.0f : qx;
+    *u = atan2_p(qy, safe_x) * INV_TWO_PI_F + 0.5f;
+    *v = ax;
+}
+
+// The leaf of entity ent that a Hit's or NodeRec's root names.
+template <bool kShapes>
+__device__ __forceinline__ int hit_leaf(const Scene& s, int ent, int root) {
+    if constexpr (kShapes) return s.ent_first[ent] + (root >> 1);
+    return s.ent_root[ent];
+}
+
+// Unoriented unit normal and UV of the leaf at the point p of its surface
+// (UV only where the entity's surface reads it: zero on a uniform one).
+template <bool kShapes>
+__device__ __forceinline__ void surface_at(const Scene& s, int ent, int leaf,
+                                           V4 p, V4* n, float* u, float* v) {
+    const int row = s.node_row[leaf];
+    const int kind = s.node_kind[leaf];
     const V4 c = load4(s.shape_vec + 4 * row);
-    const bool sphere = s.node_kind[node] == NODE_SPHERE;
-    *n = sphere ? normalize(sub(p, c)) : c;
+    const bool sphere = kind == NODE_SPHERE;
+    const bool cyl = kShapes && kind == NODE_CYLINDER;
+    const V4 a = cyl ? load4(s.shape_vec + 4 * row + 4) : c;
+    *n = sphere ? normalize(sub(p, c)) : cyl ? normalize(cyl_radial(p, c, a))
+                                             : c;
     *u = 0.0f;
     *v = 0.0f;
     if (s.surf_kind[s.ent_surf[ent]] == SURF_UNIFORM) return;
     if (sphere) {
         sphere_uv(p, c, u, v);
+    } else if (cyl) {
+        cyl_uv(p, c, a, s.dim, u, v);
     } else {
         V4 t1, t2;
         tangent_frame(c, s.dim, &t1, &t2);
@@ -647,14 +878,155 @@ __device__ __forceinline__ float smooth_f(float u, float v, float sc) {
                  * (1.0f + sinf(TWO_PI_F * v * sc));
 }
 
+// --- perlin noise (shading.py::perlin2, perlin_field) ----------------------
+
+// the gradient direction (gx, gy) of a 3-bit hash: (1, 0), (-1, 0), (0, 1),
+// (0, -1), then (+-1, +-1) / sqrt 2 with gx's sign in bit 0, gy's in bit 1
+constexpr float INV_SQRT2_F = 0.7071067811865476f;
+__device__ __forceinline__ float perlin_gx(uint32_t h) {
+    return h < 2u ? (h == 0u ? 1.0f : -1.0f)
+         : h < 4u ? 0.0f : (h & 1u ? -INV_SQRT2_F : INV_SQRT2_F);
+}
+__device__ __forceinline__ float perlin_gy(uint32_t h) {
+    return h < 2u ? 0.0f
+         : h < 4u ? (h == 2u ? 1.0f : -1.0f)
+                  : (h & 2u ? -INV_SQRT2_F : INV_SQRT2_F);
+}
+
+// The lattice hash; seedk is the octave's seed times 974711 (mod 2^32).
+__device__ __forceinline__ uint32_t hash2(uint32_t xi, uint32_t yi,
+                                          uint32_t seedk) {
+    uint32_t n = xi * 374761393u + yi * 668265263u + seedk;
+    n = (n ^ (n >> 13)) * 1274126177u;
+    return n ^ (n >> 16);
+}
+
+// gradient(h) . (dx, dy)
+__device__ __forceinline__ float grad_dot(uint32_t h, float dx, float dy) {
+    return __fadd_rn(__fmul_rn(perlin_gx(h), dx), __fmul_rn(perlin_gy(h), dy));
+}
+
+__device__ __forceinline__ float fade(float t) {  // t^3 (t (6 t - 15) + 10)
+    return __fmul_rn(__fmul_rn(__fmul_rn(t, t), t),
+                     __fadd_rn(__fmul_rn(t, __fsub_rn(__fmul_rn(t, 6.0f),
+                                                      15.0f)), 10.0f));
+}
+
+// One octave's lattice cell: the fractional coordinates and the 3-bit
+// hashes of its corners (00, 01 = x + 1, 10 = y + 1, 11).
+struct PerlinCell {
+    float xf, yf;
+    uint32_t h[4];
+};
+
+__device__ __forceinline__ PerlinCell perlin_cell(float pu, float pv,
+                                                  uint32_t seedk) {
+    const float x0f = floorf(pu), y0f = floorf(pv);
+    const uint32_t x0 = (uint32_t)(int32_t)x0f, y0 = (uint32_t)(int32_t)y0f;
+    return {__fsub_rn(pu, x0f), __fsub_rn(pv, y0f),
+            {hash2(x0, y0, seedk) & 7u, hash2(x0 + 1u, y0, seedk) & 7u,
+             hash2(x0, y0 + 1u, seedk) & 7u,
+             hash2(x0 + 1u, y0 + 1u, seedk) & 7u}};
+}
+
+__device__ __forceinline__ float lerp_p(float a, float b, float s) {
+    return __fadd_rn(a, __fmul_rn(s, __fsub_rn(b, a)));  // a + s (b - a)
+}
+
+__device__ __forceinline__ float perlin2(float pu, float pv, uint32_t seedk) {
+    const PerlinCell k = perlin_cell(pu, pv, seedk);
+    const float xm = __fsub_rn(k.xf, 1.0f), ym = __fsub_rn(k.yf, 1.0f);
+    const float sx = fade(k.xf), sy = fade(k.yf);
+    const float nx0 = lerp_p(grad_dot(k.h[0], k.xf, k.yf),
+                             grad_dot(k.h[1], xm, k.yf), sx);
+    const float nx1 = lerp_p(grad_dot(k.h[2], k.xf, ym),
+                             grad_dot(k.h[3], xm, ym), sx);
+    return lerp_p(nx0, nx1, sy);
+}
+
+// fBm over the octaves (lacunarity 2, gain 0.5) before the clip to [0, 1]:
+// 0.5 + 0.5 sum_o 0.5^o perlin2(u sc 2^o, v sc 2^o, seed + o)
+__device__ __forceinline__ float perlin_sum(float u, float v, float sc,
+                                            int octaves, uint32_t seedk) {
+    float acc = 0.0f, amp = 1.0f, freq = 1.0f;
+    const float us = __fmul_rn(u, sc), vs = __fmul_rn(v, sc);
+    for (int o = 0; o < octaves; ++o) {
+        acc = __fadd_rn(acc, __fmul_rn(amp, perlin2(
+            __fmul_rn(us, freq), __fmul_rn(vs, freq), seedk + 974711u * o)));
+        amp *= 0.5f;
+        freq *= 2.0f;
+    }
+    return __fadd_rn(0.5f, __fmul_rn(0.5f, acc));
+}
+
+// --- textures (shading.py::sample_texture, the gather filter) --------------
+
+// jnp.mod(x, 1): fmod (exact), plus 1 where negative
+__device__ __forceinline__ float mod1(float x) {
+    const float r = fmodf(x, 1.0f);
+    return r < 0.0f ? __fadd_rn(r, 1.0f) : r;
+}
+
+// A bilinear sample's texels and weights: the [h, w, 3] texture at offset
+// off, its texel coordinates fu = mod(u sc, 1) (w - 1), fv alike.
+struct TexCell {
+    int i00, i01, i10, i11;  // offsets of texels (y0, x0) (y0, x1) (y1, x0)
+                             // (y1, x1), x1 = min(x0 + 1, w - 1), y1 alike
+    float dx, dy;            // fu - x0, fv - y0
+};
+
+__device__ __forceinline__ TexCell tex_cell(const Scene& s, int tid, float u,
+                                            float v, float sc) {
+    const int off = s.tex_info[3 * tid], th = s.tex_info[3 * tid + 1],
+              tw = s.tex_info[3 * tid + 2];
+    const float fu = __fmul_rn(mod1(__fmul_rn(u, sc)), (float)(tw - 1));
+    const float fv = __fmul_rn(mod1(__fmul_rn(v, sc)), (float)(th - 1));
+    const float x0 = floorf(fu), y0 = floorf(fv);
+    const int xi = (int)x0, yi = (int)y0;
+    const int xj = min(xi + 1, tw - 1), yj = min(yi + 1, th - 1);
+    return {off + 3 * (yi * tw + xi), off + 3 * (yi * tw + xj),
+            off + 3 * (yj * tw + xi), off + 3 * (yj * tw + xj),
+            __fsub_rn(fu, x0), __fsub_rn(fv, y0)};
+}
+
+// (v00 (1 - dx) + v01 dx) (1 - dy) + (v10 (1 - dx) + v11 dx) dy
+__device__ __forceinline__ float bilinear(float v00, float v01, float v10,
+                                          float v11, float dx, float dy) {
+    const float ex = __fsub_rn(1.0f, dx), ey = __fsub_rn(1.0f, dy);
+    return __fadd_rn(
+        __fmul_rn(__fadd_rn(__fmul_rn(v00, ex), __fmul_rn(v01, dx)), ey),
+        __fmul_rn(__fadd_rn(__fmul_rn(v10, ex), __fmul_rn(v11, dx)), dy));
+}
+
 // RGBA of surface sf at (u, v).
+template <bool kShapes>
 __device__ __forceinline__ void surface_color(const Scene& s, int sf, float u,
                                               float v, float col[4]) {
     const float* c1 = s.surf_color + 4 * sf;
     const float* c2 = s.surf_color2 + 4 * sf;
     const int kind = s.surf_kind[sf];
-    if (kind == SURF_SMOOTH) {
-        const float f = smooth_f(u, v, s.surf_uv_scale[sf]);
+    if (kShapes && kind == SURF_TEXTURE) {
+        const TexCell k = tex_cell(s, s.surf_aux[2 * sf], u, v,
+                                   s.surf_uv_scale[sf]);
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+            col[ch] = bilinear(__ldg(s.tex + k.i00 + ch),
+                               __ldg(s.tex + k.i01 + ch),
+                               __ldg(s.tex + k.i10 + ch),
+                               __ldg(s.tex + k.i11 + ch), k.dx, k.dy);
+        col[3] = c1[3];
+        return;
+    }
+    if (kind == SURF_SMOOTH || (kShapes && kind == SURF_PERLIN)) {
+        float f;
+        if (kShapes && kind == SURF_PERLIN) {
+            f = fminf(fmaxf(perlin_sum(u, v, s.surf_uv_scale[sf],
+                                       s.surf_aux[2 * sf],
+                                       (uint32_t)s.surf_aux[2 * sf + 1]),
+                            0.0f), 1.0f);
+        } else {
+            f = smooth_f(u, v, s.surf_uv_scale[sf]);
+        }
 #pragma unroll
         for (int ch = 0; ch < 4; ++ch) col[ch] = c1[ch] + (c2[ch] - c1[ch]) * f;
         return;
@@ -683,29 +1055,33 @@ __device__ __forceinline__ void push(Slot* stack, int* sp, V4 org, V4 dir,
 // Shade one DFS node: accumulate its colour term into acc and push up to
 // two children (transmission first, then reflection).  `self` is the
 // node's index in shading order (the children's parent); rec, when given,
-// receives the node's discrete decisions.  The build kB (BUILD_*) compiles
-// out what the scene does not have: BUILD_STRAIGHT the march and the portal
-// teleport (the entry points pick it when march_steps is 0), BUILD_WARP the
-// expression VM.
+// receives the node's discrete decisions.  The build kB (BUILD_* bits)
+// compiles out what the scene does not have: without BUILD_MARCH the march
+// and the portal teleport (the entry points drop it when march_steps is 0),
+// without BUILD_VM the expression VM, without BUILD_SHAPES composites,
+// cylinders, perlin and textures.
 template <int kB>
 __device__ __forceinline__ void shade(const Scene& s, const Slot& r, int self,
                                       float acc[3], Slot* stack, int* sp,
-                                      NodeRec<kB != BUILD_STRAIGHT>* rec) {
-    constexpr bool kWarp = kB != BUILD_STRAIGHT;
+                                      NodeRec<has_march(kB)>* rec) {
+    constexpr bool kWarp = has_march(kB);
+    constexpr bool kShapes = has_shapes(kB);
     // propagate: a ray in a warped material marches, any other flies
     // straight to its nearest hit
-    int ent;
+    int ent, root;
     V4 p, d;
     if (kWarp && s.mat_warp[r.mat] != MAT_STRAIGHT) {
-        const MarchHit m = march<kB == BUILD_EXPR>(s, r.org, r.dir, r.mat);
-        if (rec) set_rec(rec, m.ent, 0, m.n, m.lam);
+        const MarchHit m = march<has_vm(kB), kShapes>(s, r.org, r.dir, r.mat);
+        root = m.leaf << 1;
+        if (rec) set_rec(rec, m.ent, root, m.n, m.lam);
         ent = m.ent;
         p = m.p;
         d = m.dir;
     } else {
-        const Hit h = nearest(s, r.org, r.dir);
+        const Hit h = nearest<kShapes>(s, r.org, r.dir);
         if (rec) set_rec(rec, h.ent, h.root, 0, 0.0f);
         ent = h.ent;
+        root = h.root;
         d = r.dir;
         p = madd(r.org, h.t, d);
     }
@@ -716,7 +1092,8 @@ __device__ __forceinline__ void shade(const Scene& s, const Slot& r, int self,
     }
     V4 n;
     float u, v;
-    surface_at(s, ent, p, &n, &u, &v);
+    surface_at<kShapes>(s, ent, hit_leaf<kShapes>(s, ent, root), p, &n, &u,
+                        &v);
     if (dot(n, d) > 0.0f) {
         n = scale(n, -1.0f);
         if (rec) rec->flip = 1;
@@ -724,7 +1101,7 @@ __device__ __forceinline__ void shade(const Scene& s, const Slot& r, int self,
 
     const int sf = s.ent_surf[ent];
     float col[4];
-    surface_color(s, sf, u, v, col);
+    surface_color<kShapes>(s, sf, u, v, col);
     const float alpha = col[3];
     float refl = s.surf_refl[sf];
     const float fres = s.surf_fresnel[sf];
@@ -749,10 +1126,10 @@ __device__ __forceinline__ void shade(const Scene& s, const Slot& r, int self,
         const V4 pd = normalize(matvec(lin, d));
         const V4 t_org = madd(add(matvec(lin, p),
                                   load4(s.portal_tr + 4 * portal)), PUSH, pd);
-        push(stack, sp, t_org, pd, w_t, material_at(s, t_org), r.depth - 1,
-             self, 0);
+        push(stack, sp, t_org, pd, w_t, material_at<kShapes>(s, t_org),
+             r.depth - 1, self, 0);
     } else if (w_t > W_EPS) {
-        const int m_to = material_at(s, madd(p, PUSH, d));
+        const int m_to = material_at<kShapes>(s, madd(p, PUSH, d));
         if (rec) rec->m_to = m_to;
         const float eta = s.mat_ior[r.mat] / s.mat_ior[m_to];
         const float cos_i = -dot(d, n);

@@ -6,9 +6,10 @@
 // ops/trace.py::trace_batch with differentiable=False): pinhole rays per
 // pixel, the peeled primary node, then a depth-first stack loop capped at
 // max_nodes - 1 trips.  Each node finds the nearest hit over the entities
-// (strict '<' in entity order), shades it (uniform, checker or smooth
-// surface, Schlick reflection ratio) and pushes the transmission child,
-// then the reflection child.  A node whose material is warped space
+// (strict '<' in entity order; a CSG entity's leaf crossings kept where its
+// membership flips), shades it (uniform, checker, smooth, perlin or
+// texture surface, Schlick reflection ratio) and pushes the transmission
+// child, then the reflection child.  A node whose material is warped space
 // marches instead of flying straight (ops/march.py): up to march_steps
 // steps per thread, each testing every entity's side, ended at the first
 // flip (or after the step that starts beyond t_max) and refined by
@@ -22,7 +23,8 @@
 // backward kernel (trace_bwd.cu) shares.
 //
 // What bounds it: FP32 ALU work and warp divergence, not bytes.  The output
-// is 12 B per pixel and the scene tables are under 1 KB.  The design keeps a
+// is 12 B per pixel and the scene tables are under 1 KB (a texture is 48 KB
+// at 64 x 64, read four texels a textured node from L1/L2).  The design keeps a
 // pixel's whole ray tree in one thread's registers and local memory (a DFS
 // stack of at most MAX_SLOTS branches) and writes each pixel once.  The
 // scene is data, not code: the entity, node and surface-kind arrays and the
@@ -30,7 +32,9 @@
 // every scene and branches on the scene are uniform across a warp.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3,
-// without --use_fast_math: sqrtf, division and floorf stay IEEE float32.
+// without --use_fast_math: sqrtf, division and floorf stay IEEE float32;
+// built twice, the second library holding the BUILD_SHAPES builds with
+// -fmad=false -DTRACE_SHAPES_BUILDS (trace_common.cuh).
 
 #include "trace_common.cuh"
 
@@ -76,6 +80,7 @@ extern "C" int euclider_trace_fwd(
     const Scene s = make_scene(ints, floats, params, t_max, cam);
     if (s.max_depth + 1 > MAX_SLOTS || s.n_ent > 32)
         return (int)cudaErrorInvalidValue;
+    const int build = scene_build(params);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (rows <= 0 || W <= 0) return 0;
@@ -83,18 +88,22 @@ extern "C" int euclider_trace_fwd(
     const dim3 grid((W + block.x - 1) / block.x,
                     (rows + block.y - 1) / block.y);
     const cudaStream_t st = (cudaStream_t)stream;
-    switch (scene_build(params)) {
-        case BUILD_STRAIGHT:
-            trace_fwd_kernel<BUILD_STRAIGHT><<<grid, block, 0, st>>>(
-                s, cam, H, W, rows, out);
-            break;
-        case BUILD_WARP:
-            trace_fwd_kernel<BUILD_WARP><<<grid, block, 0, st>>>(
-                s, cam, H, W, rows, out);
-            break;
-        default:
-            trace_fwd_kernel<BUILD_EXPR><<<grid, block, 0, st>>>(
-                s, cam, H, W, rows, out);
+#define TRACE_FWD_CASE(kB)                                                 \
+    case kB:                                                               \
+        trace_fwd_kernel<kB><<<grid, block, 0, st>>>(s, cam, H, W, rows, out); \
+        break;
+    switch (build) {  // this library's builds (trace_common.cuh)
+#ifdef TRACE_SHAPES_BUILDS
+        TRACE_FWD_CASE(BUILD_SHAPES)
+        TRACE_FWD_CASE(BUILD_SHAPES | BUILD_WARP)
+        TRACE_FWD_CASE(BUILD_SHAPES | BUILD_EXPR)
+#else
+        TRACE_FWD_CASE(BUILD_STRAIGHT)
+        TRACE_FWD_CASE(BUILD_WARP)
+        TRACE_FWD_CASE(BUILD_EXPR)
+#endif
+        default: return (int)cudaErrorInvalidValue;
     }
+#undef TRACE_FWD_CASE
     return (int)cudaGetLastError();
 }

@@ -9,7 +9,9 @@ in two modes, and shallow and deep trees alike, so there is no routing
 between K3 and K5.  The march backward that K2 and K3 nest for warped
 space (K4, ``pallas_vjp.py::make_march_ckpt``) runs inside the same kernel
 in both modes, through the attractor field or an expression material's VM
-program (gradients of ``mat_expr_params`` and of the scene time).
+program (gradients of ``mat_expr_params`` and of the scene time).  The
+textures' gradient comes from the kernel too, summed with atomics in its own
+buffer.
 ``render_image_diff`` is the port of ``render_image_pallas_diff``: the
 forward kernel, then ``vjp_cuda``.
 
@@ -37,14 +39,15 @@ BLOCK = (32, 8)    # the kernel's block: one row of partial sums per block
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    """The backward kernel's C entry point, built and loaded once."""
-    fn = ctypes.CDLL(CK.build(("trace_bwd",))["trace_bwd"]).euclider_trace_bwd
+def _entry(name: str):
+    """The backward kernel's C entry point in library ``name``, built and
+    loaded once."""
+    fn = ctypes.CDLL(CK.build((name,))[name]).euclider_trace_bwd
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float]
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -79,10 +82,13 @@ def _grad_sizes(static, floats):
             for k, t in zip(FLOAT_FIELDS, floats)]
 
 
-def _launch(static, floats, cam_row, H, W, rows, gin, norm, fused):
-    """Run trace_bwd on the slab -> the flat gradient vector [P + 1]: the
-    camera row (24, the scene time's gradient at 17), the float tables in
-    FLOAT_FIELDS order (``_grad_sizes``), the loss."""
+def _launch(static, floats, cam_row, H, W, rows, gin, norm, fused,
+            tex_shapes):
+    """Run trace_bwd on the slab with the float tables in FLOAT_FIELDS
+    order and the texel buffer (``CK._check_tables``) -> (the flat gradient
+    vector [P + 1]: the camera row (24, the scene time's gradient at 17),
+    the float tables in FLOAT_FIELDS order (``_grad_sizes``), the loss; the
+    texel buffer's gradient)."""
     global LAUNCHES
     device = cam_row.device
     if static.max_nodes > MAX_TAPE:
@@ -104,19 +110,22 @@ def _launch(static, floats, cam_row, H, W, rows, gin, norm, fused):
         raise ValueError(f"{'target' if fused else 'cotangent'} shape "
                          f"{tuple(gin.shape)} != {(rows, W, 3)}")
     gin = gin.detach().to(device=device, dtype=torch.float32).contiguous()
-    iptr, fptr, params, _ints = CK.scene_args(static, floats, device)
+    iptr, fptr, params, _ints = CK.scene_args(static, floats, device,
+                                              tex_shapes)
     n_blocks = -(-W // BLOCK[0]) * -(-rows // BLOCK[1])
     partials = torch.empty(n * n_blocks, dtype=torch.float32, device=device)
     out = torch.zeros(n, dtype=torch.float32, device=device)
+    gtex = torch.zeros_like(floats[-1])
     cam_row = cam_row.detach().contiguous()
-    rc = _entry()(iptr, fptr, params, static.t_max, sizes, cam_row.data_ptr(),
-                  H, W, rows, gin.data_ptr(), float(norm), int(fused),
-                  partials.data_ptr(), partials.numel(), out.data_ptr(),
-                  device.index, torch.cuda.current_stream(device).cuda_stream)
+    rc = _entry(CK.library("trace_bwd", static))(
+        iptr, fptr, params, static.t_max, sizes, cam_row.data_ptr(), H, W,
+        rows, gin.data_ptr(), float(norm), int(fused), partials.data_ptr(),
+        partials.numel(), out.data_ptr(), gtex.data_ptr(), device.index,
+        torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"trace_bwd launch failed: cudaError {rc}")
     LAUNCHES += 1
-    return out
+    return out, gtex
 
 
 def _split(static, flat, floats):
@@ -129,13 +138,19 @@ def _split(static, flat, floats):
     return flat[:24], parts, flat[i]
 
 
-def _grads(static, tables, cam, flat, floats):
+def _grads(static, tables, cam, flat, gtex, floats):
     """(d_tables, d_cam, d_time, loss) with shapes matching the primals:
     the inverse of _pack_camera and of the table order on the cotangents
-    (pallas_kernel._grads_from_rows).  y0 gets no gradient."""
+    (pallas_kernel._grads_from_rows), the texel buffer's gradient cut into
+    the textures'.  y0 gets no gradient."""
     dc, dts, loss = _split(static, flat, floats)
     d_tables, _ = zero_grads(tables, cam)
-    d_tables = d_tables._replace(**dict(zip(FLOAT_FIELDS, dts)))
+    texs, i = [], 0
+    for t in tables.textures:
+        texs.append(gtex[i:i + t.numel()].view(t.shape))
+        i += t.numel()
+    d_tables = d_tables._replace(**dict(zip(FLOAT_FIELDS, dts)),
+                                 textures=tuple(texs))
     d_cam = CameraParams(position=dc[0:4].view_as(cam.position),
                          forward=dc[4:8].view_as(cam.forward),
                          up=dc[8:12].view_as(cam.up),
@@ -153,8 +168,9 @@ def vjp_cuda(static, tables, cam, H: int, W: int, g, time=0.0, y0: int = 0,
     R = H if rows is None else rows
     floats = CK._check_tables(static, tables, device)
     cam_row = CK._pack_camera(cam, time, y0, device)
-    flat = _launch(static, floats, cam_row, H, W, R, g, 0.0, False)
-    return _grads(static, tables, cam, flat, floats)[:3]
+    flat, gtex = _launch(static, floats, cam_row, H, W, R, g, 0.0, False,
+                         CK.tex_shapes(tables))
+    return _grads(static, tables, cam, flat, gtex, floats)[:3]
 
 
 def train_step_cuda(static, tables, cam, target, H: int, W: int, time=0.0,
@@ -170,31 +186,35 @@ def train_step_cuda(static, tables, cam, target, H: int, W: int, time=0.0,
         norm = 1.0 / (H * W * 3)
     floats = CK._check_tables(static, tables, device)
     cam_row = CK._pack_camera(cam, time, y0, device)
-    flat = _launch(static, floats, cam_row, H, W, R, target, norm, True)
-    d_tables, d_cam, d_time, loss = _grads(static, tables, cam, flat, floats)
+    flat, gtex = _launch(static, floats, cam_row, H, W, R, target, norm,
+                         True, CK.tex_shapes(tables))
+    d_tables, d_cam, d_time, loss = _grads(static, tables, cam, flat, gtex,
+                                           floats)
     return loss, d_tables, d_cam, d_time
 
 
 class RenderImageFn(torch.autograd.Function):
     """Differentiable render on the card: trace_fwd forward, trace_bwd
-    (vjp mode) backward.  Inputs: the 24-float camera row (built with
-    differentiable torch ops, so autograd maps its cotangent back to the
-    camera and time) and the float tables in FLOAT_FIELDS order."""
+    (vjp mode) backward.  Inputs: the textures' shapes, the 24-float camera
+    row (built with differentiable torch ops, so autograd maps its cotangent
+    back to the camera and time), the float tables in FLOAT_FIELDS order and
+    the texel buffer (concatenated by differentiable torch ops too)."""
 
     @staticmethod
-    def forward(ctx, static, H, W, rows, cam_row, *floats):
-        ctx.static, ctx.shape = static, (H, W, rows)
+    def forward(ctx, static, H, W, rows, tex_shapes, cam_row, *floats):
+        ctx.static, ctx.shape = static, (H, W, rows, tex_shapes)
         ctx.save_for_backward(cam_row, *floats)
-        return CK.launch_forward(static, list(floats), cam_row, H, W, rows)
+        return CK.launch_forward(static, list(floats), cam_row, H, W, rows,
+                                 tex_shapes)
 
     @staticmethod
     def backward(ctx, g):
         cam_row, *floats = ctx.saved_tensors
-        H, W, rows = ctx.shape
-        flat = _launch(ctx.static, floats, cam_row, H, W, rows, g, 0.0,
-                       False)
+        H, W, rows, tex_shapes = ctx.shape
+        flat, gtex = _launch(ctx.static, floats, cam_row, H, W, rows, g, 0.0,
+                             False, tex_shapes)
         d_cam_row, d_tables, _ = _split(ctx.static, flat, floats)
-        return (None, None, None, None, d_cam_row, *d_tables)
+        return (None, None, None, None, None, d_cam_row, *d_tables, gtex)
 
 
 def render_image_diff(static, tables, cam, H: int, W: int, time=0.0,
@@ -213,4 +233,5 @@ def render_image_diff(static, tables, cam, H: int, W: int, time=0.0,
                             differentiable=True)
     floats = CK._check_tables(static, tables, device)
     cam_row = CK._pack_camera(cam, time, y0, device)
-    return RenderImageFn.apply(static, H, W, R, cam_row, *floats)
+    return RenderImageFn.apply(static, H, W, R, CK.tex_shapes(tables),
+                               cam_row, *floats)

@@ -6,16 +6,19 @@ by ``render_image_pallas``).  Each source is compiled with nvcc for
 ``sm_90a`` into a shared library with a plain C entry point, on first use,
 into ``euclider_tpu_torch/build/`` (rebuilt when the source, the shared
 header or the flags change), and called through ctypes on PyTorch's
-current stream.
+current stream.  The two trace kernels are compiled twice: their
+``_shapes`` libraries hold the builds for scenes with CSG, cylinders,
+perlin or textures, compiled without FMA contraction (trace_common.cuh).
 
 The scene is passed as data: ``encode_scene`` flattens the static topology
-into int32 arrays (the node encoding of ``oracle/native_oracle.py``, so the
-kernel and the C++ oracle read one scene encoding, and the expression
-materials' programs of ``scene/expr.py`` with the operand index of every
-instruction, for the kernels' VM), and the float tables go in as the device
-tensors of ``tables_to_torch``.  Features the kernel does not render raise
-``NotImplementedError`` before any launch; nothing is approximated.  Its
-plain version is ``ops/trace.render_image``.
+into int32 arrays (the node encoding of ``oracle/native_oracle.py``, shape
+trees in post-order, so the kernel and the C++ oracle read one scene
+encoding, and the expression materials' programs of ``scene/expr.py`` with
+the operand index of every instruction, for the kernels' VM), and the float
+tables go in as the device tensors of ``tables_to_torch``, the textures'
+texels back to back in one buffer.  A scene beyond the kernels' fixed
+limits raises ``ValueError`` before any launch; nothing is approximated or
+cut.  Its plain version is ``ops/trace.render_image``.
 """
 from __future__ import annotations
 
@@ -37,13 +40,19 @@ CSRC = os.path.join(_PKG, "csrc")
 SOURCES = {"trace_fwd": os.path.join(CSRC, "trace_fwd.cu"),
            "trace_bwd": os.path.join(CSRC, "trace_bwd.cu"),
            "probe_rev": os.path.join(CSRC, "probe_rev.cu")}
+SOURCES.update({f"{k}_shapes": SOURCES[k] for k in ("trace_fwd",
+                                                     "trace_bwd")})
 HEADERS = (os.path.join(CSRC, "trace_common.cuh"),)
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+# the _shapes libraries' builds: no FMA contraction (trace_common.cuh)
+SHAPES_FLAGS = ("-fmad=false", "-DTRACE_SHAPES_BUILDS")
 MAX_SLOTS = 16     # the kernels' DFS stack capacity (trace_common.cuh)
 MAX_ENTITIES = 32  # the march's side masks hold one bit per entity
 MAX_EXPR = 128     # VM instructions of one material's four programs
+MAX_NODES = 32     # shape nodes of one entity: membership keeps a bit each
+MAX_TEX_SIDE = 16384   # texels along a texture side (float32 texel coords)
 # how a material's rays travel (trace_common.cuh MAT_*)
 MAT_MARCH = {"warp": 1, "expr": 2}
 
@@ -57,6 +66,10 @@ FLOAT_FIELDS = ("shape_vec", "shape_sc", "mat_ior", "surf_color",
                 "mat_warp_step", "portal_lin", "portal_tr", "mat_expr_params")
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + (SHAPES_FLAGS if name.endswith("_shapes") else ())
+
+
 def _nvcc() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
@@ -68,7 +81,7 @@ def _library(name: str) -> str:
     """Path of the library built from SOURCES[name].  Its name carries a
     hash of the source, the shared header and the flags, so an edit to any
     of them builds anew and never loads a stale library."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for path in (SOURCES[name],) + HEADERS:
         with open(path, "rb") as f:
             h.update(f.read())
@@ -88,7 +101,7 @@ def build(names=tuple(SOURCES)) -> dict:
         for n, lib in todo.items():
             tmp = f"{lib[:-3]}-tmp{os.getpid()}.so"
             procs[n] = (tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCES[n]],
+                [nvcc, *_flags(n), "-o", tmp, SOURCES[n]],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         errors = []
         for n, (tmp, proc) in procs.items():
@@ -105,11 +118,17 @@ def build(names=tuple(SOURCES)) -> dict:
     return libs
 
 
+def library(kernel: str, static) -> str:
+    """The library of ``kernel`` ('trace_fwd' or 'trace_bwd') that holds the
+    build ``static`` takes."""
+    return f"{kernel}_shapes" if has_shapes(static) else kernel
+
+
 @functools.lru_cache(maxsize=None)
-def _entry():
-    """The forward kernel's C entry point, built and loaded once per
-    process."""
-    fn = ctypes.CDLL(build(("trace_fwd",))["trace_fwd"]).euclider_trace_fwd
+def _entry(name: str):
+    """The forward kernel's C entry point in library ``name``, built and
+    loaded once per process."""
+    fn = ctypes.CDLL(build((name,))[name]).euclider_trace_fwd
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_void_p]
                    + [ctypes.c_int] * 3
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
@@ -183,6 +202,14 @@ def expr_program(programs):
     return np.asarray(code, np.int32).reshape(-1, 4), tuple(ends)
 
 
+def has_shapes(static) -> bool:
+    """The scene has a CSG node, a cylinder, or a perlin or texture surface:
+    the kernels take a build with them (BUILD_SHAPES)."""
+    return (any(e.shape[0] not in ("sphere", "halfspace", "hyperplane")
+                for e in static.entities)
+            or any(k in ("perlin", "texture") for k in static.surf_kinds))
+
+
 def encode_scene(static):
     """Flatten ``static`` into the kernels' int32 arrays.
 
@@ -190,27 +217,18 @@ def encode_scene(static):
     ent_surf, ent_portal (-1 for none), node_kind, node_row, surf_kind,
     mat_warp (MAT_MARCH: 1 for an attractor, 2 for an expression, 0 for a
     material that does not march), expr_off (the start of material m's
-    component program c at 4 m + c, 4 M + 1 entries) and expr_code (the
-    materials' ``expr_program`` instructions, 4 ints each) back to back, and
-    the start of each.  Raises ``NotImplementedError`` naming the first
-    feature the kernels do not render, and ``ValueError`` for a ray tree
-    deeper than their stack, more entities than their side masks hold, or an
-    expression material longer than their VM holds."""
-    for kind in static.mat_kinds:
-        if kind not in ("vacuum", "dielectric", "warp", "expr"):
-            raise NotImplementedError(
-                f"the CUDA kernel does not render {kind!r} materials yet")
-    for kind in static.surf_kinds:
-        if kind not in ("uniform", "checker", "smooth"):
-            raise NotImplementedError(
-                f"the CUDA kernel does not render {kind!r} surfaces yet")
-    for e in static.entities:
-        if e.shape[0] == "cylinder":
-            raise NotImplementedError(
-                "the CUDA kernel does not render cylinders yet")
-        if e.shape[0] not in ("sphere", "halfspace", "hyperplane"):
-            raise NotImplementedError(
-                f"the CUDA kernel does not render CSG ({e.shape[0]!r}) yet")
+    component program c at 4 m + c, 4 M + 1 entries), expr_code (the
+    materials' ``expr_program`` instructions, 4 ints each), node_cstart,
+    node_ccount and child_idx (a composite's children), ent_first (the first
+    node of each entity's post-order range, which ends at ent_root),
+    and surf_aux (per surface two ints: a perlin surface's octaves and its
+    seed times 974711 mod 2^32, as bits; a texture surface's texture id)
+    back to back, and the start of each.  ``scene_args`` appends tex_info,
+    from the tables: per texture its offset in the texel buffer, its height
+    and width.  Raises ``ValueError`` for a ray tree deeper than the kernels'
+    stack, more entities than their side masks hold, an entity of more
+    shape nodes than their membership bits hold, or an expression material
+    longer than their VM holds."""
     if static.max_depth + 1 > MAX_SLOTS:
         raise ValueError(f"max_depth {static.max_depth} needs "
                          f"{static.max_depth + 1} stack slots; the CUDA "
@@ -218,8 +236,23 @@ def encode_scene(static):
     if len(static.entities) > MAX_ENTITIES:
         raise ValueError(f"{len(static.entities)} entities; the CUDA kernel "
                          f"holds {MAX_ENTITIES}")
-    ent_root, node_kind, node_row, _, _, _ = _encode_nodes(static)
+    ent_root, node_kind, node_row, cstart, ccount, child = _encode_nodes(
+        static)
+    ent_first = np.concatenate([[0], ent_root[:-1] + 1]).astype(np.int32)
+    for e, (a, b) in enumerate(zip(ent_first, ent_root)):
+        if b - a + 1 > MAX_NODES:
+            raise ValueError(f"entity {e} has {b - a + 1} shape nodes; the "
+                             f"CUDA kernels hold {MAX_NODES}")
     ents = static.entities
+    perlin = static.surf_perlin or (None,) * len(static.surf_kinds)
+    surf_aux = np.zeros((len(static.surf_kinds), 2), np.int64)
+    for s, kind in enumerate(static.surf_kinds):
+        if kind == "perlin":
+            octaves, seed = perlin[s]
+            surf_aux[s] = octaves, (seed * 974711) & 0xFFFFFFFF
+        elif kind == "texture":
+            surf_aux[s, 0] = static.surf_texture[s]
+    surf_aux = surf_aux.astype(np.uint32).view(np.int32).reshape(-1)
     eops, evals, eoff = _encode_exprs(static)
     expr_off, expr_code = [0], []
     for m, kind in enumerate(static.mat_kinds):
@@ -246,15 +279,25 @@ def encode_scene(static):
              np.asarray([MAT_MARCH.get(k, 0) for k in static.mat_kinds],
                         np.int32),
              np.asarray(expr_off, np.int32),
-             np.concatenate(expr_code + [np.zeros(0, np.int32)])]
+             np.concatenate(expr_code + [np.zeros(0, np.int32)]),
+             cstart, ccount, child, ent_first, surf_aux]
     offsets = np.cumsum([0] + [len(p) for p in parts[:-1]])
     return np.concatenate(parts).astype(np.int32), tuple(int(o) for o in offsets)
 
 
 @functools.lru_cache(maxsize=64)
-def _scene_ints(static, device: torch.device):
+def _scene_ints(static, tex_shapes, device: torch.device):
+    """encode_scene's arrays and tex_info on the device: one int32 tensor,
+    and the start of each array."""
     ints, offsets = encode_scene(static)
-    return torch.from_numpy(ints).to(device), offsets
+    info, off = [], 0
+    for th, tw, _ in tex_shapes:
+        info.extend((off, th, tw))
+        off += th * tw * 3
+    tex_info = np.asarray(info or [0, 1, 1], np.int32)
+    offsets = offsets + (len(ints),)
+    return torch.from_numpy(np.concatenate([ints, tex_info])).to(device), \
+        offsets
 
 
 def has_expr(static) -> bool:
@@ -268,23 +311,26 @@ def marches(static) -> bool:
     return static.has_warp or static.has_portal
 
 
-def scene_args(static, floats, device):
+def scene_args(static, floats, device, tex_shapes):
     """The kernels' scene arguments (trace_common.cuh make_scene): host
-    arrays of the int32 arrays' and the float tables' device pointers, the
-    int parameters, and the device int32 tensor they point into (keep it
-    alive across the launch).  march_steps goes in as 0 when no material
-    marches and no entity is a portal: the kernels then run their build
-    without the march and the teleport; the last parameter is 1 when a
-    material is an expression, for the build with the VM."""
-    ints, offsets = _scene_ints(static, device)
+    arrays of the int32 arrays' and the float tables' device pointers (the
+    texel buffer last, ``tex_shapes`` the textures' shapes), the int
+    parameters, and the device int32 tensor they point into (keep it alive
+    across the launch).  march_steps goes in as 0 when no material marches
+    and no entity is a portal: the kernels then run their build without the
+    march and the teleport; the next parameters are 1 when a material is an
+    expression, for the build with the VM, and when the scene has CSG,
+    cylinders, perlin or textures, for the build with them."""
+    ints, offsets = _scene_ints(static, tuple(tex_shapes), device)
     iptr = (ctypes.c_void_p * len(offsets))(
         *(ints.data_ptr() + 4 * o for o in offsets))
     fptr = (ctypes.c_void_p * len(floats))(*(t.data_ptr() for t in floats))
-    params = (ctypes.c_int * 7)(len(static.entities), static.ambient,
+    params = (ctypes.c_int * 8)(len(static.entities), static.ambient,
                                 static.max_depth, static.max_nodes,
                                 static.dim,
                                 static.march_steps if marches(static) else 0,
-                                int(has_expr(static)))
+                                int(has_expr(static)),
+                                int(has_shapes(static)))
     return iptr, fptr, params, ints
 
 
@@ -302,7 +348,38 @@ def _pack_camera(cam, time, y0, device) -> torch.Tensor:
                       torch.zeros(5, dtype=torch.float32, device=device)])
 
 
+def texel_buffer(tables, device) -> torch.Tensor:
+    """The textures' texels back to back, the kernels' last float table
+    (one zero when the scene has none).  Raises ``ValueError`` for a
+    texture that is not [h, w, 3] float32 on ``device`` or whose side
+    exceeds MAX_TEX_SIDE."""
+    for i, t in enumerate(tables.textures):
+        if t.device != device or t.dtype != torch.float32:
+            raise ValueError(f"texture {i}: the CUDA kernel takes float32 on "
+                             f"{device}, got {t.dtype} on {t.device}")
+        if t.dim() != 3 or t.shape[2] != 3 or min(t.shape[:2]) < 1:
+            raise ValueError(f"texture {i}: shape {tuple(t.shape)} is not "
+                             "[h, w, 3]")
+        if max(t.shape[:2]) > MAX_TEX_SIDE:
+            raise ValueError(f"texture {i}: {t.shape[0]} x {t.shape[1]} "
+                             f"texels; the CUDA kernels take at most "
+                             f"{MAX_TEX_SIDE} a side")
+    if sum(t.numel() for t in tables.textures) >= 2 ** 31:
+        raise ValueError("the textures hold 2^31 floats or more; the CUDA "
+                         "kernels index them with int32")
+    if not tables.textures:
+        return torch.zeros(1, dtype=torch.float32, device=device)
+    return torch.cat([t.reshape(-1) for t in tables.textures])
+
+
 def _check_tables(static, tables, device):
+    """The float tables in FLOAT_FIELDS order, checked, then the texel
+    buffer (``texel_buffer``)."""
+    n_tex = 1 + max((t for k, t in zip(static.surf_kinds, static.surf_texture)
+                     if k == "texture"), default=-1)
+    if len(tables.textures) < n_tex:
+        raise ValueError(f"tables hold {len(tables.textures)} textures; the "
+                         f"scene reads {n_tex}")
     S = tables.shape_vec.shape[0]
     M, U = len(static.mat_kinds), len(static.surf_kinds)
     P = tables.portal_tr.shape[0]
@@ -328,21 +405,24 @@ def _check_tables(static, tables, device):
             raise ValueError(f"tables.{name}: shape {tuple(t.shape)} does "
                              f"not match the scene's {expect[name]}")
         out.append(t.contiguous())
-    return out
+    return out + [texel_buffer(tables, device)]
 
 
-def launch_forward(static, floats, cam_row, H: int, W: int,
-                   rows: int) -> torch.Tensor:
+def launch_forward(static, floats, cam_row, H: int, W: int, rows: int,
+                   tex_shapes) -> torch.Tensor:
     """Launch trace_fwd on the slab with checked float tables (in
-    FLOAT_FIELDS order) and a camera row -> [rows, W, 3]."""
+    FLOAT_FIELDS order, then the texel buffer of textures of ``tex_shapes``)
+    and a camera row -> [rows, W, 3]."""
     global LAUNCHES
     device = cam_row.device
-    iptr, fptr, params, _ints = scene_args(static, floats, device)
+    iptr, fptr, params, _ints = scene_args(static, floats, device,
+                                           tex_shapes)
     out = torch.empty((rows, W, 3), dtype=torch.float32, device=device)
     cam_row = cam_row.detach().contiguous()
-    rc = _entry()(iptr, fptr, params, static.t_max, cam_row.data_ptr(), H,
-                  W, rows, out.data_ptr(), device.index,
-                  torch.cuda.current_stream(device).cuda_stream)
+    rc = _entry(library("trace_fwd", static))(
+        iptr, fptr, params, static.t_max, cam_row.data_ptr(), H, W, rows,
+        out.data_ptr(), device.index,
+        torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"trace_fwd launch failed: cudaError {rc}")
     LAUNCHES += 1
@@ -364,4 +444,9 @@ def render_image_cuda(static, tables, cam, H: int, W: int, time=0.0,
     floats = _check_tables(static, tables, device)
     cam_row = _pack_camera(cam, time, y0, device)
     return launch_forward(static, floats, cam_row, H, W,
-                          H if rows is None else rows)
+                          H if rows is None else rows, tex_shapes(tables))
+
+
+def tex_shapes(tables):
+    """The textures' shapes, as scene_args takes them."""
+    return tuple(tuple(t.shape) for t in tables.textures)

@@ -1,8 +1,9 @@
 """The tracing core on batched torch tensors: the plain version of the
 forward kernel.
 
-Port of ``euclider_tpu/ops/trace.py`` (its lax backend) for straight space,
-attractor-warped space (``ops/march.py``) and portals; with
+Port of ``euclider_tpu/ops/trace.py`` (its lax backend): straight space,
+attractor- and expression-warped space (``ops/march.py``), portals, CSG
+composites and every surface kind; with
 ``differentiable=True`` it is autograd's reference for the backward kernel
 (``ops/vjp.py``).  A ray tree becomes a masked depth-first stack
 loop: each ray carries at most ``max_depth + 1`` deferred branches (origin,
@@ -12,8 +13,7 @@ second.  The scene topology is unrolled in Python over the static entity
 list; only float parameters come from the tables.
 
 ``render_image`` here is what ``ops/cuda_kernel.render_image_cuda`` is held
-against on the card, and what the package renders with on the CPU.  CSG,
-cylinders and textured or noise surfaces raise ``NotImplementedError``.
+against on the card, and what the package renders with on the CPU.
 """
 from __future__ import annotations
 
@@ -428,8 +428,8 @@ def camera_rays(cam, xi, yi, W: int, H: int):
 
     aspect = W / H
     t = cam.tan_half_fov
-    ndx = ((xi + 0.5) / W * 2.0 - 1.0) * (aspect * t)
-    ndy = (1.0 - (yi + 0.5) / H * 2.0) * t
+    ndx = ((xi + 0.5) / V.const(W, xi) * 2.0 - 1.0) * (aspect * t)
+    ndy = (1.0 - (yi + 0.5) / V.const(H, yi) * 2.0) * t
     d = V.normalize(Vec(f.x + ndx * r.x + ndy * u.x,
                         f.y + ndx * r.y + ndy * u.y,
                         f.z + ndx * r.z + ndy * u.z,

@@ -66,6 +66,13 @@ def normalize(a: Vec, eps: float = 1e-20) -> Vec:
     return scale(a, torch.rsqrt(norm2(a) + eps))
 
 
+def const(v, like):
+    """The Python number v as a 0-dim tensor on ``like``'s device, to divide
+    by: torch divides by a Python number on a CUDA device as a product with
+    its rounded reciprocal, where the kernels and the JAX package divide."""
+    return torch.full((), v, dtype=like.dtype, device=like.device)
+
+
 def where(mask, a: Vec, b: Vec) -> Vec:
     return Vec(torch.where(mask, a.x, b.x), torch.where(mask, a.y, b.y),
                torch.where(mask, a.z, b.z), torch.where(mask, a.w, b.w))

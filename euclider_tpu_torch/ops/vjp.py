@@ -26,8 +26,8 @@ BWD_BLOCK_ROWS = 64
 
 
 def zero_grads(tables, cam):
-    """Zero cotangents shaped like (tables, cam): the fields this slice does
-    not differentiate keep these."""
+    """Zero cotangents shaped like (tables, cam): the fields that get no
+    gradient keep these."""
     zt = SceneTables(**{k: torch.zeros_like(v)
                         for k, v in tables._asdict().items()
                         if k != "textures"},
@@ -42,35 +42,38 @@ def vjp_blocked(static, tables, cam, H: int, W: int, g,
     """VJP of the render of rows [y0, y0 + rows) of the H x W frame under
     the cotangent ``g`` [rows or H, W, 3] -> (d_tables, d_cam, d_time).
 
-    Gradients flow to the float tables of ``FLOAT_FIELDS``, to every camera
-    field and to ``time`` (through the expression materials that read
-    ``t``); the other tables get zeros."""
+    Gradients flow to the float tables of ``FLOAT_FIELDS``, to every texel
+    of the textures, to every camera field and to ``time`` (through the
+    expression materials that read ``t``); the other tables get zeros."""
     R = H if rows is None else rows
     if tuple(g.shape) != (R, W, 3):
         raise ValueError(f"cotangent shape {tuple(g.shape)} != {(R, W, 3)}")
     d_tables, d_cam = zero_grads(tables, cam)
     d_time = torch.zeros((), dtype=torch.float32, device=g.device)
-    acc = [getattr(d_tables, k) for k in FLOAT_FIELDS] + list(d_cam) + [
-        d_time]
+    n, nt = len(FLOAT_FIELDS), len(tables.textures)
+    acc = ([getattr(d_tables, k) for k in FLOAT_FIELDS]
+           + list(d_tables.textures) + list(d_cam) + [d_time])
     for by0 in range(0, R, block_rows):
         bh = min(block_rows, R - by0)
         with torch.enable_grad():
             leaves = [getattr(tables, k).detach().requires_grad_(True)
                       for k in FLOAT_FIELDS]
+            texs = [t.detach().requires_grad_(True) for t in tables.textures]
             cam_l = [v.detach().requires_grad_(True) for v in cam]
             time_l = torch.as_tensor(time, dtype=torch.float32,
                                      device=g.device).detach().requires_grad_(
                                          True)
-            tab = tables._replace(**dict(zip(FLOAT_FIELDS, leaves)))
+            tab = tables._replace(**dict(zip(FLOAT_FIELDS, leaves)),
+                                  textures=tuple(texs))
             img = trace.render_image(static, tab, CameraParams(*cam_l), H, W,
                                      time_l, y0 + by0, bh,
                                      differentiable=True)
-            grads = torch.autograd.grad(img, leaves + cam_l + [time_l],
+            grads = torch.autograd.grad(img, leaves + texs + cam_l + [time_l],
                                         g[by0:by0 + bh].to(img.dtype),
                                         allow_unused=True)
         for a, gr in zip(acc, grads):
             if gr is not None:
                 a += gr
-    n = len(FLOAT_FIELDS)
-    d_tables = d_tables._replace(**dict(zip(FLOAT_FIELDS, acc[:n])))
-    return d_tables, CameraParams(*acc[n:-1]), acc[-1]
+    d_tables = d_tables._replace(**dict(zip(FLOAT_FIELDS, acc[:n])),
+                                 textures=tuple(acc[n:n + nt]))
+    return d_tables, CameraParams(*acc[n + nt:-1]), acc[-1]

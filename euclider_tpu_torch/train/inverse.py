@@ -90,20 +90,25 @@ def make_fused_value_and_grad(static, H: int, W: int,
         with torch.enable_grad():
             leaves = [getattr(params.tables, k).detach().requires_grad_(True)
                       for k in FLOAT_FIELDS]
+            texs = [t.detach().requires_grad_(True)
+                    for t in params.tables.textures]
             cam_l = [v.detach().requires_grad_(True) for v in params.cam]
             p = InverseParams(
-                params.tables._replace(**dict(zip(FLOAT_FIELDS, leaves))),
+                params.tables._replace(**dict(zip(FLOAT_FIELDS, leaves)),
+                                       textures=tuple(texs)),
                 CameraParams(*cam_l))
             loss = loss_fn(p, target, time)
-            grads = torch.autograd.grad(loss, leaves + cam_l,
+            grads = torch.autograd.grad(loss, leaves + texs + cam_l,
                                         allow_unused=True)
         zt, zc = zero_grads(params.tables, params.cam)
         grads = [z if g is None else g
                  for z, g in zip([getattr(zt, k) for k in FLOAT_FIELDS]
-                                 + list(zc), grads)]
-        d_tables = zt._replace(**dict(zip(FLOAT_FIELDS, grads)))
+                                 + list(zt.textures) + list(zc), grads)]
+        n, nt = len(FLOAT_FIELDS), len(texs)
+        d_tables = zt._replace(**dict(zip(FLOAT_FIELDS, grads)),
+                               textures=tuple(grads[n:n + nt]))
         return loss.detach(), InverseParams(
-            d_tables, CameraParams(*grads[len(FLOAT_FIELDS):]))
+            d_tables, CameraParams(*grads[n + nt:]))
 
     return value_and_grad
 

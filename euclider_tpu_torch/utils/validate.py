@@ -40,3 +40,19 @@ def assert_oracle_match(static, tables, cam, render_fn: Callable,
         f"correctness gate FAILED{' for ' + label if label else ''}: "
         f"frac_ok={frac:.4f} < {min_frac} (maxerr {maxerr:.2e})")
     return frac
+
+
+def seams(img, tau: float = 0.02):
+    """Pixels of an [H, W, 3] torch image within one pixel of a seam (a
+    second difference above ``tau`` along a row or a column): silhouettes,
+    total internal reflection and weight cuts, checker and texel edges,
+    where a per-pixel gradient turns float32 rounding into arbitrary values
+    (the gradient checks zero their cotangent there) -> bool [H, W]."""
+    import torch
+    d2x = (img[:, 2:] + img[:, :-2] - 2 * img[:, 1:-1]).abs().amax(-1)
+    d2y = (img[2:] + img[:-2] - 2 * img[1:-1]).abs().amax(-1)
+    m = torch.zeros(img.shape[:2], dtype=torch.bool, device=img.device)
+    m[:, 1:-1] |= d2x > tau
+    m[1:-1] |= d2y > tau
+    return torch.nn.functional.max_pool2d(m[None, None].float(), 3, 1,
+                                          1)[0, 0] > 0

@@ -61,9 +61,37 @@ def expr_gradient_scene():
                                                background=(0.1, 0.1, 0.2)))
 
 
+def cylinder_scene(smooth=False):
+    """tests/test_cylinder.py::_cyl_scene: a cylinder pillar, a sphere bored
+    out by a cylinder (CSG difference) and a floor; ``smooth`` puts smooth
+    surfaces on all three (the geometry's gradient is zero on the checker
+    and uniform ones)."""
+    from euclider_tpu_torch.scene import ir
+
+    def surf(smooth_scale, other):
+        return ir.SmoothSurface(uv_scale=smooth_scale) if smooth else other
+
+    pillar = ir.Entity(ir.Cylinder((1.2, 0.0, -5.0), (0.0, 1.0, 0.0), 0.5),
+                       surface=surf(3.0, ir.CheckerSurface(uv_scale=3.0)))
+    bored = ir.Csg("difference", (
+        ir.Sphere((-1.2, 0.0, -4.5), 1.0),
+        ir.Cylinder((-1.2, 0.0, -4.5), (0.0, 0.0, 1.0), 0.45)))
+    ring = ir.Entity(bored, surface=surf(2.0, ir.UniformSurface(
+        (0.8, 0.5, 0.2, 1.0), reflectivity=0.1)))
+    floor = ir.Entity(ir.HalfSpace((0.0, -1.0, 0.0), 1.2),
+                      surface=surf(0.8, ir.CheckerSurface(uv_scale=0.8)))
+    return ir.Scene(dim=3, entities=(pillar, ring, floor),
+                    camera=ir.Camera(position=(0.0, 0.4, 1.0),
+                                     forward=(0.0, -0.12, -1.0)),
+                    settings=ir.RenderSettings(max_depth=3,
+                                               background=(0.05, 0.06, 0.1)))
+
+
 def scene_on(name, device, **settings):
     sc = {"warp_gradient_scene": warp_gradient_scene,
-          "expr_gradient_scene": expr_gradient_scene}.get(
+          "expr_gradient_scene": expr_gradient_scene,
+          "cylinder_test": cylinder_scene,
+          "cylinder_smooth": lambda: cylinder_scene(True)}.get(
               name, lambda: ett.get_scene(name))()
     if settings:
         sc = replace(sc, settings=replace(sc.settings, **settings))
@@ -84,10 +112,13 @@ def test_encoder_refuses_a_tree_deeper_than_the_stack():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["config1_sphere_room",
                                   "config2_mirror_glass",
+                                  "config3_csg_textured",
                                   "config4_hypersphere",
                                   "config5_warp_portal",
                                   "config6_expr_space",
-                                  "config7_warp4d"])
+                                  "config7_warp4d",
+                                  "perlin_probe",
+                                  "cylinder_test"])
 def test_kernel_matches_plain(cuda, name):
     static, tables, cam = scene_on(name, cuda)
     before = cuda_kernel.LAUNCHES
@@ -134,6 +165,7 @@ def grads_close(ref, got, rtol=1e-3):
     per leaf, max |diff| <= rtol * max(max |ref|, 1)."""
     pairs = [(getattr(ref[0], k), getattr(got[0], k))
              for k in cuda_kernel.FLOAT_FIELDS]
+    pairs += list(zip(ref[0].textures, got[0].textures))
     pairs += list(zip(ref[1], got[1]))
     for a, b in pairs:
         a, b = a.double().cpu(), b.double().cpu()
@@ -168,7 +200,9 @@ def off_seams(g, static, tables, cam, time=0.0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["grad_probe", "config2_mirror_glass",
                                   "warp_gradient_scene",
-                                  "config5_warp_portal"])
+                                  "config5_warp_portal",
+                                  "config3_csg_textured", "perlin_probe",
+                                  "cylinder_smooth"])
 def test_vjp_kernel_matches_plain(cuda, name):
     from euclider_tpu_torch.ops import cuda_bwd, vjp
     static, tables, cam = scene_on(name, cuda)
@@ -233,6 +267,31 @@ def test_vjp_kernel_matches_plain_through_an_expression(cuda):
     assert abs(float(ref[2])) > 0
     assert abs(float(got[2]) - float(ref[2])) <= 1e-3 * max(
         abs(float(ref[2])), 1.0)
+
+
+@pytest.mark.cuda
+def test_texture_gradient_matches_plain(cuda):
+    """The texels' gradient of vjp_cuda (summed by atomics in its own
+    buffer) against the plain backward on config3 at 360 x 640, where the
+    textured blob is wide enough to hold pixels off its seams (at 144 x 256
+    every one of them lies within a pixel of a texel edge of the texture's
+    checker); and the fused step's against the unfused one."""
+    from euclider_tpu_torch.ops import cuda_bwd, vjp
+    static, tables, cam = scene_on("config3_csg_textured", cuda)
+    h, w = 360, 640
+    g = off_seams(cotangent((h, w, 3), 8, cuda), static, tables, cam)
+    got = cuda_bwd.vjp_cuda(static, tables, cam, h, w, g)
+    ref = vjp.vjp_blocked(static, tables, cam, h, w, g)
+    assert float(ref[0].textures[0].abs().max()) > 0
+    grads_close(ref, got)
+    target = cotangent((h, w, 3), 9, cuda).sigmoid()
+    loss, gt, gc, _ = cuda_bwd.train_step_cuda(static, tables, cam, target,
+                                               h, w)
+    img = cuda_kernel.render_image_cuda(static, tables, cam, h, w)
+    ref = cuda_bwd.vjp_cuda(static, tables, cam, h, w,
+                            2.0 * (img - target) / img.numel())
+    assert float(gt.textures[0].abs().max()) > 0
+    grads_close(ref[:2], (gt, gc))
 
 
 @pytest.mark.cuda

@@ -86,13 +86,45 @@ def test_row_slab_matches_full_frame(compiled_scenes, y0, rows):
     torch.testing.assert_close(slab, full[y0:y0 + rows], rtol=0, atol=0)
 
 
+def beyond_limits(compiled_scenes, name):
+    """A library scene grown past one of the CUDA kernels' fixed limits:
+    config3's blob a union of MAX_NODES spheres (one node more than the
+    kernels' membership bits hold), perlin_probe's terrain textured by a
+    texture wider than MAX_TEX_SIDE.  -> (static, torch tables, camera)."""
+    from dataclasses import replace
+    from euclider_tpu.scene import ir
+    sc = compiled_scenes[name][0]
+    if name == "config3_csg_textured":
+        blob = ir.Csg("union", tuple(
+            ir.Sphere((0.04 * i, -0.1, -4.6), 0.3)
+            for i in range(cuda_kernel.MAX_NODES)))
+        ents = tuple(replace(e, shape=blob) if e.name == "blob" else e
+                     for e in sc.entities)
+        sc = replace(sc, entities=ents)
+    else:
+        tex = np.full((2, cuda_kernel.MAX_TEX_SIDE + 1, 3), 0.5, np.float32)
+        ents = tuple(replace(e, surface=ir.TextureSurface(texture_id=0))
+                     if e.name == "terrain" else e for e in sc.entities)
+        sc = replace(sc, entities=ents, textures=(tex.tolist(),))
+    static, tables = et.compile_scene(sc)
+    return (static, ett.tables_to_torch(tables, "cpu"),
+            ett.camera_to_torch(et.compile_camera(sc.camera), "cpu"))
+
+
 @pytest.mark.parametrize("name", ["config3_csg_textured", "perlin_probe"])
 def test_cuda_encoder_refuses_unsupported_features(compiled_scenes, name):
-    what = {"config3_csg_textured": "torch port does not",
-            "perlin_probe":
-                "torch port does not render 'perlin' surfaces"}[name]
-    _, static, _, _ = compiled_scenes[name]
-    with pytest.raises(NotImplementedError, match="CUDA kernel does not"):
+    """The kernels render every feature of the library scenes; what they
+    refuse, before any launch, is a scene beyond their fixed limits: an
+    entity of more shape nodes than their membership bits, a texture
+    larger than they index.  The plain version renders both."""
+    static, tables, cam = beyond_limits(compiled_scenes, name)
+    cuda_kernel.encode_scene(compiled_scenes[name][1])   # the scene itself
+    if name == "config3_csg_textured":
+        with pytest.raises(ValueError, match="shape nodes"):
+            cuda_kernel.encode_scene(static)
+    else:
         cuda_kernel.encode_scene(static)
-    with pytest.raises(NotImplementedError, match=what):
-        trace.render_image(*port_inputs(compiled_scenes, name), 8, 8)
+        with pytest.raises(ValueError, match="texels"):
+            cuda_kernel._check_tables(static, tables, torch.device("cpu"))
+    img = trace.render_image(static, tables, cam, 8, 8)
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
