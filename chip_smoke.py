@@ -7,9 +7,9 @@ paths and times them.
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device  - a CUDA device is required; never falls back to the CPU.
-  2. build   - nvcc builds csrc/trace_fwd.cu, csrc/trace_bwd.cu and
-               csrc/probe_rev.cu for sm_90a, one process each, started
-               together.
+  2. build   - nvcc builds csrc/trace_fwd.cu, csrc/trace_bwd.cu,
+               csrc/trace_seg.cu and csrc/probe_rev.cu for sm_90a, one
+               process each, started together.
   3. kernel  - render_image_cuda against the plain torch version on the card
                at 1280x720, config1, config2, grad_probe, fresnel_probe,
                config5, config7, config6 (expression space), config3 (CSG
@@ -55,6 +55,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                versions' times.
   9. probe   - probe_rev (csrc/probe_rev.cu) against rev_march_plain on one
                (8, 128) tile: dx and dw within 1e-5 relative; its times.
+ 10. seg     - the segmented backward (K6, K7 in csrc/trace_seg.cu) and the
+               lifted caps at 1280x720: config2 through
+               backward='segmented' against the tape kernel in both modes
+               (every leaf within 1e-5 * max(max |ref|, 1), the fused loss
+               within 1e-5 relative) and against its plain version
+               vjp_segmented (phase 6's rule); config2_deep (config2 at
+               max_depth 8, max_nodes 255) rendered by the forward kernel,
+               differentiated through backward='auto' on a 64-row slab
+               against vjp_blocked (phase 6's rule), and 5 fused training
+               steps through train/inverse.py with the loss falling;
+               spheres48 (config2 and 44 small spheres: 48 entities, 797
+               parameters) rendered and differentiated on a 64-row
+               slab, as phases 3 and 6 hold theirs; the segmented kernels'
+               device times on config2 and config2_deep.
 The second-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -87,6 +101,10 @@ SLAB_SCENES = {"warp_gradient_scene": (328, 0.0),
                "expr_gradient_scene": (328, 0.3),
                "config6_expr_space": (300, 0.0)}
 SLAB_ROWS = 64
+# phase 10: scenes past the tape's 63 nodes, and past 32 entities and 159
+# gradient entries, with the slab of each that phase 10 differentiates
+DEEP_SLABS = {"config2_deep": 328, "spheres48": 328}
+SEG_RTOL = 1e-5                      # segmented against the tape kernel
 H, W = 720, 1280
 TOL, MAX_BAD = 1e-4, 1e-3            # kernel vs plain on the card
 GOLD_TOL, GOLD_BAD = 2e-3, 0.01      # goldens gate (tests/test_goldens.py)
@@ -167,6 +185,25 @@ def build_scene(name):
                              forward=(0.0, -0.12, -1.0)),
             settings=ir.RenderSettings(max_depth=3,
                                        background=(0.05, 0.06, 0.1)))
+    if name == "config2_deep":
+        # config2 with a tree of up to 255 nodes: past the tape kernel's 63
+        sc = et.get_scene("config2_mirror_glass")
+        return replace(sc, name=name, settings=replace(
+            sc.settings, max_depth=8, max_nodes=255))
+    if name == "spheres48":
+        # config2's floor and three spheres and 44 small spheres on the
+        # floor behind them, each with its own uniform surface (every other
+        # one reflective): 48 entities, 797 parameters
+        sc = et.get_scene("config2_mirror_glass")
+        balls = tuple(ir.Entity(
+            ir.Sphere((-3.0 + 0.6 * (i % 11), -0.82, -6.5 - 0.9 * (i // 11)),
+                      0.18),
+            surface=ir.UniformSurface(
+                (0.2 + 0.15 * (i % 5), 0.3 + 0.25 * (i % 3),
+                 0.9 - 0.1 * (i % 7), 1.0),
+                reflectivity=0.3 if i % 2 else 0.0),
+            name=f"ball{i}") for i in range(44))
+        return replace(sc, name=name, entities=sc.entities + balls)
     if name == "config5_smooth":
         sc = et.get_scene("config5_warp_portal")
         return replace(sc, entities=tuple(
@@ -362,20 +399,23 @@ def leaves(d_tables, d_cam):
             + [(f"cam.{k}", v) for k, v in d_cam._asdict().items()])
 
 
-def grads_err(ref, got):
-    """Worst leaf under the rule max|diff| <= GRAD_RTOL * max(max|ref|, 1)
+def grads_err(ref, got, rtol=GRAD_RTOL):
+    """Worst leaf under the rule max|diff| <= rtol * max(max|ref|, 1)
     -> (ratio of error to tolerance, leaf, error)."""
     worst = (0.0, "", 0.0)
     for (k, a), (_, b) in zip(leaves(*ref), leaves(*got)):
         e = float((a.double() - b.double()).abs().max())
-        tol = GRAD_RTOL * max(float(a.abs().max()), 1.0)
+        tol = rtol * max(float(a.abs().max()), 1.0)
         worst = max(worst, (e / tol, k, e))
     return worst
 
 
-def backward_check(name, device, y0=0, rows=H, tm=0.0):
+def backward_check(name, device, y0=0, rows=H, tm=0.0, backward="auto",
+                   ref_fn="vjp_blocked"):
     """Phase 6 for one scene on rows [y0, y0 + rows) at scene time tm ->
-    numbers for the record."""
+    numbers for the record: vjp_cuda with ``backward`` against the plain
+    version ``ref_fn`` of ops/vjp.py, then train_step_cuda against the
+    forward kernel + MSE + vjp_cuda, both with ``backward``."""
     import torch
     from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel, trace, vjp
     from euclider_tpu_torch.ops import geometry as G
@@ -395,18 +435,19 @@ def backward_check(name, device, y0=0, rows=H, tm=0.0):
     keep = ~(flips | seams(plain, SMOOTH_TAU))
     g = seeded((rows, W, 3), 0, device) * keep[..., None]
     got = cuda_bwd.vjp_cuda(static, tables, cam, H, W, g, tm, y0=y0,
-                            rows=rows)
+                            rows=rows, backward=backward)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    ref = vjp.vjp_blocked(static, tables, cam, H, W, g, time=tm, y0=y0,
-                          rows=rows)
+    ref = getattr(vjp, ref_fn)(static, tables, cam, H, W, g, time=tm,
+                               y0=y0, rows=rows)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
     ratio, leaf, err = grads_err(ref[:2], got[:2])
     where = f"rows {y0}-{y0 + rows - 1} of {W}x{H}" if rows < H else f"{W}x{H}"
-    say("bwd", f"{name}: vjp_cuda vs plain backward on {where}, cotangent "
+    say("bwd", f"{name}: vjp_cuda ({backward}) vs {ref_fn} on {where}, "
+        "cotangent "
         f"zero on {float((~keep).float().mean()):.4f} of pixels ({int(flips.sum())} "
         f"branch flips + seams): worst leaf {leaf} err {err:.4g} = "
         f"{ratio:.3f} of its tolerance; plain backward {plain_ms:.1f} ms, "
@@ -457,11 +498,11 @@ def backward_check(name, device, y0=0, rows=H, tm=0.0):
     target = seeded((rows, W, 3), 1, device, "uniform")
     loss, gt, gc, _ = cuda_bwd.train_step_cuda(
         static, tables, cam, target, H, W, tm, y0=y0, rows=rows,
-        norm=1.0 / (rows * W * 3))
+        norm=1.0 / (rows * W * 3), backward=backward)
     ref_loss = torch.mean((k1 - target) ** 2)
     ref2 = cuda_bwd.vjp_cuda(static, tables, cam, H, W,
                              2.0 * (k1 - target) / k1.numel(), tm, y0=y0,
-                             rows=rows)
+                             rows=rows, backward=backward)
     torch.cuda.synchronize()
     lrel = abs(float(loss) - float(ref_loss)) / float(ref_loss)
     ratio2, leaf2, err2 = grads_err(ref2[:2], (gt, gc))
@@ -536,10 +577,13 @@ def train_path(device):
                for x in losses + unfused["losses"] + warp["losses"]
                + expr["losses"] + shapes["losses"])
     assert fused["recovered"], "the example's criterion failed"
-    assert fused["launches"] == {"trace_fwd": 0, "trace_bwd": EXAMPLE_STEPS}
-    assert min(unfused["launches"].values()) >= 2, "an unfused kernel idled"
+    assert fused["launches"] == {"trace_fwd": 0, "trace_bwd": EXAMPLE_STEPS,
+                                 "trace_seg": 0}
+    assert min(unfused["launches"][k] for k in ("trace_fwd", "trace_bwd")) \
+        >= 2, "an unfused kernel idled"
     for name, run in runs:
-        assert run["launches"] == {"trace_fwd": 0, "trace_bwd": TRAIN_STEPS}
+        assert run["launches"] == {"trace_fwd": 0, "trace_bwd": TRAIN_STEPS,
+                                   "trace_seg": 0}
         assert all(b < a for a, b in zip(run["losses"], run["losses"][1:])), \
             f"{name}: the fused steps did not lower the loss"
     return launches, {"grad_probe": losses, WARP[0]: warp["losses"],
@@ -550,23 +594,30 @@ def train_path(device):
 
 # --- phase 8 -----------------------------------------------------------------
 
-def device_ms(fn, keys, n=5):
+def device_ms(fn, keys, n=5, tries=3):
     """Mean device time of one launch of each kernel named in keys over n
-    calls of fn, from torch.profiler: over the launches it recorded (None
-    where it records none)."""
+    calls of fn, from torch.profiler: over the launches it recorded.  A
+    profile that recorded no launch of one of the kernels is taken again,
+    up to ``tries`` profiles (on the card torch.profiler now and then
+    returns a profile without them); None where none recorded one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for key in keys:
-        evts = [e for e in prof.key_averages() if key in e.key]
-        us = sum(getattr(e, "device_time_total", 0.0) for e in evts)
-        calls = sum(e.count for e in evts)
-        out[key] = us / calls / 1e3 if us > 0 and calls else None
+    out = dict.fromkeys(keys)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        for key in keys:
+            evts = [e for e in prof.key_averages() if key in e.key]
+            us = sum(getattr(e, "device_time_total", 0.0) for e in evts)
+            calls = sum(e.count for e in evts)
+            if out[key] is None and us > 0 and calls:
+                out[key] = us / calls / 1e3
+        if all(v is not None for v in out.values()):
+            break
     return out
 
 
@@ -792,26 +843,13 @@ def timing(name, device, card):
     return out
 
 
-def queued_bounds(static):
+def queued_bounds():
     """Bounds of the TPU kernels still to port, worked out from their code
-    (no kernel runs) -> {name: (ms, bound_by)}.
-
-    K6/K7 (pallas_kernel.py::vjp_pallas_segmented on ``static`` at 1280x720):
-    the carry of _carry_template is sp, ar, ag, ab and max_depth + 1 slots
-    of 11 words; the float cotangent carry is ar, ag, ab and 9 float words a
-    slot.  The forward peel writes one carry, each of the K chunks of
-    CHUNK_TRIPS = 16 trips reads and writes one; each backward chunk reads
-    its boundary carry and the float cotangents and writes the cotangents;
-    the peel's backward reads the cotangents; g is read once.  P1-P5
-    (tools/march_bisect.py, tools/mosaic_probe.py) on their (8, 128) tile:
+    (no kernel runs) -> {name: (ms, bound_by)}: P1-P5
+    (tools/march_bisect.py, tools/mosaic_probe.py) on their (8, 128) tile,
     the FP32 operations of their steps (forward, recompute and adjoint) and
     the bytes of their inputs and outputs."""
-    slots = static.max_depth + 1
-    carry, dfl = 4 + 11 * slots, 3 + 9 * slots
-    trips = static.max_nodes - 1
-    k = -(-trips // 16)
-    words = carry + k * 2 * carry + k * (carry + 2 * dfl) + dfl + 3
-    out = {"K6/K7": (H * W * 4 * words / PEAK_BYTES * 1e3, "bytes")}
+    out = {}
     n = 8 * 128
     tile_bytes = {"P1": 4, "P2": 12, "P3": 16, "P4": 12, "P5": 12}
     # operations per element: P1 23 march steps of config5 (step 47, five
@@ -884,6 +922,209 @@ def probe_check(device, card):
     return out
 
 
+# --- phase 10 ----------------------------------------------------------------
+
+SEG_KEYS = ["trace_seg_fwd_kernel", "trace_seg_bwd_kernel",
+            "sum_partials_kernel"]
+
+
+def carry_traffic(static, tables, cam):
+    """Words of boundary carry the segmented kernels move over the frame on
+    this data, worked out from trace_seg.cu: K6 stores for every pixel and
+    chunk the stack pointer and the 11 words of each slot live at the
+    chunk's start (counted by driving the plain version's loop), and the 3
+    colour sums; K7 loads the same and the 3 words of g or the target ->
+    (stored, loaded)."""
+    import torch
+    from euclider_tpu_torch.ops import cuda_bwd, trace, vjp
+    sizes = vjp.chunk_sizes(static.max_nodes)
+    dev = tables.surf_color.device
+    yi = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    xi = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
+    org, d = trace.camera_rays(cam, xi, yi, W, H)
+    ar, ag, ab, slots, sp = trace.bounce_init(static, tables, org, d)
+    live = 0
+    if slots is not None:
+        body = trace.make_bounce_body(static, tables)
+        carry = (sp, ar, ag, ab, slots)
+        for trips in sizes:
+            live += int(carry[0].sum())
+            for _ in range(trips):
+                if not bool((carry[0] > 0).any()):
+                    break
+                carry = body(carry)
+    stored = len(sizes) * H * W + cuda_bwd.SLOT_WORDS * live + 3 * H * W
+    return stored, stored + 3 * H * W
+
+
+def seg_vs_tape(device):
+    """config2 at 1280x720 through backward='segmented' against the tape
+    kernel under the same cotangent and target: every leaf (and the time)
+    within SEG_RTOL * max(max |ref|, 1), the fused loss within LOSS_RTOL."""
+    from euclider_tpu_torch.ops import cuda_bwd
+    static, tables, cam = load(SCENES[1], device)
+    g = seeded((H, W, 3), 0, device)
+    target = seeded((H, W, 3), 1, device, "uniform")
+    out = {}
+    for mode in ("vjp", "fused"):
+        if mode == "vjp":
+            tape, seg = (cuda_bwd.vjp_cuda(static, tables, cam, H, W, g,
+                                           backward=b)
+                         for b in ("tape", "segmented"))
+            lrel = 0.0
+        else:
+            (lt, *tape), (ls, *seg) = (cuda_bwd.train_step_cuda(
+                static, tables, cam, target, H, W, backward=b)
+                for b in ("tape", "segmented"))
+            lrel = abs(float(ls) - float(lt)) / float(lt)
+        ratio, leaf, err = grads_err(tape[:2], seg[:2], SEG_RTOL)
+        t_ratio = abs(float(seg[2]) - float(tape[2])) / (
+            SEG_RTOL * max(abs(float(tape[2])), 1.0))
+        say("seg", f"{SCENES[1]} {mode}: segmented vs tape kernel, worst leaf "
+            f"{leaf} err {err:.4g} = {ratio:.4f} of {SEG_RTOL:g} * "
+            f"max(max|ref|, 1); time {t_ratio:.4f}; loss rel {lrel:.2e} "
+            f"(limit {LOSS_RTOL:g})")
+        assert ratio <= 1.0 and t_ratio <= 1.0, \
+            f"{mode}: the segmented kernels disagree with the tape kernel"
+        assert lrel <= LOSS_RTOL, "the segmented fused loss disagrees"
+        out[mode] = {"err_over_tol": ratio, "leaf": leaf, "err": err,
+                     "loss_rel": lrel}
+    return out
+
+
+def deep_training(device):
+    """5 fused training steps on config2_deep through train/inverse.py (the
+    trainer's perturbation and fitted tables) -> losses, falling."""
+    from euclider_tpu_torch.ops import cuda_kernel
+    from euclider_tpu_torch.train import fit
+    from euclider_tpu_torch.train.inverse import InverseParams, make_train_step
+    static, truth, cam = load("config2_deep", device)
+    target = cuda_kernel.render_image_cuda(static, truth, cam, H, W)
+    params = InverseParams(fit.perturb(truth), cam)
+    step, _ = make_train_step(static, H, W, params, 2e-2, "cuda-fused",
+                              fit=dict.fromkeys(fit.FIT))
+    losses = [float(step(target)) for _ in range(TRAIN_STEPS)]
+    say("seg", f"config2_deep fused (backward auto): losses "
+        f"{[round(x, 6) for x in losses]}")
+    assert all(x == x and abs(x) != float("inf") for x in losses)
+    assert all(b < a for a, b in zip(losses, losses[1:])), \
+        "config2_deep: the fused steps did not lower the loss"
+    return losses
+
+
+def seg_times(name, device, card, bwd_bound):
+    """Device times of the segmented kernels on one scene at 1280x720, vjp
+    and fused (torch.profiler), the times of the calls (CUDA events, median
+    of 5 after warm-up; the tape kernel's fused call beside them where the
+    tape takes the scene), and their bound: the larger of the carry's bytes
+    (carry_traffic) over HBM bandwidth and ``bwd_bound``, the operations
+    bound of the tape kernel on the same scene."""
+    from euclider_tpu_torch.ops import cuda_bwd, vjp
+    static, tables, cam = load(name, device)
+    g = seeded((H, W, 3), 3, device)
+    target = seeded((H, W, 3), 2, device, "uniform")
+    def vjp_seg():
+        return cuda_bwd.vjp_cuda(static, tables, cam, H, W, g,
+                                 backward="segmented")
+
+    def step(backward):
+        return lambda: cuda_bwd.train_step_cuda(static, tables, cam, target,
+                                                H, W, backward=backward)
+
+    vjp_ms = device_ms(vjp_seg, SEG_KEYS)
+    fused_ms = device_ms(step("segmented"), SEG_KEYS)
+    stored, loaded = carry_traffic(static, tables, cam)
+    t_bytes = 4 * (stored + loaded) / PEAK_BYTES * 1e3
+    out = {"vjp_ms": vjp_ms, "fused_ms": fused_ms,
+           "vjp_call_events_ms": events_ms(vjp_seg, device),
+           "fused_call_events_ms": events_ms(step("segmented"), device),
+           "ms": sum(vjp_ms[k] or 0.0 for k in SEG_KEYS),
+           "fused_total_ms": sum(fused_ms[k] or 0.0 for k in SEG_KEYS),
+           "carry_words_stored": stored, "carry_words_loaded": loaded,
+           "carry_bound_ms": t_bytes, "ops_bound_ms": bwd_bound,
+           "bound_ms": max(t_bytes, bwd_bound),
+           "bound_by": "bytes" if t_bytes > bwd_bound else "operations",
+           "chunks": vjp.chunk_sizes(static.max_nodes)}
+    if static.max_nodes <= cuda_bwd.MAX_TAPE:
+        out["tape_fused_call_events_ms"] = events_ms(step("tape"), device)
+    for k, v in out.items():
+        say("time", f"{name} segmented {k}: {v}" + (
+            f" ({card})" if k.endswith("ms") else ""))
+    return out
+
+
+def seg_phase(device, card, times):
+    """Phase 10 -> the record of the segmented kernels."""
+    from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel
+    from euclider_tpu_torch.ops.cuda_kernel import _check_tables
+
+    tape = seg_vs_tape(device)
+    plain = backward_check(SCENES[1], device, backward="segmented",
+                           ref_fn="vjp_segmented")
+    errs = {name: kernel_vs_plain(name, device) for name in DEEP_SLABS}
+    static, tables, _ = load("spheres48", device)
+    n_params = cuda_bwd.grad_layout(
+        static, _check_tables(static, tables, device))[1] - 1
+    say("seg", f"spheres48: {len(static.entities)} entities, {n_params} "
+        "parameters")
+    assert len(static.entities) > 32 and n_params > 159
+    # the main path of this phase: a scene past the tape through the
+    # routing a user gets (vjp_cuda and train_step_cuda, backward='auto')
+    cuda_kernel.LAUNCHES = cuda_bwd.LAUNCHES = cuda_bwd.SEG_LAUNCHES = 0
+    deep = backward_check("config2_deep", device, DEEP_SLABS["config2_deep"],
+                          SLAB_ROWS)
+    losses = deep_training(device)
+    launches = {"trace_fwd": cuda_kernel.LAUNCHES,
+                "trace_bwd": cuda_bwd.LAUNCHES,
+                "trace_seg": cuda_bwd.SEG_LAUNCHES}
+    say("seg", f"launches on config2_deep's path {launches}")
+    assert launches["trace_bwd"] == 0 and \
+        launches["trace_seg"] >= 1 + TRAIN_STEPS, \
+        "config2_deep did not go through the segmented kernels"
+    many = backward_check("spheres48", device, DEEP_SLABS["spheres48"],
+                          SLAB_ROWS)
+    c2 = times[SCENES[1]]
+    deep_nodes, steps, marches, hits = march_count(*load("config2_deep",
+                                                         device))
+    deep_bound = bound(load("config2_deep", device)[0],
+                       int(deep_nodes.sum()), True, steps, marches, hits)
+    say("seg", f"config2_deep: {float(deep_nodes.float().mean()):.2f} nodes "
+        f"a pixel, at most {int(deep_nodes.max())}; pixels past 63 nodes "
+        f"{int((deep_nodes > 63).sum())}")
+    t = {SCENES[1]: seg_times(SCENES[1], device, card, c2["bwd_bound_ms"]),
+         "config2_deep": seg_times("config2_deep", device, card,
+                                   deep_bound[0])}
+    say("time", f"{SCENES[1]} trace_bwd (tape, same run): vjp "
+        f"{c2['vjp_device_ms']:.4f}, fused {c2['bwd_device_ms']:.4f} ms "
+        f"({card})")
+    return {
+        "name": "trace_seg", "route": "cuda",
+        "source": "euclider_tpu_torch/csrc/trace_seg.cu",
+        "replaces": "euclider_tpu/ops/pallas_kernel.py:433 (K6), :472 (K7)",
+        "covers": "K6 (trace_seg_fwd_kernel: the boundary carry of every "
+                  "chunk of 16 bounce trips) and K7 (trace_seg_bwd_kernel: "
+                  "the chunks re-run and swept in reverse, one launch), both "
+                  "modes, every build; the tape kernel's parameter and "
+                  "entity caps lifted (spheres48)",
+        "launches": launches["trace_seg"],
+        "max_abs_err": plain["vjp_err"],
+        "ms": t[SCENES[1]]["ms"], "plain_ms": plain["plain_ms"],
+        "bound_ms": t[SCENES[1]]["bound_ms"],
+        "bound_by": t[SCENES[1]]["bound_by"], "library_ms": None,
+        "ms_scene": SCENES[1], "shape": [H, W, 3],
+        "tolerance": {"vs_tape_rtol": SEG_RTOL, "grad_rtol": GRAD_RTOL,
+                      "loss_rtol": LOSS_RTOL},
+        "card": card, "vs_tape": tape, "vs_plain": plain,
+        "path_launches": launches, "config2_deep_losses": losses,
+        "scenes": {"config2_deep": dict(deep, **t["config2_deep"],
+                                        max_abs_err=errs["config2_deep"][0],
+                                        bad_frac=errs["config2_deep"][1]),
+                   "spheres48": dict(many, n_params=n_params,
+                                     max_abs_err=errs["spheres48"][0],
+                                     bad_frac=errs["spheres48"][1]),
+                   SCENES[1]: t[SCENES[1]]}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -925,10 +1166,10 @@ def main() -> int:
     times = {name: timing(name, device, card)
              for name in SCENES + ("grad_probe",) + WARP + EXPR + SHAPES[:2]}
     probe = probe_check(device, card)
-    for name, (ms, by) in queued_bounds(load(SCENES[1], device)[0]).items():
+    seg = seg_phase(device, card, times)
+    for name, (ms, by) in queued_bounds().items():
         say("time", f"still to port, {name}: bound {ms:.6g} ms ({by}; "
-            f"{'config2 at 1280x720' if name == 'K6/K7' else '(8, 128)'}, "
-            f"worked out from the code by queued_bounds)")
+            "(8, 128), worked out from the code by queued_bounds)")
 
     gp, c2 = times["grad_probe"], times[SCENES[1]]
     record = [{
@@ -963,7 +1204,7 @@ def main() -> int:
                   "the winning leaf), cylinders, perlin and texture surfaces "
                   "(the texels' gradient by atomics) and portals; K4: the "
                   "reversible march backward through the attractor field and "
-                  "the expression VM's adjoint (trace_bwd.cu vm_adjoint: "
+                  "the expression VM's adjoint (trace_adj.cuh vm_adjoint: "
                   "mat_expr_params and the scene time)",
         "launches": train_launches["trace_bwd"],
         "max_abs_err": max(b["vjp_err"] for b in bwd.values()),
@@ -985,7 +1226,7 @@ def main() -> int:
         "library_ms": None, "shape": [8, 128],
         "tolerance": {"rtol": PROBE_RTOL}, "card": card,
         "dx_rel": probe["dx_rel"], "dw_rel": probe["dw_rel"],
-        "steps_per_element": probe["steps_per_element"]}]
+        "steps_per_element": probe["steps_per_element"]}, seg]
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

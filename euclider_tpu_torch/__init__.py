@@ -6,8 +6,9 @@ end (``scene/``), a plain batched-torch version of the trace loop
 (``ops/trace.py``) and the hand-written CUDA kernel that replaces the Pallas
 forward megakernel (``ops/cuda_kernel.py`` + ``csrc/trace_fwd.cu``), and
 the differentiable render and training step on the hand-written backward
-kernel that replaces the Pallas backward kernels (``ops/cuda_bwd.py`` +
-``csrc/trace_bwd.cu``; plain version ``ops/vjp.py``; ``train/``).  Both
+kernels that replace the Pallas backward kernels (``ops/cuda_bwd.py`` +
+``csrc/trace_bwd.cu``, ``csrc/trace_seg.cu``; plain version
+``ops/vjp.py``; ``train/``).  Both
 kernels march warped and expression space; expressions run on a per-thread
 VM (``csrc/trace_common.cuh``), and their gradients reach the expression
 parameters and the scene ``time``.

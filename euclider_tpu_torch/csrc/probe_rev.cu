@@ -1,7 +1,7 @@
 // probe_rev.cu - the reversible-march probe for Hopper (sm_90a).
 //
 // Replaces tools/mosaic_probe.py::_rev_kernel (probe 6 of the JAX package):
-// the reverse sweep of the march backward (K4, trace_bwd.cu) in isolation.
+// the reverse sweep of the march backward (K4, trace_adj.cuh) in isolation.
 // Per element of x: y = 2 x_T + v_T at the end of a done-masked leapfrog
 // march of R_STEPS steps of size R_H from (0.3 x, 0.2 x + 0.1),
 //   v' = v + h * 0.3 sin(w x);  x' = x + h v';  done once x' > 1,

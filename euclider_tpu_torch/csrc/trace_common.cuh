@@ -1,7 +1,8 @@
 // trace_common.cuh - the device code of one ray-tree node, shared by the
-// forward kernel (trace_fwd.cu) and the backward kernel (trace_bwd.cu).
+// forward kernel (trace_fwd.cu) and the backward kernels (trace_bwd.cu,
+// trace_seg.cu).
 //
-// Both kernels shade nodes with these functions, so the backward's forward
+// All of them shade nodes with these functions, so the backward's forward
 // sweep takes the branches the forward kernel took: a rounding that flips
 // a hit, a total internal reflection or a path-weight cut flips it in both.
 // Every expression keeps the arithmetic order of the JAX package
@@ -16,8 +17,8 @@
 // checker, smooth, perlin and texture surfaces; vacuum, dielectric,
 // attractor ('warp') and expression ('expr') materials, whose rays march
 // (ops/march.py); portals.  The Python wrappers refuse only scenes beyond
-// the kernels' fixed limits (stack depth, entities, nodes per entity, VM
-// length, texture size) before launching.
+// the kernels' fixed limits (stack depth, entities in the builds that
+// march, nodes per entity, VM length, texture size) before launching.
 //
 // A CSG entity's shape tree is one post-order range of nodes
 // [ent_first, ent_root]; membership is one pass over it with one bit per
@@ -63,6 +64,7 @@ namespace trace {
 constexpr int MAX_SLOTS = 16;     // DFS stack capacity (max_depth + 1 <= 16)
 constexpr int MAX_EXPR = 128;     // VM instructions of one material's field
 constexpr int MAX_NODES = 32;     // shape nodes of one entity: a bit each
+constexpr int MAX_MARCH_ENTITIES = 32;  // the march's side mask: a bit each
 constexpr float PROBE = 2e-4f;    // CSG membership probe offset
 constexpr float EPS_T = 1e-4f;    // minimum accepted hit distance
 constexpr float PUSH = 1e-3f;     // offset of a secondary ray's origin
@@ -456,7 +458,8 @@ __device__ __forceinline__ bool side(const Scene& s, int ent, V4 p) {
     return dot_rn(c, p) < sc;
 }
 
-// bit e set: p lies on the inner side of entity e (n_ent <= 32)
+// bit e set: p lies on the inner side of entity e (the builds that
+// march take n_ent <= MAX_MARCH_ENTITIES)
 template <bool kShapes>
 __device__ __forceinline__ uint32_t sides(const Scene& s, V4 p) {
     uint32_t m = 0;
@@ -539,7 +542,7 @@ __device__ __forceinline__ Field<kExpr> field(const Scene& s, int mat) {
 // OP_VAR (x y z w p0..p7 t), c the float32 bits of OP_CONST's value or
 // OP_POWI's exponent.  The VM evaluates the
 // instructions in order into one value per instruction, which is also what
-// the adjoint (trace_bwd.cu vm_adjoint) reads.  Every operation is that of
+// the adjoint (trace_adj.cuh vm_adjoint) reads.  Every operation is that of
 // scene/expr.py::torch_lib(safe=True): the partial-domain functions are
 // guarded (sqrt and log: x > 0, fallback 0; asin and acos: |x| < 1,
 // fallbacks sign(x) pi/2 and x > 0 ? 0 : pi; div: b == 0 gives 0), powi is

@@ -20,7 +20,7 @@
 // component programs (the field of ops/trace.py::make_accel, the scene
 // time read from the camera row).  A portal's transmitted ray is
 // teleported.  The node's device code lives in trace_common.cuh, which the
-// backward kernel (trace_bwd.cu) shares.
+// backward kernels (trace_bwd.cu, trace_seg.cu) share.
 //
 // What bounds it: FP32 ALU work and warp divergence, not bytes.  The output
 // is 12 B per pixel and the scene tables are under 1 KB (a texture is 48 KB
@@ -78,9 +78,10 @@ extern "C" int euclider_trace_fwd(
     float t_max, const float* cam, int H, int W, int rows, float* out,
     int device, void* stream) {
     const Scene s = make_scene(ints, floats, params, t_max, cam);
-    if (s.max_depth + 1 > MAX_SLOTS || s.n_ent > 32)
-        return (int)cudaErrorInvalidValue;
     const int build = scene_build(params);
+    if (s.max_depth + 1 > MAX_SLOTS ||
+        (has_march(build) && s.n_ent > MAX_MARCH_ENTITIES))
+        return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (rows <= 0 || W <= 0) return 0;

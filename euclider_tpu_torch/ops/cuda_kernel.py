@@ -6,9 +6,10 @@ by ``render_image_pallas``).  Each source is compiled with nvcc for
 ``sm_90a`` into a shared library with a plain C entry point, on first use,
 into ``euclider_tpu_torch/build/`` (rebuilt when the source, the shared
 header or the flags change), and called through ctypes on PyTorch's
-current stream.  The two trace kernels are compiled twice: their
-``_shapes`` libraries hold the builds for scenes with CSG, cylinders,
-perlin or textures, compiled without FMA contraction (trace_common.cuh).
+current stream.  The trace kernels (the forward, the tape backward and
+the segmented backward) are compiled twice: their ``_shapes`` libraries
+hold the builds for scenes with CSG, cylinders, perlin or textures,
+compiled without FMA contraction (trace_common.cuh).
 
 The scene is passed as data: ``encode_scene`` flattens the static topology
 into int32 arrays (the node encoding of ``oracle/native_oracle.py``, shape
@@ -39,17 +40,19 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = {"trace_fwd": os.path.join(CSRC, "trace_fwd.cu"),
            "trace_bwd": os.path.join(CSRC, "trace_bwd.cu"),
+           "trace_seg": os.path.join(CSRC, "trace_seg.cu"),
            "probe_rev": os.path.join(CSRC, "probe_rev.cu")}
-SOURCES.update({f"{k}_shapes": SOURCES[k] for k in ("trace_fwd",
-                                                     "trace_bwd")})
-HEADERS = (os.path.join(CSRC, "trace_common.cuh"),)
+SOURCES.update({f"{k}_shapes": SOURCES[k] for k in ("trace_fwd", "trace_bwd",
+                                                     "trace_seg")})
+HEADERS = (os.path.join(CSRC, "trace_common.cuh"),
+           os.path.join(CSRC, "trace_adj.cuh"))
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 # the _shapes libraries' builds: no FMA contraction (trace_common.cuh)
 SHAPES_FLAGS = ("-fmad=false", "-DTRACE_SHAPES_BUILDS")
 MAX_SLOTS = 16     # the kernels' DFS stack capacity (trace_common.cuh)
-MAX_ENTITIES = 32  # the march's side masks hold one bit per entity
+MAX_MARCH_ENTITIES = 32   # the march's side masks: one bit per entity
 MAX_EXPR = 128     # VM instructions of one material's four programs
 MAX_NODES = 32     # shape nodes of one entity: membership keeps a bit each
 MAX_TEX_SIDE = 16384   # texels along a texture side (float32 texel coords)
@@ -119,8 +122,8 @@ def build(names=tuple(SOURCES)) -> dict:
 
 
 def library(kernel: str, static) -> str:
-    """The library of ``kernel`` ('trace_fwd' or 'trace_bwd') that holds the
-    build ``static`` takes."""
+    """The library of ``kernel`` ('trace_fwd', 'trace_bwd' or 'trace_seg')
+    that holds the build ``static`` takes."""
     return f"{kernel}_shapes" if has_shapes(static) else kernel
 
 
@@ -226,16 +229,17 @@ def encode_scene(static):
     back to back, and the start of each.  ``scene_args`` appends tex_info,
     from the tables: per texture its offset in the texel buffer, its height
     and width.  Raises ``ValueError`` for a ray tree deeper than the kernels'
-    stack, more entities than their side masks hold, an entity of more
-    shape nodes than their membership bits hold, or an expression material
-    longer than their VM holds."""
+    stack, a marching scene of more entities than the march's side masks
+    hold, an entity of more shape nodes than their membership bits hold, or
+    an expression material longer than their VM holds."""
     if static.max_depth + 1 > MAX_SLOTS:
         raise ValueError(f"max_depth {static.max_depth} needs "
                          f"{static.max_depth + 1} stack slots; the CUDA "
                          f"kernel has {MAX_SLOTS}")
-    if len(static.entities) > MAX_ENTITIES:
-        raise ValueError(f"{len(static.entities)} entities; the CUDA kernel "
-                         f"holds {MAX_ENTITIES}")
+    if marches(static) and len(static.entities) > MAX_MARCH_ENTITIES:
+        raise ValueError(f"{len(static.entities)} entities in a scene that "
+                         f"marches; the CUDA kernels' march holds "
+                         f"{MAX_MARCH_ENTITIES}")
     ent_root, node_kind, node_row, cstart, ccount, child = _encode_nodes(
         static)
     ent_first = np.concatenate([[0], ent_root[:-1] + 1]).astype(np.int32)

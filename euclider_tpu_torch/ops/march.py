@@ -11,7 +11,7 @@ a step; a flip marks a crossing, which is refined after the loop by
 bisection on the stored step segment.  The carries are plain bool tensors
 (the JAX package's int32 flags exist only for Mosaic).  This is the plain
 version of the march inside ``csrc/trace_fwd.cu`` and of its reverse sweep
-(K4) inside ``csrc/trace_bwd.cu``.
+(K4) inside the backward kernels (``csrc/trace_adj.cuh``).
 """
 from __future__ import annotations
 

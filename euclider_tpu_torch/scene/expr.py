@@ -3,7 +3,8 @@
 Port note: a copy of ``euclider_tpu/scene/expr.py`` whose jax function
 library ``jax_lib`` becomes ``torch_lib``, so that the scene front end loads
 without jax.  The parser, the postfix lowering and the VM depth check are
-unchanged.
+unchanged; ``eval_ast`` divides a tensor by a Python number (or a number by
+a tensor) through a 0-dim tensor (``_true_div``).
 
 Reference parity: euclider's expression-driven warped-space material
 (the ``ComponentTransformation``-style material whose behaviour is given by
@@ -203,6 +204,19 @@ def unparse(node: Ast) -> str:
 # evaluation
 # ---------------------------------------------------------------------------
 
+def _true_div(a, b):
+    """a / b, where a Python number divided by or into a torch tensor first
+    becomes a 0-dim tensor like it: on a CUDA device torch divides by a
+    Python number as a product with its rounded reciprocal, where the
+    kernels and the JAX package divide.  Floats and arrays divide as they
+    are."""
+    if isinstance(b, (int, float)) and hasattr(a, "new_full"):
+        b = a.new_full((), b)
+    elif isinstance(a, (int, float)) and hasattr(b, "new_full"):
+        a = b.new_full((), a)
+    return a / b
+
+
 def eval_ast(node: Ast, env: Dict[str, Any], lib):
     """Evaluate an AST with a function library.
 
@@ -232,7 +246,7 @@ def eval_ast(node: Ast, env: Dict[str, Any], lib):
         if k == "mul":
             return a * b
         div = lib.get("div")
-        return div(a, b) if div is not None else a / b
+        return div(a, b) if div is not None else _true_div(a, b)
     if k == "pow":
         a = eval_ast(node[1], env, lib)
         e = node[2]
@@ -255,7 +269,8 @@ def eval_ast(node: Ast, env: Dict[str, Any], lib):
                 # the unguarded numpy/C++ paths keep raw 1/acc for
                 # bit-exact oracle parity
                 div = lib.get("div")
-                return div(1.0, acc) if div is not None else 1.0 / acc
+                return div(1.0, acc) if div is not None else _true_div(1.0,
+                                                                       acc)
             return acc
         b = eval_ast(e, env, lib)
         return lib["exp"](b * lib["log"](a))

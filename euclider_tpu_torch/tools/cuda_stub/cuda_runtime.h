@@ -52,3 +52,12 @@ inline float atomicAdd(float* p, float v) {
     *p += v;
     return o;
 }
+inline int __float_as_int(float f) {
+    int i;
+    std::memcpy(&i, &f, 4);
+    return i;
+}
+inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+    std::memset(p, v, n);
+    return 0;
+}

@@ -1,12 +1,14 @@
 """The CUDA kernels' device code on the CPU, against the plain versions.
 
-There is no nvcc off the card, but the device code of ``csrc/trace_fwd.cu``
-and ``csrc/trace_bwd.cu`` is C++ under a few stand-ins
-(``tools/cuda_stub/cuda_runtime.h``).  This module cuts each source at its
-``extern "C"`` entry point, appends a host entry that runs the kernel body
-pixel by pixel (the forward kernel under looped block and thread indices,
-``pixel_backward`` summing every pixel's gradient in float64), and builds
-it with g++ into ``euclider_tpu_torch/build/``.  It finds before a chip
+There is no nvcc off the card, but the device code of ``csrc/trace_fwd.cu``,
+``csrc/trace_bwd.cu`` and ``csrc/trace_seg.cu`` is C++ under a few
+stand-ins (``tools/cuda_stub/cuda_runtime.h``).  This module cuts each
+source at its ``extern "C"`` entry point, appends a host entry that runs
+the kernel body pixel by pixel (the forward kernel under looped block and
+thread indices, ``pixel_backward`` summing every pixel's gradient in
+float64, the segmented kernels' K6 over every pixel, then K7 as
+``pixel_backward``), and builds it with g++ into
+``euclider_tpu_torch/build/``.  It finds before a chip
 call what the card would show: a wrong adjoint (the gradients against
 ``ops/vjp.py::vjp_blocked``), an out-of-bounds read (``--asan``), and the
 pixels that nvcc's FMA contraction moves (``--fma``: contraction allowed,
@@ -32,6 +34,7 @@ import torch
 
 from ..ops import cuda_bwd as CB
 from ..ops import cuda_kernel as CK
+from ..ops import vjp as vjp_mod
 
 STUB = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_stub")
 CPU = torch.device("cpu")
@@ -39,6 +42,31 @@ BUILDS = (0, 1, 3, 4, 5, 7)   # every kB of trace_common.cuh
 
 _CASES = "".join(f"case {k}: {{call}}<{k}>({{args}}); break; "
                  for k in BUILDS)
+# the backward's: the wide instantiation (kWide) where the gradient vector
+# is longer than a thread holds
+_WIDE_CASES = "".join(
+    f"case {k}: if (wide) {{call}}<{k}, true>({{args}}); "
+    f"else {{call}}<{k}, false>({{args}}); break; " for k in BUILDS)
+
+# included by the backward entries: a pixel's gradient vector
+_PIXEL_GRAD = """
+#include <vector>
+
+// one pixel's gradient vector, long enough for every entry: grad's own
+// part and, from MAX_PARAMS on, the part gadd sends to ext_col (stride 1)
+struct PixelGrad {
+    std::vector<float> v;
+    explicit PixelGrad(int n) : v(std::max(n, MAX_PARAMS)) {
+        ext_col = v.data() + MAX_PARAMS;
+        ext_stride = 1;
+    }
+    void zero() { std::fill(v.begin(), v.end(), 0.0f); }
+    void sum_into(double* out, int n) const {
+        for (int p = 0; p < n; ++p) out[p] += v[p];
+    }
+};
+
+"""
 
 _ENTRY = {
     "trace_fwd": """
@@ -59,47 +87,61 @@ extern "C" int harness_fwd(const int32_t* const* ints,
 }
 """.replace("CASES", _CASES.format(call="trace_fwd_kernel",
                                    args="s, cam, H, W, rows, out")),
-    "trace_bwd": """
+    "trace_bwd": _PIXEL_GRAD + """
 extern "C" int harness_bwd(const int32_t* const* ints,
                            const float* const* floats, const int* params,
                            float t_max, const int* sizes, const float* cam,
                            int H, int W, int rows, const float* gin,
                            double* out, float* gtex) {
     const Scene s = make_scene(ints, floats, params, t_max, cam);
-    const int n_shape = sizes[0], n_mat = sizes[1], n_surf = sizes[2],
-              n_warp = sizes[3], n_portal = sizes[4], n_expr = sizes[5];
+    const Offs off = make_offs(sizes);
     const int build = scene_build(params);
-    Offs off;  // the layout of euclider_trace_bwd
-    off.sv = 24;
-    off.ssc = off.sv + 4 * n_shape;
-    off.ior = off.ssc + n_shape;
-    off.col = off.ior + n_mat;
-    off.col2 = off.col + 4 * n_surf;
-    off.refl = off.col2 + 4 * n_surf;
-    off.fres = off.refl + n_surf;
-    off.uvs = off.fres + n_surf;
-    off.bg = off.uvs + n_surf;
-    off.wc = off.bg + 3;
-    off.ws = off.wc + 4 * n_warp;
-    off.wh = off.ws + n_warp;
-    off.plin = off.wh + n_warp;
-    off.ptr = off.plin + 16 * n_portal;
-    off.ep = off.ptr + 4 * n_portal;
-    off.loss = off.ep + 8 * n_expr;
-    off.n = off.loss + 1;
-    if (off.n > MAX_PARAMS) return -1;
+    const bool wide = off.n > MAX_PARAMS;
+    PixelGrad pg(off.n);
+    float* grad = pg.v.data();
     for (int y = 0; y < rows; ++y)
         for (int x = 0; x < W; ++x) {
-            float grad[MAX_PARAMS];
-            for (int p = 0; p < off.n; ++p) grad[p] = 0.0f;
+            pg.zero();
             switch (build) { CASES default: return -1; }
-            for (int p = 0; p < off.n; ++p) out[p] += grad[p];
+            pg.sum_into(out, off.n);
         }
     return off.n;
 }
-""".replace("CASES", _CASES.format(
+
+""".replace("CASES", _WIDE_CASES.format(
         call="pixel_backward",
         args="s, off, cam, x, y, H, W, gin, 0.0f, false, grad, gtex")),
+    "trace_seg": _PIXEL_GRAD + """
+extern "C" int harness_seg(const int32_t* const* ints,
+                           const float* const* floats, const int* params,
+                           float t_max, const int* sizes, const float* cam,
+                           int H, int W, int rows, const float* gin,
+                           int chunk_trips, float* carry, float* acc,
+                           double* out, float* gtex) {
+    const Scene s = make_scene(ints, floats, params, t_max, cam);
+    const Offs off = make_offs(sizes);
+    const int build = scene_build(params);
+    const Chunks ch = make_chunks(s.max_nodes, chunk_trips);
+    for (int y = 0; y < rows; ++y)
+        for (int x = 0; x < W; ++x)
+            switch (build) { FWD_CASES default: return -1; }
+    const bool wide = off.n > MAX_PARAMS;
+    PixelGrad pg(off.n);
+    float* grad = pg.v.data();
+    for (int y = 0; y < rows; ++y)
+        for (int x = 0; x < W; ++x) {
+            pg.zero();
+            switch (build) { BWD_CASES default: return -1; }
+            pg.sum_into(out, off.n);
+        }
+    return off.n;
+}
+""".replace("BWD_CASES", _WIDE_CASES.format(
+        call="pixel_seg_bwd",
+        args="s, off, cam, x, y, H, W, rows, ch, carry, acc, gin, 0.0f, "
+             "false, grad, gtex")).replace("FWD_CASES", _CASES.format(
+        call="pixel_seg_fwd",
+        args="s, cam, x, y, H, W, rows, ch, carry, acc")),
 }
 
 
@@ -114,8 +156,9 @@ def _flags(fma: bool, asan: bool) -> list:
 
 
 def build(fma: bool = False, asan: bool = False) -> dict:
-    """Build both host libraries (one g++ process each, started together)
-    unless built already -> {"trace_fwd": path, "trace_bwd": path}."""
+    """Build the host libraries (one g++ process each, started together)
+    unless built already -> {"trace_fwd": path, "trace_bwd": path,
+    "trace_seg": path}."""
     flags = _flags(fma, asan)
     out, procs = {}, {}
     for name, entry in _ENTRY.items():
@@ -158,11 +201,13 @@ def _entries(fma: bool, asan: bool):
     fwd = ctypes.CDLL(libs["trace_fwd"]).harness_fwd
     fwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_void_p]
                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    head = ([ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 2
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     bwd = ctypes.CDLL(libs["trace_bwd"]).harness_bwd
-    bwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float]
-                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                    + [ctypes.c_void_p] * 3)
-    return fwd, bwd
+    bwd.argtypes = head + [ctypes.c_void_p] * 2
+    seg = ctypes.CDLL(libs["trace_seg"]).harness_seg
+    seg.argtypes = head + [ctypes.c_int] + [ctypes.c_void_p] * 4
+    return fwd, bwd, seg
 
 
 def _scene(static, tables, cam, time, y0):
@@ -188,38 +233,48 @@ def render(static, tables, cam, H, W, time=0.0, y0=0, rows=None,
 
 
 def vjp(static, tables, cam, H, W, g, time=0.0, y0=0, rows=None,
-        fma=False, asan=False):
-    """pixel_backward in vjp mode on CPU tables under the cotangent g ->
-    (d_tables, d_cam, d_time), the pixels' gradients summed in float64."""
+        fma=False, asan=False, chunk_trips=None):
+    """The backward's device code in vjp mode on CPU tables under the
+    cotangent g -> (d_tables, d_cam, d_time), the pixels' gradients summed
+    in float64: pixel_backward (the tape kernel) or, with ``chunk_trips``,
+    K6 (pixel_seg_fwd) over every pixel, then K7 (pixel_seg_bwd)."""
     R = H if rows is None else rows
     floats, cam_row, (iptr, fptr, params, _ints) = _scene(static, tables,
                                                           cam, time, y0)
-    fields = dict(zip(CK.FLOAT_FIELDS, floats))
-    sizes = (ctypes.c_int * 6)(*(
-        fields[k].shape[0] if CB._in_grad(static, k) else 0
-        for k in ("shape_vec", "mat_ior", "surf_color", "mat_warp_strength",
-                  "portal_tr", "mat_expr_params")))
-    acc = np.zeros(CB.MAX_PARAMS, np.float64)
+    sizes, n = CB.grad_layout(static, floats)
+    acc = np.zeros(n, np.float64)
     gtex = torch.zeros_like(floats[-1])
     g = g.detach().to(torch.float32).contiguous()
-    n = _entries(fma, asan)[1](iptr, fptr, params, static.t_max, sizes,
-                               cam_row.data_ptr(), H, W, R, g.data_ptr(),
-                               acc.ctypes.data, gtex.data_ptr())
-    if n <= 0:
-        raise RuntimeError("harness_bwd refused the scene")
-    flat = torch.from_numpy(acc[:n].astype(np.float32))
+    args = (iptr, fptr, params, static.t_max, sizes, cam_row.data_ptr(), H,
+            W, R, g.data_ptr())
+    _, bwd, seg = _entries(fma, asan)
+    if chunk_trips is None:
+        got = bwd(*args, acc.ctypes.data, gtex.data_ptr())
+    else:
+        K = len(vjp_mod.chunk_sizes(static.max_nodes, chunk_trips))
+        carry = torch.zeros(max(1, K * (1 + CB.SLOT_WORDS
+                                        * (static.max_depth + 1)) * R * W))
+        col = torch.zeros(3 * R * W)
+        got = seg(*args, chunk_trips, carry.data_ptr(), col.data_ptr(),
+                  acc.ctypes.data, gtex.data_ptr())
+    if got != n:
+        raise RuntimeError("the harness refused the scene")
+    flat = torch.from_numpy(acc.astype(np.float32))
     return CB._grads(static, tables, cam, flat, gtex, floats)[:3]
 
 
-def compare(sc, H, W, fma=False, asan=False, seams=False) -> dict:
+def compare(sc, H, W, fma=False, asan=False, seams=False,
+            chunk_trips=None) -> dict:
     """Forward and vjp of the harness against the plain versions on the
     scene ``sc`` (an ir.Scene or a library scene's name): {"fwd_max",
     "fwd_bad" (pixels beyond 1e-4), "bwd_worst" (the worst leaf's error
-    over 1e-3 * max(max |ref|, 1)), "leaf"}.  The cotangent is seeded,
-    zero where the forwards differ beyond 1e-4 and, with ``seams``, on
-    image seams (chip_smoke.py's rule)."""
+    over 1e-3 * max(max |ref|, 1)), "leaf"}.  The backward is the tape
+    kernel's against ``vjp_blocked`` or, with ``chunk_trips``, K6 then K7
+    against ``vjp_segmented``.  The cotangent is seeded, zero where the
+    forwards differ beyond 1e-4 and, with ``seams``, on image seams
+    (chip_smoke.py's rule)."""
     from ..ops import trace
-    from ..ops.vjp import vjp_blocked
+    from ..ops.vjp import vjp_blocked, vjp_segmented
     from ..scene.compile import (camera_to_torch, compile_camera,
                                  compile_scene, tables_to_torch)
     from ..scene.library import get_scene
@@ -237,8 +292,13 @@ def compare(sc, H, W, fma=False, asan=False, seams=False) -> dict:
         keep &= ~validate.seams(ref)
     g = torch.from_numpy(np.random.default_rng(0).normal(
         size=(H, W, 3)).astype(np.float32)) * keep[..., None]
-    a = vjp_blocked(static, tables, cam, H, W, g)
-    b = vjp(static, tables, cam, H, W, g, fma=fma, asan=asan)
+    if chunk_trips is None:
+        a = vjp_blocked(static, tables, cam, H, W, g)
+    else:
+        a = vjp_segmented(static, tables, cam, H, W, g,
+                          chunk_trips=chunk_trips)
+    b = vjp(static, tables, cam, H, W, g, fma=fma, asan=asan,
+            chunk_trips=chunk_trips)
     worst = (0.0, "")
     pairs = ([(k, getattr(a[0], k), getattr(b[0], k))
               for k in CK.FLOAT_FIELDS]
@@ -268,6 +328,9 @@ def main(argv=None) -> int:
                         "libasan preloaded)")
     p.add_argument("--seams", action="store_true",
                    help="zero the cotangent on image seams too")
+    p.add_argument("--chunk-trips", type=int, default=None,
+                   help="run the segmented backward (K6 then K7) with chunks "
+                        "of this many trips, against vjp_segmented")
     args = p.parse_args(argv)
     if args.asan and "libasan" not in os.environ.get("LD_PRELOAD", ""):
         lib = subprocess.run(["g++", "-print-file-name=libasan.so"],
@@ -279,7 +342,7 @@ def main(argv=None) -> int:
                               env=env).returncode
     W, H = (int(v) for v in args.size.lower().split("x"))
     print(args.scene, compare(args.scene, H, W, args.fma, args.asan,
-                              args.seams))
+                              args.seams, args.chunk_trips))
     return 0
 
 

@@ -92,12 +92,14 @@ def main(argv=None) -> dict:
           flush=True)
     err0 = sphere_error()
     fwd0, bwd0 = cuda_kernel.LAUNCHES, cuda_bwd.LAUNCHES
+    seg0 = cuda_bwd.SEG_LAUNCHES
     losses = []
     for i in range(args.steps):
         losses.append(float(step(target)))
         print(f"step {i:4d}  loss {losses[-1]:.6f}", flush=True)
     launches = {"trace_fwd": cuda_kernel.LAUNCHES - fwd0,
-                "trace_bwd": cuda_bwd.LAUNCHES - bwd0}
+                "trace_bwd": cuda_bwd.LAUNCHES - bwd0,
+                "trace_seg": cuda_bwd.SEG_LAUNCHES - seg0}
     err1 = sphere_error()
     ok = err1 < 0.5 * err0      # the example's criterion of recovery
     print(f"sphere-position error: {err0:.4f} -> {err1:.4f} "

@@ -87,11 +87,47 @@ def cylinder_scene(smooth=False):
                                                background=(0.05, 0.06, 0.1)))
 
 
+def spheres_scene(n=44):
+    """chip_smoke.py's spheres48 with ``n`` small spheres: config2's floor
+    and three spheres and n small spheres on the floor behind them, each
+    with its own uniform surface (every other one reflective).  At n = 44:
+    48 entities, 797 parameters, past the march's 32 entities and a
+    thread's 159 gradient entries."""
+    from euclider_tpu_torch.scene import ir
+    sc = ett.get_scene("config2_mirror_glass")
+    balls = tuple(ir.Entity(
+        ir.Sphere((-3.0 + 0.6 * (i % 11), -0.82, -6.5 - 0.9 * (i // 11)),
+                  0.18),
+        surface=ir.UniformSurface(
+            (0.2 + 0.15 * (i % 5), 0.3 + 0.25 * (i % 3), 0.9 - 0.1 * (i % 7),
+             1.0), reflectivity=0.3 if i % 2 else 0.0),
+        name=f"ball{i}") for i in range(n))
+    return replace(sc, name="spheres48", entities=sc.entities + balls)
+
+
+def deep_scene(smooth=False):
+    """chip_smoke.py's config2_deep: config2 at max_depth 8 and max_nodes
+    255, past the tape kernel's 63 nodes; ``smooth`` gives the floor a
+    smooth surface, so that the geometry gets gradients too."""
+    from euclider_tpu_torch.scene import ir
+    sc = ett.get_scene("config2_mirror_glass")
+    if smooth:
+        sc = replace(sc, entities=tuple(
+            replace(e, surface=ir.SmoothSurface(uv_scale=1.0,
+                                                reflectivity=0.25))
+            if e.name == "floor" else e for e in sc.entities))
+    return replace(sc, name="config2_deep", settings=replace(
+        sc.settings, max_depth=8, max_nodes=255))
+
+
 def scene_on(name, device, **settings):
     sc = {"warp_gradient_scene": warp_gradient_scene,
           "expr_gradient_scene": expr_gradient_scene,
           "cylinder_test": cylinder_scene,
-          "cylinder_smooth": lambda: cylinder_scene(True)}.get(
+          "cylinder_smooth": lambda: cylinder_scene(True),
+          "spheres48": spheres_scene,
+          "config2_deep": deep_scene,
+          "config2_deep_smooth": lambda: deep_scene(True)}.get(
               name, lambda: ett.get_scene(name))()
     if settings:
         sc = replace(sc, settings=replace(sc.settings, **settings))
@@ -387,6 +423,107 @@ def test_render_image_diff_backward_is_the_kernel(cuda):
     grads_close(ref[:2], (ref[0]._replace(**dict(zip(
         cuda_kernel.FLOAT_FIELDS, grads[:n]))), type(cam)(*grads[n:])),
         rtol=1e-6)
+
+
+# --- the segmented backward (K6, K7) and the lifted caps -------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["config2_mirror_glass",
+                                  "warp_gradient_scene",
+                                  "expr_gradient_scene",
+                                  "config3_csg_textured"])
+def test_segmented_kernels_match_the_tape_kernel(cuda, name):
+    """K6/K7 (chunks of 2 trips) against trace_bwd under the same cotangent
+    and target in both modes, on the straight, march, VM and shapes builds:
+    the same device code, each kernel contracted into FMAs by nvcc on its
+    own outside the shapes builds (-fmad=false), so within 1e-4 relative
+    (the march build moved the camera's gradient by 1.4e-5 of its
+    magnitude on the H100)."""
+    from euclider_tpu_torch.ops import cuda_bwd
+    static, tables, cam = scene_on(name, cuda)
+    tm = 0.3 if name == "expr_gradient_scene" else 0.0
+    g = cotangent((BH, BW, 3), 5, cuda)
+    s0 = cuda_bwd.SEG_LAUNCHES
+    tape = cuda_bwd.vjp_cuda(static, tables, cam, BH, BW, g, tm,
+                             backward="tape")
+    seg = cuda_bwd.vjp_cuda(static, tables, cam, BH, BW, g, tm,
+                            backward="segmented", chunk_trips=2)
+    assert cuda_bwd.SEG_LAUNCHES == s0 + 1
+    grads_close(tape[:2], seg[:2], rtol=1e-4)
+    assert abs(float(tape[2]) - float(seg[2])) <= 1e-4 * max(
+        abs(float(tape[2])), 1.0)
+    target = cotangent((BH, BW, 3), 6, cuda).sigmoid()
+    lt, *tape = cuda_bwd.train_step_cuda(static, tables, cam, target, BH, BW,
+                                         tm, backward="tape")
+    ls, *seg = cuda_bwd.train_step_cuda(static, tables, cam, target, BH, BW,
+                                        tm, backward="segmented",
+                                        chunk_trips=2)
+    assert abs(float(ls) - float(lt)) <= 1e-5 * float(lt)
+    grads_close(tape[:2], seg[:2], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_deep_scene_takes_the_segmented_kernels(cuda):
+    """A tree past the tape's 63 nodes (config2 at max_depth 8, max_nodes
+    255, a smooth floor): vjp_cuda's 'auto' launches K6/K7 and not
+    trace_bwd, and agrees with the plain backward; the tape refuses it."""
+    from euclider_tpu_torch.ops import cuda_bwd, vjp
+    static, tables, cam = scene_on("config2_deep_smooth", cuda)
+    g = off_seams(cotangent((BH, BW, 3), 7, cuda), static, tables, cam)
+    b0, s0 = cuda_bwd.LAUNCHES, cuda_bwd.SEG_LAUNCHES
+    got = cuda_bwd.vjp_cuda(static, tables, cam, BH, BW, g)
+    torch.cuda.synchronize()
+    assert (cuda_bwd.LAUNCHES, cuda_bwd.SEG_LAUNCHES) == (b0, s0 + 1)
+    grads_close(vjp.vjp_blocked(static, tables, cam, BH, BW, g), got)
+    with pytest.raises(ValueError, match="tape kernel"):
+        cuda_bwd.vjp_cuda(static, tables, cam, BH, BW, g, backward="tape")
+
+
+@pytest.mark.cuda
+def test_render_image_diff_routes_a_deep_scene(cuda):
+    """autograd through render_image_diff on the deep scene runs the forward
+    kernel and K6/K7, and gives vjp_cuda's gradients."""
+    from euclider_tpu_torch.ops import cuda_bwd
+    static, tables, cam = scene_on("config2_deep_smooth", cuda)
+    g = cotangent((BH, BW, 3), 8, cuda)
+    leaves = [getattr(tables, k).clone().requires_grad_(True)
+              for k in cuda_kernel.FLOAT_FIELDS]
+    f0, s0 = cuda_kernel.LAUNCHES, cuda_bwd.SEG_LAUNCHES
+    img = cuda_bwd.render_image_diff(
+        static, tables._replace(**dict(zip(cuda_kernel.FLOAT_FIELDS, leaves))),
+        cam, BH, BW)
+    grads = torch.autograd.grad(img, leaves, g)
+    assert (cuda_kernel.LAUNCHES, cuda_bwd.SEG_LAUNCHES) == (f0 + 1, s0 + 1)
+    ref = cuda_bwd.vjp_cuda(static, tables, cam, BH, BW, g)
+    for k, got in zip(cuda_kernel.FLOAT_FIELDS, grads):
+        a = getattr(ref[0], k)
+        assert float((a - got).abs().max()) <= 1e-6 * max(
+            float(a.abs().max()), 1.0)
+
+
+@pytest.mark.cuda
+def test_kernels_past_the_entity_and_parameter_caps(cuda):
+    """48 entities and 797 parameters (spheres48): the forward kernel
+    against the plain render, vjp_cuda against the plain backward (the
+    entries from the 160th on summed by atomics) and the fused step against
+    the forward kernel + MSE + vjp_cuda."""
+    from euclider_tpu_torch.ops import cuda_bwd, vjp
+    static, tables, cam = scene_on("spheres48", cuda)
+    assert len(static.entities) == 48
+    got = cuda_kernel.render_image_cuda(static, tables, cam, BH, BW)
+    ref = trace.render_image(static, tables, cam, BH, BW)
+    assert float(((got - ref).abs().amax(-1) > 1e-4).float().mean()) <= 1e-3
+    g = off_seams(cotangent((BH, BW, 3), 9, cuda), static, tables, cam)
+    grads_close(vjp.vjp_blocked(static, tables, cam, BH, BW, g),
+                cuda_bwd.vjp_cuda(static, tables, cam, BH, BW, g))
+    target = cotangent((BH, BW, 3), 10, cuda).sigmoid()
+    loss, gt, gc, _ = cuda_bwd.train_step_cuda(static, tables, cam, target,
+                                               BH, BW)
+    ref_loss = torch.mean((got - target) ** 2)
+    ref = cuda_bwd.vjp_cuda(static, tables, cam, BH, BW,
+                            2.0 * (got - target) / got.numel())
+    assert abs(float(loss) - float(ref_loss)) <= 1e-5 * float(ref_loss)
+    grads_close(ref[:2], (gt, gc))
 
 
 def test_probe_rev_kernel_refuses_cpu_tensors():

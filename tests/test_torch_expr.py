@@ -166,6 +166,36 @@ def test_eval_ast_torch_matches_jax(src):
     assert np.isfinite(np.asarray(ref)).all()
 
 
+@pytest.mark.parametrize("src", ["x / 3", "3 / x", "x^-2"])
+def test_unguarded_division_divides_by_a_tensor(src, monkeypatch):
+    """eval_ast with a library without a guarded div (torch_lib(safe=
+    False)) never divides a tensor by a Python number, nor a number by a
+    tensor: on the card torch computes those as a product with a rounded
+    reciprocal, where the kernels and jax divide.  The quotient is the
+    float64 one within 1e-6 relative.  ("x^-2" as the AST of a negative
+    integer literal exponent, which the parser writes as a negation.)"""
+    kinds = []
+    div, rdiv = torch.Tensor.__truediv__, torch.Tensor.__rtruediv__
+
+    def spy(fn):
+        def f(a, b):
+            kinds.append(type(b))
+            return fn(a, b)
+        return f
+
+    monkeypatch.setattr(torch.Tensor, "__truediv__", spy(div))
+    monkeypatch.setattr(torch.Tensor, "__rtruediv__", spy(rdiv))
+    x = torch.linspace(0.3, 7.0, 97)
+    ast = (("pow", ("var", "x"), ("num", -2.0)) if src == "x^-2"
+           else TE.parse(src))
+    got = TE.eval_ast(ast, {"x": x}, TE.torch_lib())
+    monkeypatch.undo()
+    assert kinds and all(k is torch.Tensor for k in kinds), kinds
+    x64 = x.double()
+    ref = {"x / 3": x64 / 3, "3 / x": 3 / x64, "x^-2": 1 / (x64 * x64)}[src]
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6)
+
+
 def test_make_accel_matches_jax():
     """The expression half of make_accel at scene time 0.3, on seeded
     positions of which one in five lies in the ambient material: the field

@@ -1,8 +1,11 @@
 """The CUDA kernels' device code, built for the CPU by
 euclider_tpu_torch/tools/kernel_harness.py (g++ under the stand-ins of
 tools/cuda_stub/), against the plain versions: the forward kernel's body
-against ops/trace.py and pixel_backward against ops/vjp.py, on scenes of
-each build (straight, BUILD_SHAPES, the march and the expression VM).
+against ops/trace.py, pixel_backward against ops/vjp.py::vjp_blocked and
+the segmented kernels' (K6 over the frame, then K7) against
+ops/vjp.py::vjp_segmented, on scenes of each build (straight, BUILD_SHAPES,
+the march and the expression VM) and past the tape's 63 nodes, the march's
+32 entities and a thread's 159 gradient entries.
 Without contraction the device code rounds as the plain version's separate
 torch operations do, so the forward matches it to the last bit here.
 """
@@ -12,6 +15,7 @@ import pytest
 
 from euclider_tpu_torch.scene import ir
 from euclider_tpu_torch.tools import kernel_harness as KH
+from test_torch_cuda import deep_scene, spheres_scene
 
 
 @pytest.fixture(scope="module")
@@ -53,4 +57,27 @@ def test_device_code_of_a_csg_bounded_warp_region(harness):
                                              background=(0.1, 0.1, 0.2)))
     out = harness.compare(sc, 24, 32)
     assert out["fwd_bad"] == 0 and out["fwd_max"] <= 1e-5, out
+    assert out["bwd_worst"] <= 1.0, out
+
+
+@pytest.mark.parametrize("name, H, W, chunk_trips", [
+    ("config2_mirror_glass", 24, 32, 1), ("config5_warp_portal", 9, 16, 2),
+    ("config6_expr_space", 12, 16, 3), ("config2_deep", 12, 16, 16)])
+def test_segmented_device_code_matches_plain(harness, name, H, W,
+                                             chunk_trips):
+    """K6 then K7's device code against vjp_segmented at the same chunks:
+    boundaries after every trip (config2), in a marching build and in the
+    VM build, and a tree past the tape kernel's 63 nodes (config2 at
+    max_depth 8 and max_nodes 255 with a smooth floor)."""
+    sc = deep_scene(smooth=True) if name == "config2_deep" else name
+    out = harness.compare(sc, H, W, chunk_trips=chunk_trips)
+    assert out["fwd_bad"] == 0 and out["fwd_max"] <= 1e-6, out
+    assert out["bwd_worst"] <= 1.0, out
+
+
+def test_device_code_past_the_entity_and_parameter_caps(harness):
+    """pixel_backward on 48 entities and 797 parameters (entries from the
+    160th on go to the block's partial sums), against vjp_blocked."""
+    out = harness.compare(spheres_scene(), 24, 32)
+    assert out["fwd_bad"] == 0 and out["fwd_max"] <= 1e-6, out
     assert out["bwd_worst"] <= 1.0, out

@@ -195,7 +195,7 @@ def test_fit_runs_and_its_loss_falls(capsys):
                     "--backend", "torch", "--size", "32x16", "--steps", "2"])
     assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
     assert out["losses"][1] < out["losses"][0]
-    assert out["launches"] == {"trace_fwd": 0, "trace_bwd": 0}
+    assert out["launches"] == {"trace_fwd": 0, "trace_bwd": 0, "trace_seg": 0}
     assert "sphere-position error" in capsys.readouterr().out
 
 
