@@ -8,15 +8,15 @@ paths and times them.
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device  - a CUDA device is required; never falls back to the CPU.
   2. build   - nvcc builds csrc/trace_fwd.cu, csrc/trace_bwd.cu,
-               csrc/trace_seg.cu and csrc/probe_rev.cu for sm_90a, one
-               process each, started together.
+               csrc/trace_seg.cu, csrc/probe_rev.cu, csrc/probe_mosaic.cu and
+               csrc/probe_march.cu for sm_90a with -fmad=false, one process
+               each, started together.
   3. kernel  - render_image_cuda against the plain torch version on the card
                at 1280x720, config1, config2, grad_probe, fresnel_probe,
                config5, config7, config6 (expression space), config3 (CSG
                and a texture), perlin_probe, the cylinder scene of
                tests/test_cylinder.py and config4 (4D): at least 99.9% of
-               pixels within 1e-4 (max over channels); where config2's
-               differing pixels lie.
+               pixels within 1e-4 (max over channels).
   4. truth   - the kernel against tests/goldens.npz at 48x64 (at most 1% of
                pixels beyond 2e-3) and against the float64 C++ oracle at
                48x128 (at least 99% within 2e-3), same scenes (the cylinder
@@ -55,6 +55,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                versions' times.
   9. probe   - probe_rev (csrc/probe_rev.cu) against rev_march_plain on one
                (8, 128) tile: dx and dw within 1e-5 relative; its times.
+               The probes' path: every stage of the march-bisect probe P1
+               (csrc/probe_march.cu, ops/march_probe.py) on the tool's and
+               the crossing tile, and the Mosaic probes P2-P5
+               (csrc/probe_mosaic.cu, ops/probes.py) on the mosaic tool's
+               tiles (P3 in both branches, P5 also dead), through the
+               dispatchers: P1 every lane whose march agrees within
+               1e-5 * max(max |ref|, 1) of the plain version, at most 1% of
+               lanes marching otherwise, vjp (K4's rebuild) against finish
+               (a stored tape) within 1e-5 relative, the crossing tile
+               crossing on 25-75% of lanes with sum(d shape_vec) != 0; P2-P5
+               within 1e-5 relative (P3 1e-6); then the entry points python
+               -m euclider_tpu_torch.tools.mosaic_probe and .march_bisect
+               STAGE (every stage) as subprocesses: exit 0 and a launch of
+               every kernel they cover; the probes' times and bounds.
  10. seg     - the segmented backward (K6, K7 in csrc/trace_seg.cu) and the
                lifted caps at 1280x720: config2 through
                backward='segmented' against the tape kernel in both modes
@@ -76,6 +90,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -232,7 +247,7 @@ def seeded(shape, seed, device, kind="normal"):
 # --- phase 3 -----------------------------------------------------------------
 
 def kernel_vs_plain(name, device):
-    """Phase 3 for one scene -> (max_abs_err, bad_frac, bad pixel mask)."""
+    """Phase 3 for one scene -> (max_abs_err, bad_frac)."""
     import torch
     from euclider_tpu_torch.ops import cuda_kernel, trace
 
@@ -246,77 +261,7 @@ def kernel_vs_plain(name, device):
     say("kernel", f"{name}: max_abs_err={max_err:.3e} "
         f"bad_frac(>{TOL:g})={bad:.6f} (limit {MAX_BAD:g})")
     assert bad <= MAX_BAD, f"{name}: kernel disagrees with the plain version"
-    return max_err, bad, err > TOL
-
-
-def locate_diffs(name, device, bad):
-    """Where the pixels that differ between the kernel and the plain version
-    lie: which entity the primary ray hits there, and which decision of the
-    plain render flips under a perturbation of a few ulps (sphere radii, the
-    glass ior, the checker scale, the W_EPS cut)."""
-    import torch
-    from euclider_tpu_torch.ops import trace
-
-    static, tables, cam = load(name, device)
-    base = trace.render_image(static, tables, cam, H, W)
-    ys, xs = torch.nonzero(bad, as_tuple=True)
-    n = len(ys)
-    yi = torch.arange(H, dtype=torch.float32, device=device)[:, None].expand(H, W)
-    xi = torch.arange(W, dtype=torch.float32, device=device)[None, :].expand(H, W)
-    org, d = trace.camera_rays(cam, xi, yi, W, H)
-    _, hit, ent, _, _, _ = trace.nearest_hit_straight(static, tables, org, d)
-    names = [e.name or f"entity{i}" for i, e in enumerate(static.entities)]
-    first = {}
-    for y, x in zip(ys.tolist(), xs.tolist()):
-        k = names[int(ent[y, x])] if bool(hit[y, x]) else "background"
-        first[k] = first.get(k, 0) + 1
-    nodes = node_count(static, tables, cam).float()
-    say("kernel", f"{name}: {n} differing pixels, rows {int(ys.min())}-"
-        f"{int(ys.max())}, cols {int(xs.min())}-{int(xs.max())}; primary "
-        f"hit {first}; nodes shaded there: mean "
-        f"{float(nodes[bad].mean()):.2f} (frame {float(nodes.mean()):.2f}), "
-        f"min {int(nodes[bad].min())}")
-
-    spheres = torch.tensor([float(e.shape[0] == "sphere")
-                            for e in static.entities], device=device)
-    rows = torch.tensor([e.shape[1] for e in static.entities], device=device)
-    sphere_rows = torch.zeros_like(tables.shape_sc)
-    sphere_rows[rows] = spheres
-    tests = {
-        "silhouette (sphere radii x(1 +- 1e-6))":
-            lambda s: {"shape_sc": tables.shape_sc * (1 + s * 1e-6 * sphere_rows)},
-        "refraction/TIR (ior x(1 +- 1e-6))":
-            lambda s: {"mat_ior": tables.mat_ior * (1 + s * 1e-6)},
-        "checker edge (uv scale x(1 +- 1e-6))":
-            lambda s: {"surf_uv_scale": tables.surf_uv_scale * (1 + s * 1e-6)},
-        "a rounding of every ray (camera forward x(1 +- 1e-6))": None,
-    }
-    found = torch.zeros_like(bad)
-    for label, make in tests.items():
-        flips = torch.zeros_like(bad)
-        for s in (1.0, -1.0):
-            if make is None:
-                img = trace.render_image(static, tables, cam._replace(
-                    forward=cam.forward * (1 + s * 1e-6)), H, W)
-            else:
-                img = trace.render_image(static, tables._replace(**make(s)),
-                                         cam, H, W)
-            flips |= (img - base).abs().amax(-1) > 1e-3
-        found |= flips & bad
-        say("kernel", f"{name}: {int((flips & bad).sum())} of {n} flip under "
-            f"{label}")
-    w_eps = trace.W_EPS
-    flips = torch.zeros_like(bad)
-    try:
-        for s in (1.0, -1.0):
-            trace.W_EPS = w_eps * (1 + s * 1e-3)
-            img = trace.render_image(static, tables, cam, H, W)
-            flips |= (img - base).abs().amax(-1) > 1e-3
-    finally:
-        trace.W_EPS = w_eps
-    found |= flips & bad
-    say("kernel", f"{name}: {int((flips & bad).sum())} of {n} flip under the "
-        f"W_EPS cut x(1 +- 1e-3); {int((bad & ~found).sum())} under none")
+    return max_err, bad
 
 
 # --- phase 4 -----------------------------------------------------------------
@@ -594,12 +539,19 @@ def train_path(device):
 
 # --- phase 8 -----------------------------------------------------------------
 
+EVENT_TIMED = set()   # kernels that some profile missed, timed by padded_ms
+
+
 def device_ms(fn, keys, n=5, tries=3):
     """Mean device time of one launch of each kernel named in keys over n
     calls of fn, from torch.profiler: over the launches it recorded.  A
     profile that recorded no launch of one of the kernels is taken again,
     up to ``tries`` profiles (on the card torch.profiler now and then
-    returns a profile without them); None where none recorded one."""
+    returns profiles without them, in runs of several).  Kernels that no
+    profile recorded are timed by CUDA events instead (padded_ms: the whole
+    call, so an upper bound): the call's time less the profiled kernels'
+    goes to the first of them and 0 to the rest, and each is added to
+    EVENT_TIMED."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -617,8 +569,44 @@ def device_ms(fn, keys, n=5, tries=3):
             if out[key] is None and us > 0 and calls:
                 out[key] = us / calls / 1e3
         if all(v is not None for v in out.values()):
-            break
+            return out
+    missing = [k for k in keys if out[k] is None]
+    call = padded_ms(fn)
+    say("time", f"torch.profiler recorded no launch of {missing} in "
+        f"{tries} profiles: CUDA events time the whole call, {call:.6f} ms")
+    rest = call - sum(v for v in out.values() if v is not None)
+    for i, key in enumerate(missing):
+        out[key] = max(rest, 0.0) if i == 0 else 0.0
+    EVENT_TIMED.update(missing)
     return out
+
+
+def padded_ms(fn, n=20):
+    """Median device time of one call of fn by CUDA events, each pair
+    recorded behind a spin kernel (torch.cuda._sleep) that outlasts the
+    call's host work, so the events and the call's launches queue back to
+    back and the host's time between them does not count; the events' own
+    cost (about 4 us on the H100 80GB HBM3: P2-P5's records, ``ms``
+    beside ``padded_ms``) does."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(max(1e-3, 4 * host_s) * 2e9)   # at most ~2 GHz SM clock
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def events_ms(fn, device, warm=3):
@@ -843,31 +831,6 @@ def timing(name, device, card):
     return out
 
 
-def queued_bounds():
-    """Bounds of the TPU kernels still to port, worked out from their code
-    (no kernel runs) -> {name: (ms, bound_by)}: P1-P5
-    (tools/march_bisect.py, tools/mosaic_probe.py) on their (8, 128) tile,
-    the FP32 operations of their steps (forward, recompute and adjoint) and
-    the bytes of their inputs and outputs."""
-    out = {}
-    n = 8 * 128
-    tile_bytes = {"P1": 4, "P2": 12, "P3": 16, "P4": 12, "P5": 12}
-    # operations per element: P1 23 march steps of config5 (step 47, five
-    # side tests 52) forward and twice in the reverse, one bisection; P2 24
-    # steps of x + 0.1 tanh(w x) (4) forward, recomputed, and their VJP
-    # (6); P3 the tile sum, two branches' sin and their VJP; P4 two outer
-    # VJPs of 12 such steps forward, recomputed and transposed; P5 the same
-    # with the two-variable step (8 forward, 16 adjoint)
-    ops = {"P1": 3 * 23 * (47 + 52) + BISECT_OPS, "P2": 24 * (4 + 4 + 6),
-           "P3": 1 + 2 * 4, "P4": 2 * 12 * (4 + 4 + 6),
-           "P5": 2 * 12 * (8 + 8 + 16)}
-    for name in ops:
-        t_ops = n * ops[name] / PEAK_FP32 * 1e3
-        t_bytes = tile_bytes[name] * 1024 / PEAK_BYTES * 1e3
-        out[name] = max((t_ops, "operations"), (t_bytes, "bytes"))
-    return out
-
-
 # --- phase 9 -----------------------------------------------------------------
 
 PROBE_STEP_OPS = 9        # probe_rev.cu, one forward step of one element
@@ -920,6 +883,221 @@ def probe_check(device, card):
     for k in ("ms", "plain_ms", "bound_ms"):
         say("time", f"probe_rev {k}: {out[k]:.6f} ({card})")
     return out
+
+
+def march_probe_bound(static, steps, ent, stage):
+    """Least time of one probe_march launch on these lanes -> (ms,
+    bound_by): the bytes of the rays in and the tile out (44 B a lane), and
+    the FP32 operations this run's march needs: every lane's walked steps
+    with their side tests, the bisection of every lane that crossed and,
+    but for fwd, the march of those lanes twice more (march_replay, and the
+    rebuild of march_reverse; no adjoint arithmetic counted)."""
+    import torch
+    side = sum(side_ops(e.shape) for e in static.entities)
+    crossed = ent >= 0
+    ops = (int(steps.sum()) * (MARCH_STEP_OPS + side)
+           + int(crossed.sum()) * BISECT_OPS)
+    if stage != "fwd":
+        ops += 2 * int(steps[crossed].sum()) * MARCH_STEP_OPS
+    t_ops = ops / PEAK_FP32 * 1e3
+    t_bytes = steps.numel() * 44 / PEAK_BYTES * 1e3
+    return max((t_ops, "operations"), (t_bytes, "bytes"),
+               key=lambda t: t[0])
+
+
+def march_probe_check(device, card):
+    """P1 on the card: the probes' path for probe_march (every stage on both
+    tiles through march_probe), then each stage against the plain version,
+    vjp against finish, the crossing tile's shares, the times."""
+    import torch
+    from euclider_tpu_torch.ops import march_probe as MP
+
+    static, tables = MP.probe_scene(device)
+    tiles = {"tool": MP.tool_tile(device), "crossing": MP.crossing_tile(device)}
+    MP.LAUNCHES = 0
+    got = {(tile, st): MP.march_probe(static, tables, org, d, st)
+           for tile, (org, d) in tiles.items() for st in MP.STAGES}
+    torch.cuda.synchronize()
+    launches = MP.LAUNCHES
+    say("probe", f"probe_march: the probes' path launched it {launches} times")
+    assert launches == len(got), "march_probe did not run the kernel"
+    stages, worst = {}, 0.0
+    for (tile, st), k in got.items():
+        ref = MP.march_probe_plain(static, tables, *tiles[tile], st)
+        res = MP.compare(ref, k)
+        say("probe", f"probe_march {st} on the {tile} tile vs plain: max err "
+            f"{res['max_err']:.3e} (limit {res['limit']:.3e}), "
+            f"{res['flipped']} lanes marching otherwise (limit "
+            f"{MP.MAX_FLIPPED:.0%}), sum {float(k.out.double().sum()):.4f} "
+            f"(plain {float(ref.out.double().sum()):.4f}), crossed "
+            f"{res['crossed']:.4f}, sum(d shape_vec) {res['dsv']:.4f} "
+            f"(plain {res['plain_dsv']:.4f})")
+        assert MP.passes(res, k.out.numel()), \
+            f"probe_march {st} on the {tile} tile disagrees"
+        worst = max(worst, res["max_err"])
+        stages[f"{st}_{tile}"] = res
+    for tile in tiles:
+        a, b = got[tile, "vjp"].out, got[tile, "finish"].out
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        say("probe", f"probe_march vjp (rebuild) vs finish (stored tape) on "
+            f"the {tile} tile: rel {rel:.3e} (limit {MP.RTOL:g})")
+        assert rel <= MP.RTOL, "the rebuild disagrees with the tape"
+        stages[f"vjp_vs_finish_{tile}"] = rel
+    cross = stages["vjp_crossing"]
+    assert 0.25 <= cross["crossed"] < 0.75 and cross["dsv"] != 0.0, \
+        "the crossing tile does not cross as it should"
+    org, d = tiles["crossing"]
+    ref = got["crossing", "fwd"]
+    times = {}
+    for st in MP.STAGES:
+        ms = device_ms(lambda: MP.march_probe_cuda(static, tables, org, d, st),
+                       ["probe_march_kernel"])["probe_march_kernel"]
+        bound, by = march_probe_bound(static, ref.steps, ref.ent, st)
+        times[st] = {"ms": ms, "bound_ms": bound, "bound_by": by}
+        say("time", f"probe_march {st} (crossing tile): {ms:.6f} ms, bound "
+            f"{bound:.6g} ms ({by}) ({card})")
+    plain_ms = events_ms(
+        lambda: MP.march_probe_plain(static, tables, org, d, "vjp"), device,
+        1)
+    say("time", f"probe_march plain vjp: {plain_ms:.4f} ms ({card})")
+    return {"name": "probe_march", "route": "cuda",
+            "source": "euclider_tpu_torch/csrc/probe_march.cu",
+            "replaces": "tools/march_bisect.py:52",
+            "launches": launches, "max_abs_err": worst,
+            "ms": times["vjp"]["ms"], "plain_ms": plain_ms,
+            "bound_ms": times["vjp"]["bound_ms"],
+            "bound_by": times["vjp"]["bound_by"], "library_ms": None,
+            "ms_stage": "vjp on the crossing tile", "shape": [8, 128],
+            "tolerance": {"rtol": MP.RTOL, "max_flipped_frac": MP.MAX_FLIPPED,
+                          "vjp_vs_finish_rtol": MP.RTOL},
+            "card": card, "stages": stages, "times": times}
+
+
+MOSAIC_REPLACES = {"probe_ckpt": "tools/mosaic_probe.py:56",
+                   "probe_cond": "tools/mosaic_probe.py:119",
+                   "probe_nested": "tools/mosaic_probe.py:216",
+                   "probe_gated": "tools/mosaic_probe.py:344"}
+MOSAIC_RTOL = {"probe_cond": 1e-6}   # else PROBE_RTOL
+# FP32 operations per element on the timed inputs (probe_mosaic.cu): P2 24
+# steps of x + 0.1 tanh(w x) (4) forward, recomputed, and their adjoint
+# (6); P3 the tile sum and the live branch (2 v + sin v: 3; its VJP: 4);
+# P4 two trips of 12 such steps forward, recomputed and transposed; P5 the
+# same with the two-variable step (8 forward, 16 adjoint)
+MOSAIC_OPS = {"probe_ckpt": 24 * (4 + 4 + 6), "probe_cond": 1 + 3 + 4,
+              "probe_nested": 2 * 12 * (4 + 4 + 6),
+              "probe_gated": 2 * 12 * (8 + 8 + 16)}
+# bytes per element: the tiles in and out (P3: x, g, y, dx; P5: x, g, act,
+# dx; the others x, g, dx)
+MOSAIC_BYTES = {"probe_ckpt": 12, "probe_cond": 16, "probe_nested": 12,
+                "probe_gated": 16}
+
+
+def mosaic_check(device, card):
+    """P2-P5 on the card: the probes' path through the dispatchers on the
+    mosaic tool's tiles (P3 in both branches, P5 also dead), each against
+    its plain version, then their times -> the kernels' records."""
+    import torch
+    from euclider_tpu_torch.ops import probes as P
+
+    def tile(seed, scale=1.0, shift=0.0):
+        return seeded((8, 128), seed, device) * scale + shift
+
+    x0, g0 = tile(0), tile(1)
+    x3, g3 = tile(3, 0.3), tile(4)
+    x5, g5 = tile(5, 0.3), tile(6)
+    cases = {   # case: (kernel, dispatcher call, plain call)
+        "ckpt": ("probe_ckpt", lambda: P.ckpt_scratch_vjp(x0, 0.7, g0),
+                 lambda: P.ckpt_scratch_plain(x0, 0.7, g0)),
+        "nested": ("probe_nested", lambda: P.nested_march_vjp(x3, 0.9, g3),
+                   lambda: P.nested_march_plain(x3, 0.9, g3)),
+        "gated": ("probe_gated", lambda: P.gated_march_vjp(x5, 0.8, g5),
+                  lambda: P.gated_march_plain(x5, 0.8, g5)),
+        "gated_dead": ("probe_gated",
+                       lambda: P.gated_march_vjp(x5, 0.8, g5, 0 * x5),
+                       lambda: P.gated_march_plain(x5, 0.8, g5, 0 * x5))}
+    cond_in = {}
+    for shift in (1.0, -1.0):
+        x, g = tile(2, 1.0, shift), tile(3)
+        cond_in[shift] = (x, g)
+        cases[f"cond{shift:+.0f}"] = ("probe_cond",
+                                      lambda x=x, g=g: P.cond_vjp(x, g),
+                                      lambda x=x, g=g: P.cond_plain(x, g))
+    for k in P.MOSAIC_LAUNCHES:
+        P.MOSAIC_LAUNCHES[k] = 0
+    got = {case: call() for case, (_, call, _) in cases.items()}
+    torch.cuda.synchronize()
+    launches = dict(P.MOSAIC_LAUNCHES)
+    say("probe", f"probe_mosaic: the probes' path launched {launches}")
+    assert all(launches[k] >= 1 for k in MOSAIC_REPLACES), \
+        "a probe dispatcher did not run its kernel"
+    abs_err, rel_err = dict.fromkeys(MOSAIC_REPLACES, 0.0), {}
+    for case, (name, _, plain) in cases.items():
+        rtol = MOSAIC_RTOL.get(name, PROBE_RTOL)
+        diffs = [((a - b).abs().max(), b.abs().max())
+                 for a, b in zip(got[case], plain())]
+        rel = max(float(d) / max(float(m), 1e-30) for d, m in diffs)
+        say("probe", f"{name} ({case}) vs plain: max rel {rel:.3e} (limit "
+            f"{rtol:g})")
+        assert rel <= rtol, f"{name} ({case}) disagrees with its plain version"
+        abs_err[name] = max(abs_err[name], *(float(d) for d, _ in diffs))
+        rel_err[case] = rel
+    timed = {"probe_ckpt": ("ckpt", lambda: P.ckpt_scratch_cuda(x0, 0.7, g0)),
+             "probe_cond": ("cond+1", lambda: P.cond_cuda(*cond_in[1.0])),
+             "probe_nested": ("nested",
+                              lambda: P.nested_march_cuda(x3, 0.9, g3)),
+             "probe_gated": ("gated",
+                             lambda: P.gated_march_cuda(x5, 0.8, g5))}
+    records = []
+    for name, (case, kernel) in timed.items():
+        ms = device_ms(kernel, [f"{name}_kernel"])[f"{name}_kernel"]
+        events = padded_ms(kernel)
+        plain_ms = events_ms(cases[case][2], device, 1)
+        n = x0.numel()
+        t_ops = n * MOSAIC_OPS[name] / PEAK_FP32 * 1e3
+        t_bytes = n * MOSAIC_BYTES[name] / PEAK_BYTES * 1e3
+        bound, by = max((t_ops, "operations"), (t_bytes, "bytes"),
+                        key=lambda t: t[0])
+        say("time", f"{name}: {ms:.6f} ms, by CUDA events {events:.6f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound:.3g} ms ({by}) ({card})")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "euclider_tpu_torch/csrc/probe_mosaic.cu",
+            "replaces": MOSAIC_REPLACES[name], "launches": launches[name],
+            "max_abs_err": abs_err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "padded_ms": events, "ms_case": case, "shape": [8, 128],
+            "tolerance": {"rtol": MOSAIC_RTOL.get(name, PROBE_RTOL)},
+            "card": card,
+            "rel_errs": {c: v for c, v in rel_err.items()
+                         if cases[c][0] == name}})
+    return records
+
+
+def probe_tools():
+    """The probes' entry points as a user runs them, each a subprocess on
+    the card: mosaic_probe (P2-P6 against their plain versions) and
+    march_bisect for every stage; each must exit 0 and launch every kernel
+    it covers."""
+    from euclider_tpu_torch.ops import march_probe as MP
+
+    def run(*args):
+        proc = subprocess.run([sys.executable, "-m",
+                               f"euclider_tpu_torch.tools.{args[0]}",
+                               *args[1:]], cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+        for line in proc.stdout.splitlines():
+            say("probe", f"{' '.join(args)}: {line}")
+        assert proc.returncode == 0, f"{' '.join(args)}: exit " \
+            f"{proc.returncode}\n{proc.stderr[-2000:]}"
+        return json.loads(proc.stdout.splitlines()[-1])
+
+    launches = run("mosaic_probe")["launches"]
+    assert all(n >= 1 for n in launches.values()) and len(launches) == 5, \
+        f"mosaic_probe did not launch every kernel: {launches}"
+    for st in MP.STAGES:
+        assert run("march_bisect", st)["launches"] == 1, \
+            f"march_bisect {st} did not launch probe_march"
+
 
 
 # --- phase 10 ----------------------------------------------------------------
@@ -1154,7 +1332,6 @@ def main() -> int:
 
     errs = {name: kernel_vs_plain(name, device)
             for name in SCENES + PROBES + WARP + EXPR + SHAPES}
-    locate_diffs(SCENES[1], device, errs[SCENES[1]][2])
     goldens = np.load(os.path.join(ROOT, "tests", "goldens.npz"))
     for name in SCENES + PROBES + WARP + EXPR + SHAPES:
         ground_truth(name, device, goldens)
@@ -1167,9 +1344,9 @@ def main() -> int:
              for name in SCENES + ("grad_probe",) + WARP + EXPR + SHAPES[:2]}
     probe = probe_check(device, card)
     seg = seg_phase(device, card, times)
-    for name, (ms, by) in queued_bounds().items():
-        say("time", f"still to port, {name}: bound {ms:.6g} ms ({by}; "
-            "(8, 128), worked out from the code by queued_bounds)")
+    march = march_probe_check(device, card)
+    mosaic = mosaic_check(device, card)
+    probe_tools()
 
     gp, c2 = times["grad_probe"], times[SCENES[1]]
     record = [{
@@ -1226,7 +1403,15 @@ def main() -> int:
         "library_ms": None, "shape": [8, 128],
         "tolerance": {"rtol": PROBE_RTOL}, "card": card,
         "dx_rel": probe["dx_rel"], "dw_rel": probe["dw_rel"],
-        "steps_per_element": probe["steps_per_element"]}, seg]
+        "steps_per_element": probe["steps_per_element"]}, seg, march,
+        *mosaic]
+    for rec in record:
+        keys = SEG_KEYS if rec["name"] == "trace_seg" else [
+            rec["name"] + "_kernel"]
+        rec["ms_by"] = ("CUDA events (padded_ms) where torch.profiler "
+                        "recorded no launch, see the [time] lines"
+                        if EVENT_TIMED.intersection(keys) else
+                        "torch.profiler")
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

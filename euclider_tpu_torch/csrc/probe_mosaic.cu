@@ -1,0 +1,327 @@
+// probe_mosaic.cu - the Mosaic capability probes P2-P5 for Hopper (sm_90a).
+//
+// Replaces four Pallas kernels of tools/mosaic_probe.py, each a scalar
+// recurrence on one (8, 128) tile that the JAX package used to pin down one
+// mechanism of its in-kernel checkpointed backward (ops/pallas_vjp.py):
+//   P2 _ckpt_kernel (probe_ckpt_kernel): 6 checkpoints of 4 steps of
+//      x + 0.1 tanh(w x), then the reverse, chunk by chunk, each chunk
+//      re-run forward from its checkpoint -> dx, dw;
+//   P3 _cond_kernel (probe_cond_kernel): one tile-wide branch on
+//      sum(x) > 0, y = 2 v + sin v or 0.5 v, and its VJP -> y, dx;
+//   P4 _nested_kernel (probe_nested_kernel): an inner march of 12 such
+//      steps from 1.5 x whose backward re-runs each chunk of CB = 4 steps
+//      into its own scratch of CB states, inside the VJP of the outer
+//      cos y + 0.25 y, accumulated over 2 trips -> dx, dw;
+//   P5 _gated_kernel (probe_gated_kernel): the two-variable march
+//      (x, v) -> (x + 0.1 tanh(w v), v + 0.05 sin x) from (1.2 x, 0.5 x),
+//      y = 2 x_T + v_T, whose forward and reverse are gated tile-wide by
+//      any(act > 0.5) (a dead tile returns y = x0 and the cotangent
+//      (g, 0, 0), as gm_bwd's dead_sweep), inside the same outer VJP,
+//      accumulated over 2 trips -> dx, dw.
+// ops/probes.py holds their plain versions (autograd through the same
+// recurrences) and the wrappers.
+//
+// One thread per element; one block, the probe's input being one tile.
+// The scratch of the TPU kernels (the checkpoint stack in VMEM, the inner
+// backward's run_scoped buffer) is per-thread local arrays here.  The
+// tile-wide decisions are block-wide: P3's sum by a fixed reduction tree
+// (each thread sums its elements in order, warp shuffles, then the warps
+// in order; no atomics, so the sign of a sum near zero cannot change from
+// run to run), P5's any() by __syncthreads_or.  dw is summed the same way,
+// so every result is deterministic.  What bounds them: the tanhf/sinf work
+// of 24 to 72 steps per element, far below the card; each is one launch
+// of one block.
+//
+// Built like trace_fwd.cu: nvcc -gencode arch=compute_90a,code=sm_90a
+// -std=c++17 -O3 -fmad=false, without --use_fast_math: every operation
+// rounds as the plain version's separate torch operations do.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int K = 6;          // P2: checkpoints
+constexpr int C = 4;          // P2: steps per chunk
+constexpr int N_STEPS = 12;   // P4, P5: steps of the inner march
+constexpr int CB = 4;         // P4, P5: steps per chunk
+constexpr int NB = N_STEPS / CB;
+constexpr int TRIPS = 2;      // P4, P5: the outer loop's VJPs, accumulated
+constexpr int THREADS = 256;
+
+// x + 0.1 tanh(w x)
+__device__ __forceinline__ float step(float x, float w) {
+    return x + 0.1f * tanhf(w * x);
+}
+
+// the adjoint of step at x: gx <- gx (1 + 0.1 (1 - t^2) w), gw += ...
+__device__ __forceinline__ void step_adj(float x, float w, float* gx,
+                                         float* gw) {
+    const float t = tanhf(w * x);
+    const float a = *gx * 0.1f * (1.0f - t * t);
+    *gw += a * x;
+    *gx = *gx + a * w;
+}
+
+// P5's step: (x, v) -> (x + 0.1 tanh(w v), v + 0.05 sin x)
+__device__ __forceinline__ void step2(float* x, float* v, float w) {
+    const float x1 = *x + 0.1f * tanhf(w * *v);
+    *v = *v + 0.05f * sinf(*x);
+    *x = x1;
+}
+
+__device__ __forceinline__ void step2_adj(float x, float v, float w,
+                                          float* gx, float* gv, float* gw) {
+    const float t = tanhf(w * v);
+    const float a = *gx * 0.1f * (1.0f - t * t);
+    *gw += a * v;
+    const float gv1 = *gv;
+    *gv = gv1 + a * w;
+    *gx = *gx + gv1 * 0.05f * cosf(x);
+}
+
+// cotangent of y under out = cos y + 0.25 y
+__device__ __forceinline__ float outer_adj(float y, float g) {
+    return g * -sinf(y) + g * 0.25f;
+}
+
+// --- one element of each probe ------------------------------------------
+
+// P2: the checkpointed forward, then the reverse chunk by chunk.
+__device__ void ckpt_element(float x, float w, float g, float* dx,
+                             float* dw) {
+    float ck[K];
+    for (int k = 0; k < K; ++k) {
+        ck[k] = x;
+        for (int c = 0; c < C; ++c) x = step(x, w);
+    }
+    float gx = g, gw = 0.0f;
+    for (int k = K - 1; k >= 0; --k) {
+        float st[C];                     // the chunk re-run from ck[k]
+        float xc = ck[k];
+        for (int c = 0; c < C; ++c) {
+            st[c] = xc;
+            xc = step(xc, w);
+        }
+        for (int c = C - 1; c >= 0; --c) step_adj(st[c], w, &gx, &gw);
+    }
+    *dx = gx;
+    *dw = gw;
+}
+
+// P3: the branch the tile took (live: sum(x) > 0).
+__device__ __forceinline__ void cond_element(float x, float g, bool live,
+                                             float* y, float* dx) {
+    if (live) {
+        *y = x * 2.0f + sinf(x);
+        *dx = g * 2.0f + g * cosf(x);
+    } else {
+        *y = x * 0.5f;
+        *dx = g * 0.5f;
+    }
+}
+
+// P4: one trip of the outer VJP through the inner march.
+__device__ void nested_trip(float x, float w, float g, float* dx,
+                            float* dw) {
+    float ck[NB];
+    float y = x * 1.5f;
+    for (int b = 0; b < NB; ++b) {
+        ck[b] = y;
+        for (int i = 0; i < CB; ++i) y = step(y, w);
+    }
+    float gy = outer_adj(y, g), gw = 0.0f;
+    for (int b = NB - 1; b >= 0; --b) {
+        float st[CB];                    // the inner backward's scratch
+        float xc = ck[b];
+        for (int i = 0; i < CB; ++i) {
+            st[i] = xc;
+            xc = step(xc, w);
+        }
+        for (int i = CB - 1; i >= 0; --i) step_adj(st[i], w, &gy, &gw);
+    }
+    *dx = gy * 1.5f;
+    *dw = gw;
+}
+
+__device__ void nested_element(float x, float w, float g, float* dx,
+                               float* dw) {
+    float ax = 0.0f, aw = 0.0f;
+    for (int j = 0; j < TRIPS; ++j) {
+        float tx, tw;
+        nested_trip(x, w, g, &tx, &tw);
+        ax = ax + tx;
+        aw = aw + tw;
+    }
+    *dx = ax;
+    *dw = aw;
+}
+
+// P5: one trip of the outer VJP through the gated march (live: the tile's
+// any(act > 0.5)).
+__device__ void gated_trip(float x, float w, float g, bool live, float* dx,
+                           float* dw) {
+    const float x0 = x * 1.2f, v0 = x * 0.5f;
+    float ckx[NB], ckv[NB];
+    float xc = x0, vc = v0;
+    float y = x0;
+    if (live) {
+        for (int b = 0; b < NB; ++b) {
+            ckx[b] = xc;
+            ckv[b] = vc;
+            for (int i = 0; i < CB; ++i) step2(&xc, &vc, w);
+        }
+        y = xc * 2.0f + vc;
+    }
+    const float gy = outer_adj(y, g);
+    float gx = gy, gv = 0.0f, gw = 0.0f;   // the dead sweep: (g, 0, 0)
+    if (live) {
+        gx = 2.0f * gy;
+        gv = gy;
+        for (int b = NB - 1; b >= 0; --b) {
+            float stx[CB], stv[CB];      // the backward's two scratches
+            float sx = ckx[b], sv = ckv[b];
+            for (int i = 0; i < CB; ++i) {
+                stx[i] = sx;
+                stv[i] = sv;
+                step2(&sx, &sv, w);
+            }
+            for (int i = CB - 1; i >= 0; --i)
+                step2_adj(stx[i], stv[i], w, &gx, &gv, &gw);
+        }
+    }
+    *dx = gx * 1.2f + gv * 0.5f;
+    *dw = gw;
+}
+
+__device__ void gated_element(float x, float w, float g, bool live,
+                              float* dx, float* dw) {
+    float ax = 0.0f, aw = 0.0f;
+    for (int j = 0; j < TRIPS; ++j) {
+        float tx, tw;
+        gated_trip(x, w, g, live, &tx, &tw);
+        ax = ax + tx;
+        aw = aw + tw;
+    }
+    *dx = ax;
+    *dw = aw;
+}
+
+// --- the kernels: one block over the tile -----------------------------------
+
+// The block's sum of v in a fixed order (warp shuffles, then the warps in
+// order), the same value in every thread.
+__device__ float block_sum(float v) {
+    __shared__ float red[THREADS / 32];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+    __syncthreads();
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < THREADS / 32; ++k) s += red[k];
+    return s;
+}
+
+__global__ void __launch_bounds__(THREADS)
+probe_ckpt_kernel(const float* __restrict__ x, float w,
+                  const float* __restrict__ g, int n, float* __restrict__ dx,
+                  float* __restrict__ dw) {
+    float acc = 0.0f;
+    for (int i = threadIdx.x; i < n; i += THREADS) {
+        float dwi;
+        ckpt_element(x[i], w, g[i], dx + i, &dwi);
+        acc += dwi;
+    }
+    acc = block_sum(acc);
+    if (threadIdx.x == 0) *dw = acc;
+}
+
+__global__ void __launch_bounds__(THREADS)
+probe_cond_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                  int n, float* __restrict__ y, float* __restrict__ dx) {
+    float part = 0.0f;
+    for (int i = threadIdx.x; i < n; i += THREADS) part += x[i];
+    const bool live = block_sum(part) > 0.0f;
+    for (int i = threadIdx.x; i < n; i += THREADS)
+        cond_element(x[i], g[i], live, y + i, dx + i);
+}
+
+__global__ void __launch_bounds__(THREADS)
+probe_nested_kernel(const float* __restrict__ x, float w,
+                    const float* __restrict__ g, int n,
+                    float* __restrict__ dx, float* __restrict__ dw) {
+    float acc = 0.0f;
+    for (int i = threadIdx.x; i < n; i += THREADS) {
+        float dwi;
+        nested_element(x[i], w, g[i], dx + i, &dwi);
+        acc += dwi;
+    }
+    acc = block_sum(acc);
+    if (threadIdx.x == 0) *dw = acc;
+}
+
+__global__ void __launch_bounds__(THREADS)
+probe_gated_kernel(const float* __restrict__ x, float w,
+                   const float* __restrict__ g,
+                   const float* __restrict__ act, int n,
+                   float* __restrict__ dx, float* __restrict__ dw) {
+    int any = 0;
+    for (int i = threadIdx.x; i < n; i += THREADS) any |= act[i] > 0.5f;
+    const bool live = __syncthreads_or(any) != 0;
+    float acc = 0.0f;
+    for (int i = threadIdx.x; i < n; i += THREADS) {
+        float dwi;
+        gated_element(x[i], w, g[i], live, dx + i, &dwi);
+        acc += dwi;
+    }
+    acc = block_sum(acc);
+    if (threadIdx.x == 0) *dw = acc;
+}
+
+}  // namespace
+
+// The entry points: one launch of one block on the caller's stream ->
+// 0 or a cudaError.
+
+extern "C" int euclider_probe_ckpt(const float* x, float w, const float* g,
+                                   int n, float* dx, float* dw, int device,
+                                   void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (n <= 0) return (int)cudaErrorInvalidValue;
+    probe_ckpt_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(x, w, g, n, dx,
+                                                               dw);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int euclider_probe_cond(const float* x, const float* g, int n,
+                                   float* y, float* dx, int device,
+                                   void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (n <= 0) return (int)cudaErrorInvalidValue;
+    probe_cond_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(x, g, n, y, dx);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int euclider_probe_nested(const float* x, float w, const float* g,
+                                     int n, float* dx, float* dw, int device,
+                                     void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (n <= 0) return (int)cudaErrorInvalidValue;
+    probe_nested_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(x, w, g, n,
+                                                                 dx, dw);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int euclider_probe_gated(const float* x, float w, const float* g,
+                                    const float* act, int n, float* dx,
+                                    float* dw, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (n <= 0) return (int)cudaErrorInvalidValue;
+    probe_gated_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(x, w, g, act,
+                                                                n, dx, dw);
+    return (int)cudaGetLastError();
+}

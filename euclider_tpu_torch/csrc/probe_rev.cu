@@ -23,7 +23,7 @@
 // sinf/cosf work of 3 x R_STEPS steps per element, far below the card.
 //
 // Built like trace_fwd.cu: nvcc -gencode arch=compute_90a,code=sm_90a
-// -std=c++17 -O3, without --use_fast_math.
+// -std=c++17 -O3 -fmad=false, without --use_fast_math.
 
 #include <cuda_runtime.h>
 

@@ -487,6 +487,41 @@ __device__ void vm_adjoint(const Field<true>& f, V4 ga, const float* val,
     *gx = add(*gx, V4{gxs[0], gxs[1], gxs[2], gxs[3]});
 }
 
+// The adjoints of surface_at (trace_common.cuh) at the hit point p of a
+// leaf (centre or normal row c, a cylinder's axis ca), adding to dp, to dc
+// and to da (the axis): surface_uv_adj the UV's under (du, dv),
+// leaf_normal_adj the unoriented normal's under dn0.  node_adj runs them
+// for every hit (the UV's where the colour reads it); they are also
+// march_finish's adjoint of a marched crossing's normal and UV.
+__device__ __forceinline__ void surface_uv_adj(const Scene& s, bool sphere,
+                                               bool cyl, V4 p, V4 c, V4 ca,
+                                               float du, float dv, V4* dp,
+                                               V4* dc, V4* da) {
+    if (sphere) {
+        const V4 dloc = sphere_uv_adj(p, c, du, dv);
+        *dp = add(*dp, dloc);
+        *dc = sub(*dc, dloc);
+    } else if (cyl) {
+        cyl_uv_adj(p, c, ca, s.dim, du, dv, dp, dc, da);
+    } else {
+        plane_uv_adj(p, c, s.dim, du, dv, dp, dc);
+    }
+}
+
+__device__ __forceinline__ void leaf_normal_adj(bool sphere, bool cyl, V4 p,
+                                                V4 c, V4 ca, V4 dn0, V4* dp,
+                                                V4* dc, V4* da) {
+    if (sphere) {
+        const V4 dq = normalize_adj(sub(p, c), dn0);
+        *dp = add(*dp, dq);
+        *dc = sub(*dc, dq);
+    } else if (cyl) {
+        cyl_normal_adj(p, c, ca, dn0, dp, dc, da);
+    } else {
+        *dc = add(*dc, dn0);
+    }
+}
+
 // --- the march backward (K4) ------------------------------------------------
 //
 // The forward sweep records, per marched node, its input (the tape slot:
@@ -535,6 +570,47 @@ __device__ __forceinline__ void march_replay(const Field<kExpr>& f, V4 org,
     mt->ve = v;
 }
 
+// The adjoint of one march step, x1 = xp + h v1, v1 = normalize(u),
+// u = vp + h a, a = a(xp): from the cotangents g_x1, g_v1 of the step's
+// outputs and g_xp of xp itself (the crossing step's sx0 slot) to gx (xp's)
+// and gv (vp's), adding the field's gradients into gc and gs (an
+// attractor's centre and strength), gp and gt (an expression's p0..p7 and
+// the scene time, through vm_adjoint, which reads val, the VM's values at
+// xp) and gh (the step h).  A statement macro over the names of the
+// function it expands in (f, h, expr, xp, vp, a, val, adj, kExpr and the
+// cotangents), not a function: expanded, march_reverse is token for token
+// the loop body written out, while an inlined function moved the
+// backward kernels' spills (PERF.md §6).  march_reverse runs it on rebuilt
+// states, probe_march.cu on a stored tape of states.
+#define TRACE_MARCH_STEP_ADJ                                                 \
+    const V4 u = madd(vp, h, a);                                             \
+    const V4 v1 = normalize(u);                                              \
+    gh += dot(g_x1, v1);                                                     \
+    g_v1 = madd(g_v1, h, g_x1);                                              \
+    const V4 g_u = normalize_adj(u, g_v1);                                   \
+    gh += dot(g_u, a);                                                       \
+    const V4 g_a = scale(g_u, h);                                            \
+    if (expr) {                                                              \
+        /* a = the material's program at xp */                               \
+        V4 g_f = vzero();                                                    \
+        if constexpr (kExpr) vm_adjoint(f, g_a, val, adj, &g_f, gp, &gt);    \
+        gx = add(add(g_x1, g_xp), g_f);                                      \
+    } else {                                                                 \
+        /* a = dd * k, dd = c - xp, k = strength r2^-1.5,                    \
+           r2 = |dd|^2 + 1e-4 */                                             \
+        const V4 dd = sub(f.c, xp);                                          \
+        const float r2 = dot(dd, dd) + 1e-4f;                                \
+        const float inv = powf(r2, -1.5f);                                   \
+        const float k = f.strength * inv;                                    \
+        const float g_k = dot(g_a, dd);                                      \
+        gs += g_k * inv;                                                     \
+        const float g_r2 = g_k * f.strength * (-1.5f) * inv / r2;            \
+        const V4 g_dd = madd(scale(g_a, k), 2.0f * g_r2, dd);                \
+        gc = add(gc, g_dd);                                                  \
+        gx = sub(add(g_x1, g_xp), g_dd);                                     \
+    }                                                                        \
+    gv = g_u;
+
 // Adjoint of the march of material mat: from the cotangents of the segment
 // slots (g_sx0, g_sx1, g_sv) to those of its input (d_org, d_dir), adding
 // the field's gradients into grad: centre and strength of an attractor,
@@ -577,33 +653,7 @@ __device__ void march_reverse(const Offs& off, int mat, const Field<kExpr>& f,
                 g_xp = g_sx0;
             }
             // x1 = xp + h v1, v1 = normalize(u), u = vp + h a
-            const V4 u = madd(vp, h, a);
-            const V4 v1 = normalize(u);
-            gh += dot(g_x1, v1);
-            g_v1 = madd(g_v1, h, g_x1);
-            const V4 g_u = normalize_adj(u, g_v1);
-            gh += dot(g_u, a);
-            const V4 g_a = scale(g_u, h);
-            if (expr) {
-                // a = the material's program at xp
-                V4 g_f = vzero();
-                if constexpr (kExpr) vm_adjoint(f, g_a, val, adj, &g_f, gp, &gt);
-                gx = add(add(g_x1, g_xp), g_f);
-            } else {
-                // a = dd * k, dd = c - xp, k = strength r2^-1.5,
-                // r2 = |dd|^2 + 1e-4
-                const V4 dd = sub(f.c, xp);
-                const float r2 = dot(dd, dd) + 1e-4f;
-                const float inv = powf(r2, -1.5f);
-                const float k = f.strength * inv;
-                const float g_k = dot(g_a, dd);
-                gs += g_k * inv;
-                const float g_r2 = g_k * f.strength * (-1.5f) * inv / r2;
-                const V4 g_dd = madd(scale(g_a, k), 2.0f * g_r2, dd);
-                gc = add(gc, g_dd);
-                gx = sub(add(g_x1, g_xp), g_dd);
-            }
-            gv = g_u;
+            TRACE_MARCH_STEP_ADJ
             xc = xp;
             vc = vp;
         }
@@ -894,29 +944,12 @@ __device__ void node_adj(const Scene& s, const Offs& off,
             gadd<kWide>(grad, base + 4 * sf + ch, dcol[ch]);
     }
     if (skind == SURF_SMOOTH ||
-        (kShapes && (skind == SURF_PERLIN || skind == SURF_TEXTURE))) {
-        if (sphere) {
-            const V4 dloc = sphere_uv_adj(p, c, du, dv);
-            dp = add(dp, dloc);
-            dc = sub(dc, dloc);
-        } else if (cyl) {
-            cyl_uv_adj(p, c, ca, s.dim, du, dv, &dp, &dc, &da);
-        } else {
-            plane_uv_adj(p, c, s.dim, du, dv, &dp, &dc);
-        }
-    }
+        (kShapes && (skind == SURF_PERLIN || skind == SURF_TEXTURE)))
+        surface_uv_adj(s, sphere, cyl, p, c, ca, du, dv, &dp, &dc, &da);
 
     // ---- normal: orientation flip, then the leaf normal ----
     const V4 dn0 = T.rec.flip ? scale(dn, -1.0f) : dn;
-    if (sphere) {
-        const V4 dq = normalize_adj(sub(p, c), dn0);
-        dp = add(dp, dq);
-        dc = sub(dc, dq);
-    } else if (cyl) {
-        cyl_normal_adj(p, c, ca, dn0, &dp, &dc, &da);
-    } else {
-        dc = add(dc, dn0);
-    }
+    leaf_normal_adj(sphere, cyl, p, c, ca, dn0, &dp, &dc, &da);
 
     if (marched) {
         // ---- p = sx0 (1 - lambda) + sx1 lambda, d = sv: the march (K4) ----

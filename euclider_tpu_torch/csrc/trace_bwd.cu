@@ -26,8 +26,8 @@
 // device-memory bytes: it reads 12 B and writes nothing per pixel.
 //
 // Built like trace_fwd.cu: nvcc -gencode arch=compute_90a,code=sm_90a
-// -std=c++17 -O3, without --use_fast_math, twice (the BUILD_SHAPES builds
-// with -fmad=false -DTRACE_SHAPES_BUILDS).
+// -std=c++17 -O3 -fmad=false, without --use_fast_math, twice (the
+// BUILD_SHAPES builds with -DTRACE_SHAPES_BUILDS).
 
 #include "trace_adj.cuh"
 

@@ -38,7 +38,9 @@
 // __fmul_rn / __fadd_rn / __fdiv_rn, so nvcc contracts nothing into an FMA
 // and every operation rounds as the plain version's separate torch
 // operations do; the VM's sinf, cosf, tanhf, expf, logf and sqrtf are the
-// libm functions torch's CUDA operators call.
+// libm functions torch's CUDA operators call.  Every library is compiled
+// with -fmad=false besides (ops/cuda_kernel.py), so the rest of the device
+// code is not contracted either.
 //
 // Six builds of every kernel (the template parameter kB, a set of BUILD_*
 // bits): straight space, + the march with the attractor field and the
@@ -47,12 +49,12 @@
 // colour (BUILD_SHAPES: CSG, cylinders, perlin, textures).  Each launch
 // takes the smallest build that renders its scene, so a scene runs no code
 // of a feature it does not have.  The BUILD_SHAPES builds live in a second
-// library of each kernel, compiled with -fmad=false (TRACE_SHAPES_BUILDS):
-// a texture or a noise surface multiplies any rounding of the hit point or
-// its UV by its UV scale (up to 32 cells a unit in perlin_probe), so there
-// every operation rounds as the plain version's separate torch operations
-// do.  Contracted, 0.1% of config3's pixels moved past 1e-4 and
-// perlin_probe's camera gradient past its tolerance (PERF.md §6).
+// library of each kernel (TRACE_SHAPES_BUILDS).  A texture or a noise
+// surface multiplies any rounding of the hit point or its UV by its UV
+// scale (up to 32 cells a unit in perlin_probe): contracted, 0.1% of
+// config3's pixels moved past 1e-4 and perlin_probe's camera gradient past
+// its tolerance, and deep mirror-glass trees moved pixels of config2,
+// grad_probe and fresnel_probe (PERF.md §6), hence -fmad=false everywhere.
 
 #pragma once
 
@@ -354,7 +356,7 @@ __device__ __forceinline__ void tangent_frame(V4 n, int dim, V4* t1, V4* t2) {
 
 // --- membership (geometry.py::member), uncontracted as the plain version's
 // separate operations round (cylinders and composites exist only in the
-// BUILD_SHAPES builds, compiled with -fmad=false) ----------------------------
+// BUILD_SHAPES builds) ------------------------------------------------------
 
 // (p - c) less its component along the unit axis a: a cylinder's radial part
 __device__ __forceinline__ V4 cyl_radial(V4 p, V4 c, V4 a) {

@@ -31,10 +31,11 @@
 // float tables are read from global memory, so one compiled kernel serves
 // every scene and branches on the scene are uniform across a warp.
 //
-// Built with nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3,
-// without --use_fast_math: sqrtf, division and floorf stay IEEE float32;
-// built twice, the second library holding the BUILD_SHAPES builds with
-// -fmad=false -DTRACE_SHAPES_BUILDS (trace_common.cuh).
+// Built with nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+// -fmad=false, without --use_fast_math: sqrtf, division and floorf stay
+// IEEE float32, and no multiply and add contract into an FMA; built twice,
+// the second library holding the BUILD_SHAPES builds with
+// -DTRACE_SHAPES_BUILDS (trace_common.cuh).
 
 #include "trace_common.cuh"
 

@@ -38,7 +38,7 @@
 // and K7 loads the stack pointer and 11 words a live slot.
 //
 // Built like trace_bwd.cu, twice (the BUILD_SHAPES builds with
-// -fmad=false -DTRACE_SHAPES_BUILDS).
+// -DTRACE_SHAPES_BUILDS).
 
 #include "trace_adj.cuh"
 

@@ -5,11 +5,13 @@ Counterpart of ``euclider_tpu/ops/pallas_kernel.py`` (``_kernel`` launched
 by ``render_image_pallas``).  Each source is compiled with nvcc for
 ``sm_90a`` into a shared library with a plain C entry point, on first use,
 into ``euclider_tpu_torch/build/`` (rebuilt when the source, the shared
-header or the flags change), and called through ctypes on PyTorch's
-current stream.  The trace kernels (the forward, the tape backward and
-the segmented backward) are compiled twice: their ``_shapes`` libraries
-hold the builds for scenes with CSG, cylinders, perlin or textures,
-compiled without FMA contraction (trace_common.cuh).
+headers or the flags change), and called through ctypes on PyTorch's
+current stream.  Every library is compiled without FMA contraction
+(``-fmad=false``): each operation rounds as the plain version's separate
+torch operations do (trace_common.cuh).  The trace kernels (the forward,
+the tape backward and the segmented backward) are compiled twice: their
+``_shapes`` libraries hold the builds for scenes with CSG, cylinders,
+perlin or textures.
 
 The scene is passed as data: ``encode_scene`` flattens the static topology
 into int32 arrays (the node encoding of ``oracle/native_oracle.py``, shape
@@ -41,16 +43,19 @@ CSRC = os.path.join(_PKG, "csrc")
 SOURCES = {"trace_fwd": os.path.join(CSRC, "trace_fwd.cu"),
            "trace_bwd": os.path.join(CSRC, "trace_bwd.cu"),
            "trace_seg": os.path.join(CSRC, "trace_seg.cu"),
-           "probe_rev": os.path.join(CSRC, "probe_rev.cu")}
+           "probe_rev": os.path.join(CSRC, "probe_rev.cu"),
+           "probe_mosaic": os.path.join(CSRC, "probe_mosaic.cu"),
+           "probe_march": os.path.join(CSRC, "probe_march.cu")}
 SOURCES.update({f"{k}_shapes": SOURCES[k] for k in ("trace_fwd", "trace_bwd",
                                                      "trace_seg")})
 HEADERS = (os.path.join(CSRC, "trace_common.cuh"),
            os.path.join(CSRC, "trace_adj.cuh"))
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
-# the _shapes libraries' builds: no FMA contraction (trace_common.cuh)
-SHAPES_FLAGS = ("-fmad=false", "-DTRACE_SHAPES_BUILDS")
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC")
+# the _shapes libraries' builds (trace_common.cuh BUILD_SHAPES)
+SHAPES_FLAGS = ("-DTRACE_SHAPES_BUILDS",)
 MAX_SLOTS = 16     # the kernels' DFS stack capacity (trace_common.cuh)
 MAX_MARCH_ENTITIES = 32   # the march's side masks: one bit per entity
 MAX_EXPR = 128     # VM instructions of one material's four programs

@@ -1,9 +1,10 @@
 // Host stand-ins for the CUDA device code of csrc/, so that g++ compiles
-// trace_fwd.cu and trace_bwd.cu (cut at their extern "C" entry points) into
-// a CPU library: tools/kernel_harness.py.  The intrinsics round as on the
-// card (__fmul_rn and friends are plain IEEE operations); with FMA_EMU
-// they are kept out of line so that -ffp-contract=fast contracts only what
-// nvcc's default -fmad=true could.
+// its sources (cut at their extern "C" entry points) into CPU libraries:
+// tools/kernel_harness.py.  The intrinsics round as on the card (__fmul_rn
+// and friends are plain IEEE operations; the harness builds with
+// -ffp-contract=off, as nvcc builds with -fmad=false).  The block-wide
+// operations stand in for one thread only: the harness's entries reduce
+// over a tile themselves.
 #pragma once
 #include <algorithm>
 #include <cmath>
@@ -30,16 +31,12 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline int cudaSetDevice(int) { return 0; }
 inline int cudaGetLastError() { return 0; }
 inline void __syncthreads() {}
+inline int __syncthreads_or(int p) { return p; }
 inline float __shfl_down_sync(unsigned, float v, int) { return v; }
-#ifdef FMA_EMU
-#define RN_ATTR __attribute__((noinline))
-#else
-#define RN_ATTR inline
-#endif
-RN_ATTR float __fmul_rn(float a, float b) { return a * b; }
-RN_ATTR float __fadd_rn(float a, float b) { return a + b; }
-RN_ATTR float __fsub_rn(float a, float b) { return a - b; }
-RN_ATTR float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline float __int_as_float(int i) {
     float f;

@@ -1,23 +1,22 @@
 """The CUDA kernels' device code on the CPU, against the plain versions.
 
-There is no nvcc off the card, but the device code of ``csrc/trace_fwd.cu``,
-``csrc/trace_bwd.cu`` and ``csrc/trace_seg.cu`` is C++ under a few
-stand-ins (``tools/cuda_stub/cuda_runtime.h``).  This module cuts each
-source at its ``extern "C"`` entry point, appends a host entry that runs
-the kernel body pixel by pixel (the forward kernel under looped block and
-thread indices, ``pixel_backward`` summing every pixel's gradient in
-float64, the segmented kernels' K6 over every pixel, then K7 as
-``pixel_backward``), and builds it with g++ into
-``euclider_tpu_torch/build/``.  It finds before a chip
-call what the card would show: a wrong adjoint (the gradients against
-``ops/vjp.py::vjp_blocked``), an out-of-bounds read (``--asan``), and the
-pixels that nvcc's FMA contraction moves (``--fma``: contraction allowed,
-as in the builds without ``BUILD_SHAPES``; without it every operation
-rounds separately, as in the ``_shapes`` libraries built with
-``-fmad=false``).
+There is no nvcc off the card, but the device code of ``csrc/`` is C++
+under a few stand-ins (``tools/cuda_stub/cuda_runtime.h``).  This module
+cuts each source at its ``extern "C"`` entry point, appends a host entry
+that runs the kernel body element by element (the forward kernel under
+looped block and thread indices, ``pixel_backward`` summing every pixel's
+gradient in float64, the segmented kernels' K6 over every pixel, then K7
+as ``pixel_backward``; the probes' lanes in order, with their tile-wide
+sums and decisions taken over the lanes in order), and builds it with g++
+into ``euclider_tpu_torch/build/``, without contraction, as nvcc builds
+every library with ``-fmad=false``.  It finds before a chip call what the
+card would show: a wrong adjoint (the gradients against
+``ops/vjp.py::vjp_blocked``, the probes against their plain versions) and
+an out-of-bounds read (``--asan``).
 
     python -m euclider_tpu_torch.tools.kernel_harness --scene perlin_probe \\
-        --size 160x90 [--fma] [--asan] [--seams]
+        --size 160x90 [--asan] [--seams]
+    python -m euclider_tpu_torch.tools.kernel_harness --probes
 """
 from __future__ import annotations
 
@@ -34,6 +33,8 @@ import torch
 
 from ..ops import cuda_bwd as CB
 from ..ops import cuda_kernel as CK
+from ..ops import march_probe as MP
+from ..ops import probes as PR
 from ..ops import vjp as vjp_mod
 
 STUB = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_stub")
@@ -142,24 +143,71 @@ extern "C" int harness_seg(const int32_t* const* ints,
              "false, grad, gtex")).replace("FWD_CASES", _CASES.format(
         call="pixel_seg_fwd",
         args="s, cam, x, y, H, W, rows, ch, carry, acc")),
+    "probe_mosaic": """
+extern "C" void harness_probe(int probe, const float* x, float w,
+                              const float* g, const float* act, int n,
+                              float* y, float* dx, float* dw) {
+    float acc = 0.0f;
+    int any = 0;
+    for (int i = 0; i < n; ++i) {
+        acc += probe == 1 ? x[i] : 0.0f;
+        any |= probe == 3 && act[i] > 0.5f;
+    }
+    const bool live = probe == 1 ? acc > 0.0f : any != 0;
+    acc = 0.0f;
+    for (int i = 0; i < n; ++i) {
+        float dwi = 0.0f;
+        switch (probe) {
+            case 0: ckpt_element(x[i], w, g[i], dx + i, &dwi); break;
+            case 1: cond_element(x[i], g[i], live, y + i, dx + i); break;
+            case 2: nested_element(x[i], w, g[i], dx + i, &dwi); break;
+            default: gated_element(x[i], w, g[i], live, dx + i, &dwi);
+        }
+        acc += dwi;
+    }
+    *dw = acc;
 }
+""",
+    "probe_march": """
+extern "C" int harness_probe_march(const int32_t* const* ints,
+                                   const float* const* floats,
+                                   const int* params, float t_max,
+                                   const float* cam, int stage, int mat,
+                                   const float* org, const float* dir, int n,
+                                   float* out, int* steps, int* ent,
+                                   float* dsv) {
+    const Scene s = make_scene(ints, floats, params, t_max, cam);
+    if (scene_build(params) != BUILD_WARP || s.march_steps > TAPE_STEPS)
+        return 1;
+    float acc = 0.0f;
+    for (int i = 0; i < n; ++i) {
+        float part;
+        probe_lane(s, stage, mat, load4(org + 4 * i), load4(dir + 4 * i),
+                   out + i, steps + i, ent + i, &part);
+        acc += part;
+    }
+    if (stage != STAGE_FWD)
+        for (int i = 0; i < n; ++i) out[i] = out[i] + acc;
+    *dsv = acc;
+    return 0;
+}
+""",
+}
+MOSAIC = ("probe_ckpt", "probe_cond", "probe_nested", "probe_gated")
 
 
-def _flags(fma: bool, asan: bool) -> list:
+def _flags(asan: bool) -> list:
     flags = ["-O2", "-std=c++17", "-shared", "-fPIC", "-w", "-I", STUB,
-             "-I", CK.CSRC]
-    flags += (["-ffp-contract=fast", "-mfma", "-DFMA_EMU"] if fma
-              else ["-ffp-contract=off"])
+             "-I", CK.CSRC, "-ffp-contract=off"]
     if asan:
         flags += ["-fsanitize=address", "-fno-omit-frame-pointer"]
     return flags
 
 
-def build(fma: bool = False, asan: bool = False) -> dict:
+def build(asan: bool = False) -> dict:
     """Build the host libraries (one g++ process each, started together)
-    unless built already -> {"trace_fwd": path, "trace_bwd": path,
-    "trace_seg": path}."""
-    flags = _flags(fma, asan)
+    unless built already -> {name: path} for every source of _ENTRY."""
+    flags = _flags(asan)
     out, procs = {}, {}
     for name, entry in _ENTRY.items():
         with open(CK.SOURCES[name]) as f:
@@ -196,8 +244,8 @@ def build(fma: bool = False, asan: bool = False) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _entries(fma: bool, asan: bool):
-    libs = build(fma, asan)
+def _entries(asan: bool):
+    libs = build(asan)
     fwd = ctypes.CDLL(libs["trace_fwd"]).harness_fwd
     fwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_void_p]
                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -207,7 +255,12 @@ def _entries(fma: bool, asan: bool):
     bwd.argtypes = head + [ctypes.c_void_p] * 2
     seg = ctypes.CDLL(libs["trace_seg"]).harness_seg
     seg.argtypes = head + [ctypes.c_int] + [ctypes.c_void_p] * 4
-    return fwd, bwd, seg
+    p, i = ctypes.c_void_p, ctypes.c_int
+    mosaic = ctypes.CDLL(libs["probe_mosaic"]).harness_probe
+    mosaic.argtypes = [i, p, ctypes.c_float, p, p, i, p, p, p]
+    march = ctypes.CDLL(libs["probe_march"]).harness_probe_march
+    march.argtypes = [p, p, p, ctypes.c_float, p, i, i, p, p, i, p, p, p, p]
+    return fwd, bwd, seg, mosaic, march
 
 
 def _scene(static, tables, cam, time, y0):
@@ -219,13 +272,13 @@ def _scene(static, tables, cam, time, y0):
 
 
 def render(static, tables, cam, H, W, time=0.0, y0=0, rows=None,
-           fma=False, asan=False) -> torch.Tensor:
+           asan=False) -> torch.Tensor:
     """The forward kernel's body on CPU tables -> [rows or H, W, 3]."""
     R = H if rows is None else rows
     _, cam_row, (iptr, fptr, params, _ints) = _scene(static, tables, cam,
                                                      time, y0)
     out = torch.zeros((R, W, 3), dtype=torch.float32)
-    rc = _entries(fma, asan)[0](iptr, fptr, params, static.t_max,
+    rc = _entries(asan)[0](iptr, fptr, params, static.t_max,
                                 cam_row.data_ptr(), H, W, R, out.data_ptr())
     if rc != 0:
         raise RuntimeError(f"harness_fwd: build {rc} is not compiled")
@@ -233,7 +286,7 @@ def render(static, tables, cam, H, W, time=0.0, y0=0, rows=None,
 
 
 def vjp(static, tables, cam, H, W, g, time=0.0, y0=0, rows=None,
-        fma=False, asan=False, chunk_trips=None):
+        asan=False, chunk_trips=None):
     """The backward's device code in vjp mode on CPU tables under the
     cotangent g -> (d_tables, d_cam, d_time), the pixels' gradients summed
     in float64: pixel_backward (the tape kernel) or, with ``chunk_trips``,
@@ -247,7 +300,7 @@ def vjp(static, tables, cam, H, W, g, time=0.0, y0=0, rows=None,
     g = g.detach().to(torch.float32).contiguous()
     args = (iptr, fptr, params, static.t_max, sizes, cam_row.data_ptr(), H,
             W, R, g.data_ptr())
-    _, bwd, seg = _entries(fma, asan)
+    _, bwd, seg = _entries(asan)[:3]
     if chunk_trips is None:
         got = bwd(*args, acc.ctypes.data, gtex.data_ptr())
     else:
@@ -263,8 +316,7 @@ def vjp(static, tables, cam, H, W, g, time=0.0, y0=0, rows=None,
     return CB._grads(static, tables, cam, flat, gtex, floats)[:3]
 
 
-def compare(sc, H, W, fma=False, asan=False, seams=False,
-            chunk_trips=None) -> dict:
+def compare(sc, H, W, asan=False, seams=False, chunk_trips=None) -> dict:
     """Forward and vjp of the harness against the plain versions on the
     scene ``sc`` (an ir.Scene or a library scene's name): {"fwd_max",
     "fwd_bad" (pixels beyond 1e-4), "bwd_worst" (the worst leaf's error
@@ -284,7 +336,7 @@ def compare(sc, H, W, fma=False, asan=False, seams=False,
     static, t = compile_scene(sc)
     tables = tables_to_torch(t, CPU)
     cam = camera_to_torch(compile_camera(sc.camera), CPU)
-    got = render(static, tables, cam, H, W, fma=fma, asan=asan)
+    got = render(static, tables, cam, H, W, asan=asan)
     ref = trace.render_image(static, tables, cam, H, W)
     err = (got - ref).abs().amax(-1)
     keep = ~(err > 1e-4)
@@ -297,8 +349,7 @@ def compare(sc, H, W, fma=False, asan=False, seams=False,
     else:
         a = vjp_segmented(static, tables, cam, H, W, g,
                           chunk_trips=chunk_trips)
-    b = vjp(static, tables, cam, H, W, g, fma=fma, asan=asan,
-            chunk_trips=chunk_trips)
+    b = vjp(static, tables, cam, H, W, g, asan=asan, chunk_trips=chunk_trips)
     worst = (0.0, "")
     pairs = ([(k, getattr(a[0], k), getattr(b[0], k))
               for k in CK.FLOAT_FIELDS]
@@ -316,18 +367,102 @@ def compare(sc, H, W, fma=False, asan=False, seams=False,
             "bwd_worst": worst[0], "leaf": worst[1]}
 
 
+def mosaic(name, x, w, g, act=None, asan=False):
+    """probe_mosaic.cu's kernel ``name`` (one of MOSAIC) on CPU tensors ->
+    (dx, dw), or (y, dx) for probe_cond."""
+    x = x.detach().to(torch.float32).contiguous()
+    g = g.detach().to(torch.float32).contiguous()
+    if act is None:
+        act = (x > -1e9).to(torch.float32)
+    act = act.detach().to(torch.float32).contiguous()
+    y, dx = torch.zeros_like(x), torch.zeros_like(x)
+    dw = torch.zeros((), dtype=torch.float32)
+    _entries(asan)[3](MOSAIC.index(name), x.data_ptr(), float(w),
+                       g.data_ptr(), act.data_ptr(), x.numel(), y.data_ptr(),
+                       dx.data_ptr(), dw.data_ptr())
+    return (y, dx) if name == "probe_cond" else (dx, dw)
+
+
+def march_probe(static, tables, org, d, stage, asan=False) -> MP.ProbeOut:
+    """probe_march.cu's lanes on CPU tables -> ProbeOut."""
+    floats = CK._check_tables(static, tables, CPU)
+    iptr, fptr, params, _ints = CK.scene_args(static, floats, CPU,
+                                              CK.tex_shapes(tables))
+    cam = torch.zeros(24, dtype=torch.float32)
+    cam[17] = MP.TIME
+    org, d = org.contiguous(), d.contiguous()
+    shape = org.shape[:-1]
+    out = torch.zeros(shape, dtype=torch.float32)
+    steps = torch.zeros(shape, dtype=torch.int32)
+    ent = torch.zeros(shape, dtype=torch.int32)
+    dsv = torch.zeros((), dtype=torch.float32)
+    rc = _entries(asan)[4](iptr, fptr, params, static.t_max, cam.data_ptr(),
+                           MP.STAGES.index(stage), MP.WARP_MAT,
+                           org.data_ptr(), d.data_ptr(), out.numel(),
+                           out.data_ptr(), steps.data_ptr(), ent.data_ptr(),
+                           dsv.data_ptr())
+    if rc != 0:
+        raise RuntimeError("harness_probe_march refused the scene")
+    return MP.ProbeOut(out, steps, ent, dsv)
+
+
+def compare_mosaic(asan=False) -> dict:
+    """probe_mosaic.cu's kernels against the plain versions on the mosaic
+    tool's seeded tiles (P3 in both branches, P5 also dead) -> {name:
+    error}: dx's (and y's) largest difference over max |ref|, and dw's
+    relative difference."""
+    rng = np.random.default_rng
+    t = lambda a: torch.from_numpy(a.astype(np.float32))
+    errs = {}
+
+    def rel(ref, got):
+        return max(float((r - x).abs().max() / max(float(r.abs().max()), 1e-30))
+                   for r, x in zip(ref, got))
+
+    x, g = t(rng(0).normal(size=(8, 128))), t(rng(1).normal(size=(8, 128)))
+    errs["probe_ckpt"] = rel(PR.ckpt_scratch_plain(x, 0.7, g),
+                             mosaic("probe_ckpt", x, 0.7, g, asan=asan))
+    r = rng(2)
+    for shift in (1.0, -1.0):
+        x = t(r.normal(size=(8, 128)) + shift)
+        g = t(r.normal(size=(8, 128)))
+        errs[f"probe_cond{shift:+.0f}"] = rel(PR.cond_plain(x, g),
+                                              mosaic("probe_cond", x, 0.0, g,
+                                                     asan=asan))
+    x, g = t(rng(3).normal(size=(8, 128)) * 0.3), t(rng(4).normal(size=(8, 128)))
+    errs["probe_nested"] = rel(PR.nested_march_plain(x, 0.9, g),
+                               mosaic("probe_nested", x, 0.9, g, asan=asan))
+    x, g = t(rng(5).normal(size=(8, 128)) * 0.3), t(rng(6).normal(size=(8, 128)))
+    for tag, act in (("", None), ("_dead", torch.zeros_like(x))):
+        errs["probe_gated" + tag] = rel(
+            PR.gated_march_plain(x, 0.8, g, act),
+            mosaic("probe_gated", x, 0.8, g, act, asan))
+    return errs
+
+
+def compare_march(tile, stage, asan=False) -> dict:
+    """probe_march.cu's stage against march_probe_plain on the tool's or
+    the crossing tile -> march_probe.compare's dict."""
+    static, tables = MP.probe_scene()
+    org, d = MP.tool_tile() if tile == "tool" else MP.crossing_tile()
+    return MP.compare(MP.march_probe_plain(static, tables, org, d, stage),
+                      march_probe(static, tables, org, d, stage, asan))
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="euclider_tpu_torch.tools.kernel_harness",
                                 description=__doc__.split("\n\n")[0])
     p.add_argument("--scene", default="config3_csg_textured")
     p.add_argument("--size", default="160x90", help="WxH")
-    p.add_argument("--fma", action="store_true",
-                   help="allow FMA contraction, as nvcc's default does")
     p.add_argument("--asan", action="store_true",
                    help="build with AddressSanitizer (re-runs itself with "
                         "libasan preloaded)")
     p.add_argument("--seams", action="store_true",
                    help="zero the cotangent on image seams too")
+    p.add_argument("--probes", action="store_true",
+                   help="the probes instead of a scene: probe_mosaic.cu's "
+                        "kernels on the mosaic tool's tiles, probe_march.cu's "
+                        "stages on both tiles")
     p.add_argument("--chunk-trips", type=int, default=None,
                    help="run the segmented backward (K6 then K7) with chunks "
                         "of this many trips, against vjp_segmented")
@@ -341,8 +476,15 @@ def main(argv=None) -> int:
                                *(argv if argv is not None else sys.argv[1:])],
                               env=env).returncode
     W, H = (int(v) for v in args.size.lower().split("x"))
-    print(args.scene, compare(args.scene, H, W, args.fma, args.asan,
-                              args.seams, args.chunk_trips))
+    if args.probes:
+        print("mosaic", compare_mosaic(args.asan))
+        for tile in ("tool", "crossing"):
+            for stage in MP.STAGES:
+                print("march", tile, stage,
+                      compare_march(tile, stage, args.asan))
+        return 0
+    print(args.scene, compare(args.scene, H, W, args.asan, args.seams,
+                              args.chunk_trips))
     return 0
 
 

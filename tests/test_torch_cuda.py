@@ -1,6 +1,7 @@
-"""The CUDA kernels (csrc/trace_fwd.cu, csrc/trace_bwd.cu,
-csrc/probe_rev.cu) against their plain torch versions (ops/trace.py,
-ops/vjp.py, ops/probes.py).
+"""The CUDA kernels (csrc/trace_fwd.cu, csrc/trace_bwd.cu, csrc/trace_seg.cu,
+csrc/probe_rev.cu, csrc/probe_mosaic.cu, csrc/probe_march.cu) against their
+plain torch versions (ops/trace.py, ops/vjp.py, ops/probes.py,
+ops/march_probe.py).
 
 The card tests carry the ``cuda`` marker and skip without a CUDA device.
 This file imports neither jax nor the JAX package, so on the card (which has
@@ -524,6 +525,96 @@ def test_kernels_past_the_entity_and_parameter_caps(cuda):
                             2.0 * (got - target) / got.numel())
     assert abs(float(loss) - float(ref_loss)) <= 1e-5 * float(ref_loss)
     grads_close(ref[:2], (gt, gc))
+
+
+MOSAIC_CASES = {   # tools/mosaic_probe.py's seeds, scales and w
+    "ckpt": (0, 1, 1.0, 0.7), "nested": (3, 4, 0.3, 0.9),
+    "gated": (5, 6, 0.3, 0.8), "gated_dead": (5, 6, 0.3, 0.8)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ckpt", "cond+1", "cond-1", "nested",
+                                  "gated", "gated_dead"])
+def test_mosaic_probe_kernels_match_plain(cuda, case):
+    """csrc/probe_mosaic.cu's kernels against the plain versions on the
+    mosaic tool's tiles: within 1e-5 relative (P3 1e-6), one launch each;
+    P3 in both branches, P5 also on a dead tile."""
+    from euclider_tpu_torch.ops import probes as P
+    if case.startswith("cond"):
+        shift = 1.0 if case == "cond+1" else -1.0
+        x = cotangent((8, 128), 2, cuda) + shift
+        g = cotangent((8, 128), 3, cuda)
+        name, ref = "probe_cond", P.cond_plain(x, g)
+        before = P.MOSAIC_LAUNCHES[name]
+        got = P.cond_vjp(x, g)
+        rtol = 1e-6
+    else:
+        sx, sg, scale, w = MOSAIC_CASES[case]
+        x = cotangent((8, 128), sx, cuda) * scale
+        g = cotangent((8, 128), sg, cuda)
+        act = torch.zeros_like(x) if case == "gated_dead" else None
+        name, fn, plain = {
+            "ckpt": ("probe_ckpt", P.ckpt_scratch_vjp, P.ckpt_scratch_plain),
+            "nested": ("probe_nested", P.nested_march_vjp,
+                       P.nested_march_plain),
+            "gated": ("probe_gated", P.gated_march_vjp, P.gated_march_plain),
+            "gated_dead": ("probe_gated", P.gated_march_vjp,
+                           P.gated_march_plain)}[case]
+        extra = () if act is None else (act,)
+        ref = plain(x, w, g, *extra)
+        before = P.MOSAIC_LAUNCHES[name]
+        got = fn(x, w, g, *extra)
+        rtol = 1e-5
+    torch.cuda.synchronize()
+    assert P.MOSAIC_LAUNCHES[name] == before + 1
+    for a, b in zip(got, ref):
+        assert float((a - b).abs().max()) <= rtol * max(
+            float(b.abs().max()), 1e-30), (case, a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", ["tool", "crossing"])
+@pytest.mark.parametrize("stage", ["fwd", "vjp", "finish", "loop"])
+def test_march_probe_kernel_matches_plain(cuda, stage, tile):
+    """csrc/probe_march.cu against march_probe_plain on the tool's and the
+    crossing tile: every lane whose march agrees within
+    1e-5 * max(max |ref|, 1), at most 1% of lanes marching otherwise, one
+    launch; vjp (K4's rebuild) against finish (a stored tape) within 1e-5
+    relative."""
+    from euclider_tpu_torch.ops import march_probe as MP
+    static, tables = MP.probe_scene(cuda)
+    org, d = MP.tool_tile(cuda) if tile == "tool" else MP.crossing_tile(cuda)
+    before = MP.LAUNCHES
+    got = MP.march_probe(static, tables, org, d, stage)
+    ref = MP.march_probe_plain(static, tables, org, d, stage)
+    torch.cuda.synchronize()
+    assert MP.LAUNCHES == before + 1
+    res = MP.compare(ref, got)
+    assert MP.passes(res, got.out.numel()), res
+    if stage == "vjp":
+        tape = MP.march_probe(static, tables, org, d, "finish")
+        assert float((got.out - tape.out).abs().max()) <= 1e-5 * float(
+            tape.out.abs().max())
+
+
+def test_probe_wrappers_refuse_cpu_tensors():
+    """probe_mosaic's and probe_march's wrappers raise on CPU tensors
+    before any launch."""
+    from euclider_tpu_torch.ops import march_probe as MP
+    from euclider_tpu_torch.ops import probes as P
+    x = torch.zeros((8, 128))
+    before = (dict(P.MOSAIC_LAUNCHES), MP.LAUNCHES)
+    for call in (lambda: P.ckpt_scratch_cuda(x, 0.7, x),
+                 lambda: P.cond_cuda(x, x),
+                 lambda: P.nested_march_cuda(x, 0.9, x),
+                 lambda: P.gated_march_cuda(x, 0.8, x)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    static, tables = MP.probe_scene()
+    org, d = MP.tool_tile()
+    with pytest.raises(ValueError, match="CUDA"):
+        MP.march_probe_cuda(static, tables, org, d, "fwd")
+    assert (dict(P.MOSAIC_LAUNCHES), MP.LAUNCHES) == before
 
 
 def test_probe_rev_kernel_refuses_cpu_tensors():

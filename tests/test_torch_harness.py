@@ -5,7 +5,9 @@ against ops/trace.py, pixel_backward against ops/vjp.py::vjp_blocked and
 the segmented kernels' (K6 over the frame, then K7) against
 ops/vjp.py::vjp_segmented, on scenes of each build (straight, BUILD_SHAPES,
 the march and the expression VM) and past the tape's 63 nodes, the march's
-32 entities and a thread's 159 gradient entries.
+32 entities and a thread's 159 gradient entries; the probes' device code
+(csrc/probe_mosaic.cu, csrc/probe_march.cu) against ops/probes.py and
+ops/march_probe.py.
 Without contraction the device code rounds as the plain version's separate
 torch operations do, so the forward matches it to the last bit here.
 """
@@ -13,6 +15,7 @@ import shutil
 
 import pytest
 
+from euclider_tpu_torch.ops import march_probe as MP
 from euclider_tpu_torch.scene import ir
 from euclider_tpu_torch.tools import kernel_harness as KH
 from test_torch_cuda import deep_scene, spheres_scene
@@ -81,3 +84,35 @@ def test_device_code_past_the_entity_and_parameter_caps(harness):
     out = harness.compare(spheres_scene(), 24, 32)
     assert out["fwd_bad"] == 0 and out["fwd_max"] <= 1e-6, out
     assert out["bwd_worst"] <= 1.0, out
+
+
+def test_mosaic_probe_device_code_matches_plain(harness):
+    """probe_mosaic.cu's four kernels on the mosaic tool's tiles (P3 in both
+    branches, P5 also dead) against the plain versions: within 1e-5
+    relative, P3 within 1e-6."""
+    errs = harness.compare_mosaic()
+    assert len(errs) == 6, errs
+    for name, err in errs.items():
+        assert err <= (1e-6 if name.startswith("probe_cond") else 1e-5), errs
+
+
+@pytest.mark.parametrize("stage", MP.STAGES)
+def test_march_probe_device_code_matches_plain(harness, stage):
+    """probe_march.cu's stage on the crossing tile against
+    march_probe_plain: every lane within 1e-5 * max(max |ref|, 1), no lane
+    marching otherwise, and the crossings reached."""
+    out = harness.compare_march("crossing", stage)
+    assert out["flipped"] == 0 and out["max_err"] <= out["limit"], out
+    assert 0.25 <= out["crossed"] < 0.75, out
+    assert (out["dsv"] != 0.0) == (stage in ("vjp", "finish")), out
+
+
+def test_march_probe_rebuild_matches_the_stored_tape(harness):
+    """The vjp stage (K4's rebuild) against the finish stage (a stored tape
+    of every step's state) on the crossing tile: within 1e-5 relative."""
+    static, tables = MP.probe_scene()
+    org, d = MP.crossing_tile()
+    a = harness.march_probe(static, tables, org, d, "vjp")
+    b = harness.march_probe(static, tables, org, d, "finish")
+    assert float((a.out - b.out).abs().max()) <= 1e-5 * float(
+        b.out.abs().max())

@@ -29,6 +29,10 @@ def test_package_imports_no_jax():
             "import euclider_tpu_torch.ops.vjp\n"
             "import euclider_tpu_torch.ops.march\n"
             "import euclider_tpu_torch.ops.probes\n"
+            "import euclider_tpu_torch.ops.march_probe\n"
+            "import euclider_tpu_torch.tools.mosaic_probe\n"
+            "import euclider_tpu_torch.tools.march_bisect\n"
+            "import euclider_tpu_torch.tools.kernel_harness\n"
             "import euclider_tpu_torch.train.inverse\n"
             "import euclider_tpu_torch.train.fit\n"
             "import euclider_tpu_torch.utils.validate\n"
