@@ -52,7 +52,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   8. time    - ms/frame of the render, ms/step of the fused and unfused
                training steps (CUDA events, median of 5 after warm-up), the
                kernels' device time from torch.profiler, and the plain
-               versions' times.
+               versions' times; beside trace_bwd's, its launch
+               configuration (threads a block, dynamic shared memory,
+               active blocks an SM, where the gradient vector lives:
+               cuda_bwd.launch_config).
   9. probe   - probe_rev (csrc/probe_rev.cu) against rev_march_plain on one
                (8, 128) tile: dx and dw within 1e-5 relative; its times.
                The probes' path: every stage of the march-bisect probe P1
@@ -822,6 +825,7 @@ def timing(name, device, card):
         out["vjp_device_ms"] = device_ms(
             lambda: cuda_bwd.vjp_cuda(static, tables, cam, H, W, g),
             ["trace_bwd_kernel"])["trace_bwd_kernel"]
+        out["bwd_config"] = cuda_bwd.launch_config(static, tables)
     for k, v in out.items():
         if isinstance(v, float):
             say("time", f"{name} {k}: {v:.4f}" + (
@@ -1382,7 +1386,10 @@ def main() -> int:
                   "(the texels' gradient by atomics) and portals; K4: the "
                   "reversible march backward through the attractor field and "
                   "the expression VM's adjoint (trace_adj.cuh vm_adjoint: "
-                  "mat_expr_params and the scene time)",
+                  "mat_expr_params and the scene time); redesigned for the "
+                  "H100: the gradient vector in the block's shared memory "
+                  "where it fits, chosen by size (bwd_config), the march's "
+                  "checkpoints recorded in the forward sweep",
         "launches": train_launches["trace_bwd"],
         "max_abs_err": max(b["vjp_err"] for b in bwd.values()),
         "ms": gp["bwd_device_ms"], "plain_ms": bwd["grad_probe"]["plain_ms"],
@@ -1392,7 +1399,7 @@ def main() -> int:
         "card": card, "train_losses": losses,
         "scenes": {n: dict(bwd[n], **{k: times[n][k] for k in (
             "fused_step_ms", "unfused_step_ms", "bwd_device_ms",
-            "sum_device_ms", "vjp_device_ms", "bwd_bound_ms")
+            "sum_device_ms", "vjp_device_ms", "bwd_bound_ms", "bwd_config")
             if n in times}) for n in bwd}}, {
         "name": "probe_rev", "route": "cuda",
         "source": "euclider_tpu_torch/csrc/probe_rev.cu",

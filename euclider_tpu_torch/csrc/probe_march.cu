@@ -138,7 +138,7 @@ __device__ void probe_lane(const Scene& s, int stage, int mat, V4 o, V4 d,
             float grad[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
             MarchTape mt;
             march_replay<false>(f, o, d, m.n, &mt);
-            march_reverse<false, false>(off, 0, f, mt, m.n, g_sx0, g_sx1, dd,
+            march_reverse<false, ACC_LOCAL>(off, 0, f, mt, m.n, g_sx0, g_sx1, dd,
                                         grad, &d_org, &d_dir);
         }
         *dsv = dc.x + dc.y + dc.z + dc.w;

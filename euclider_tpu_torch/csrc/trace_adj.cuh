@@ -26,20 +26,30 @@
 //
 // Gradient sums across pixels: each thread accumulates its gradient of
 // every parameter (the 24-float camera row, then the float tables in the
-// order of ops/cuda_kernel.py FLOAT_FIELDS, then the loss); the block sums
-// them in a fixed order (warp shuffles, then the warps) and writes one
+// order of ops/cuda_kernel.py FLOAT_FIELDS, then the loss) in its own
+// vector; the block sums the vectors in a fixed order and writes one
 // column of partial sums per block; a second small kernel sums the blocks,
-// again in a fixed order.  A thread holds the first MAX_PARAMS entries in
-// local memory, and these sums use no atomics and are deterministic.  Two
-// kinds of entries are summed with atomicAdd, in an order that may change
-// from run to run: the entries from MAX_PARAMS on of a scene with more
-// parameters (each thread adds them into its block's column of partial
-// sums, which the second kernel then sums in its fixed order), and the
-// textures' gradient (12,288 floats for one 64 x 64 texture): each
-// textured node adds its four texels' 3 channels into a separate device
-// buffer, which stays in L2 (48 KB per 64 x 64 texture).  The per-thread
-// vector holds only the tables the build reads, since every thread
-// reduces all of it.
+// again in a fixed order.  The first MAX_PARAMS entries use no atomics and
+// are deterministic.  Where the thread's vector lives is the template
+// parameter kAcc, which the launch picks by size (bwd_plan, below):
+// ACC_SHARED, a column of the block's dynamic shared memory (entry i of
+// thread t at acc[i * ACC_STRIDE + t]); ACC_LOCAL, the thread's local
+// memory; ACC_WIDE, local up to MAX_PARAMS entries.  A local vector costs
+// its bytes: zeroing, accumulating and reading back up to 160 floats a
+// thread in local memory took 27-54% of the tape kernel's time on the
+// H100 (PERF.md §6).  The block's sum (block_partials) runs on
+// shared memory in both: lane l of each warp sums row l over the warp's
+// 32 threads in order, then one thread a row sums the warps in order; a
+// local vector goes through its warp's small tile first.  Two kinds of
+// entries are summed with atomicAdd, in an order that may change from run
+// to run: the entries from MAX_PARAMS on of a scene with more parameters
+// (each thread adds them into its block's column of partial sums, which
+// the second kernel then sums in its fixed order), and the textures'
+// gradient (12,288 floats for one 64 x 64 texture): each textured node
+// adds its four texels' 3 channels into a separate device buffer, which
+// stays in L2 (48 KB per 64 x 64 texture).  The vector holds only the
+// tables the build reads, since every thread zeroes and reduces all of
+// it.
 //
 // Each of the two kernel sources is its own translation unit, so that
 // each kernel inlines these functions at its one call site.
@@ -56,9 +66,16 @@ constexpr int MAX_TAPE = 63;      // nodes of a tape: the tape kernel's
                                   // max_nodes, the segmented one's chunk
 constexpr int MAX_PARAMS = 160;   // gradient entries a thread holds itself
 constexpr int BLOCK_X = 32, BLOCK_Y = 8;
-constexpr int NWARPS = BLOCK_X * BLOCK_Y / 32;
-constexpr int MARCH_CB = 16;      // march steps per checkpoint (K4)
-constexpr int MAX_MARCH_CK = 32;  // checkpoints: march_steps <= 512
+constexpr int NTHREADS = BLOCK_X * BLOCK_Y;
+constexpr int NWARPS = NTHREADS / 32;
+// rows of the block's gradient sums in shared memory: a column a thread
+// and one padding word, so that a warp's lanes reading row l + k of their
+// own warp's columns hit 32 banks
+constexpr int ACC_STRIDE = NTHREADS + 1;
+// where a thread's gradient vector lives (kAcc)
+constexpr int ACC_LOCAL = 0;      // local memory, at most MAX_PARAMS entries
+constexpr int ACC_WIDE = 1;       // local, entries past MAX_PARAMS atomic
+constexpr int ACC_SHARED = 2;     // a column of the block's shared memory
 
 // offsets of each table in the gradient vector (the camera row is [0, 24))
 struct Offs {
@@ -93,28 +110,38 @@ inline Offs make_offs(const int* sizes) {
     return off;
 }
 
-// A thread's gradient vector: entries [0, MAX_PARAMS) in the thread's own
-// array grad, summed over the block in a fixed order.  A scene of more
-// parameters takes the kernels' wide builds (kWide): there an entry i from
-// MAX_PARAMS on goes by atomicAdd straight into the block's partial sum,
-// ext_col[(i - MAX_PARAMS) * ext_stride], which the kernel sets before its
-// threads start (thread_grad).  The other builds run the code they ran
-// before the wide ones existed.
+// A thread's gradient vector: entries [0, MAX_PARAMS) at grad[i] (its own
+// local array) or grad[i * ACC_STRIDE] (its column of shared memory),
+// summed over the block in a fixed order.  A scene of more parameters
+// takes ACC_WIDE: there an entry i from MAX_PARAMS on goes by atomicAdd
+// straight into the block's partial sum, ext_col[(i - MAX_PARAMS) *
+// ext_stride], which the kernel sets before its threads start
+// (thread_grad).
 __shared__ float* ext_col;
 __shared__ long long ext_stride;
 
-template <bool kWide>
+template <int kAcc>
 __device__ __forceinline__ void gadd(float* grad, int i, float v) {
-    if (!kWide || i < MAX_PARAMS) grad[i] += v;
+    if constexpr (kAcc == ACC_SHARED) grad[i * ACC_STRIDE] += v;
+    else if (kAcc == ACC_LOCAL || i < MAX_PARAMS) grad[i] += v;
     else atomicAdd(ext_col + (i - MAX_PARAMS) * ext_stride, v);
 }
 
-template <bool kWide>
+// The block's dynamic shared memory (the CPU harness's stand-in has none:
+// it runs the block's phases on buffers of its own).
+#ifdef __CUDACC__
+__device__ __forceinline__ float* dyn_smem() {
+    extern __shared__ float4 trace_smem[];
+    return reinterpret_cast<float*>(trace_smem);
+}
+#endif
+
+template <int kAcc>
 __device__ __forceinline__ void gadd4(float* grad, int i, V4 v) {
-    gadd<kWide>(grad, i, v.x);
-    gadd<kWide>(grad, i + 1, v.y);
-    gadd<kWide>(grad, i + 2, v.z);
-    gadd<kWide>(grad, i + 3, v.w);
+    gadd<kAcc>(grad, i, v.x);
+    gadd<kAcc>(grad, i + 1, v.y);
+    gadd<kAcc>(grad, i + 2, v.z);
+    gadd<kAcc>(grad, i + 3, v.w);
 }
 
 template <bool kWarp>
@@ -544,12 +571,8 @@ __device__ __forceinline__ void leaf_normal_adj(bool sphere, bool cyl, V4 p,
 // every instruction's value) and vm_adjoint takes the step's field
 // cotangent back through it.
 
-struct MarchTape {
-    V4 ckx[MAX_MARCH_CK], ckv[MAX_MARCH_CK];  // state at each chunk's start
-    V4 xb, xe, ve;   // state before the last step (sx0), after it (sx1, sv)
-};
-
-// Re-march the n steps of a marched node from its input.
+// Re-march the n steps of a marched node from its input (what the tape
+// backward's forward sweep records, trace_common.cuh march with kRec).
 template <bool kExpr>
 __device__ __forceinline__ void march_replay(const Field<kExpr>& f, V4 org,
                                              V4 d0, int n, MarchTape* mt) {
@@ -615,7 +638,7 @@ __device__ __forceinline__ void march_replay(const Field<kExpr>& f, V4 org,
 // slots (g_sx0, g_sx1, g_sv) to those of its input (d_org, d_dir), adding
 // the field's gradients into grad: centre and strength of an attractor,
 // p0..p7 and the scene time of an expression, the step h of both.
-template <bool kExpr, bool kWide>
+template <bool kExpr, int kAcc>
 __device__ void march_reverse(const Offs& off, int mat, const Field<kExpr>& f,
                               const MarchTape& mt, int n, V4 g_sx0, V4 g_sx1,
                               V4 g_sv, float* grad, V4* d_org, V4* d_dir) {
@@ -661,13 +684,13 @@ __device__ void march_reverse(const Offs& off, int mat, const Field<kExpr>& f,
     if (expr) {
 #pragma unroll
         for (int k = 0; k < 8; ++k)
-            gadd<kWide>(grad, off.ep + 8 * mat + k, gp[k]);
-        gadd<kWide>(grad, CAM_TIME, gt);
+            gadd<kAcc>(grad, off.ep + 8 * mat + k, gp[k]);
+        gadd<kAcc>(grad, CAM_TIME, gt);
     } else {
-        gadd4<kWide>(grad, off.wc + 4 * mat, gc);
-        gadd<kWide>(grad, off.ws + mat, gs);
+        gadd4<kAcc>(grad, off.wc + 4 * mat, gc);
+        gadd<kAcc>(grad, off.ws + mat, gs);
     }
-    gadd<kWide>(grad, off.wh + mat, gh);
+    gadd<kAcc>(grad, off.wh + mat, gh);
     *d_org = gx;
     *d_dir = gv;
 }
@@ -687,14 +710,16 @@ __device__ __forceinline__ float rec_lam(const NodeRec<false>&) {
 // Recompute node `in` under its recorded decisions and return the adjoint
 // of its input slot (origin, direction, weight), given the cotangent G of
 // the pixel colour and the input adjoints of the children it shaded; the
-// textures' gradient goes to gtex.
-template <int kB, bool kWide>
+// textures' gradient goes to gtex.  A marched node's checkpoints are
+// re-marched (march_replay) unless the forward sweep recorded them in
+// *mrec (BUILD_TAPE).
+template <int kB, int kAcc>
 __device__ void node_adj(const Scene& s, const Offs& off,
                          const TapeNode<has_march(kB)>& T,
                          const float G[3],
                          const TapeNode<has_march(kB)>* tape,
                          float* grad, float* gtex, V4* d_org, V4* d_dir,
-                         float* d_w) {
+                         float* d_w, const MarchTape* mrec = nullptr) {
     constexpr bool kWarp = has_march(kB);
     constexpr bool kExpr = has_vm(kB);
     constexpr bool kShapes = has_shapes(kB);
@@ -707,7 +732,7 @@ __device__ void node_adj(const Scene& s, const Offs& off,
     if (T.rec.ent < 0) {  // miss: w * background
 #pragma unroll
         for (int ch = 0; ch < 3; ++ch) {
-            gadd<kWide>(grad, off.bg + ch, w * G[ch]);
+            gadd<kAcc>(grad, off.bg + ch, w * G[ch]);
             *d_w += G[ch] * s.background[ch];
         }
         return;
@@ -731,12 +756,16 @@ __device__ void node_adj(const Scene& s, const Offs& off,
     float w2 = 1.0f, cc = 0.0f, ka = 0.0f, kd = 0.0f;  // cylinder
     V4 oc = vzero(), cq = vzero(), cw = vzero(), p, d;
     Field<kExpr> f;
-    MarchTape mt;
+    MarchTape replayed;
+    const MarchTape* mt = &replayed;
     if (marched) {
         f = field<kExpr>(s, T.mat);
-        march_replay<kExpr>(f, o, T.dir, rec_n(T.rec), &mt);
-        p = lerp_rn(mt.xb, mt.xe, rec_lam(T.rec));
-        d = mt.ve;
+        if (has_march_rec(kB) && mrec)
+            mt = mrec;
+        else
+            march_replay<kExpr>(f, o, T.dir, rec_n(T.rec), &replayed);
+        p = lerp_rn(mt->xb, mt->xe, rec_lam(T.rec));
+        d = mt->ve;
     } else {
         d = T.dir;
         if (sphere) {
@@ -815,13 +844,13 @@ __device__ void node_adj(const Scene& s, const Offs& off,
         const V4 q = matvec(lin, d);
         const V4 dq = normalize_adj(q, madd(C.dir, PUSH, C.org));
         const V4 dpp = C.org;
-        gadd4<kWide>(grad, off.ptr + 4 * portal, dpp);
+        gadd4<kAcc>(grad, off.ptr + 4 * portal, dpp);
         const int gl = off.plin + 16 * portal;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
 #pragma unroll
             for (int j = 0; j < 4; ++j)
-                gadd<kWide>(grad, gl + 4 * i + j, comp(dpp, i) * comp(p, j)
+                gadd<kAcc>(grad, gl + 4 * i + j, comp(dpp, i) * comp(p, j)
                                          + comp(dq, i) * comp(d, j));
         }
         dp = add(dp, matvec_t(lin, dpp));
@@ -856,8 +885,8 @@ __device__ void node_adj(const Scene& s, const Offs& off,
         dci += dk * (eta * eta * 2.0f * ci);
         dd = madd(dd, -dci, n);
         dn = madd(dn, -dci, d);
-        gadd<kWide>(grad, off.ior + T.mat, deta / ib);
-        gadd<kWide>(grad, off.ior + m_to, -deta * ia / (ib * ib));
+        gadd<kAcc>(grad, off.ior + T.mat, deta / ib);
+        gadd<kAcc>(grad, off.ior + m_to, -deta * ia / (ib * ib));
         dw += C.w * (1.0f - refl) * (1.0f - alpha);
         drefl += -C.w * w * (1.0f - alpha);
         dcol[3] += -C.w * w * (1.0f - refl);
@@ -879,8 +908,8 @@ __device__ void node_adj(const Scene& s, const Offs& off,
     }
 
     // ---- Schlick: refl = refl0 + (1 - refl0) fres (1 - cos)^5 ----
-    gadd<kWide>(grad, off.refl + sf, drefl * (1.0f - fres * m5));
-    gadd<kWide>(grad, off.fres + sf, drefl * (1.0f - refl0) * m5);
+    gadd<kAcc>(grad, off.refl + sf, drefl * (1.0f - fres * m5));
+    gadd<kAcc>(grad, off.fres + sf, drefl * (1.0f - refl0) * m5);
     const float dm1 = drefl * (1.0f - refl0) * fres * 5.0f * (m2 * m2);
     if (cos_raw >= 0.0f && cos_raw <= 1.0f) {   // the clamp passes it
         const float dcos = -dm1;
@@ -900,15 +929,15 @@ __device__ void node_adj(const Scene& s, const Offs& off,
         float df = 0.0f;
 #pragma unroll
         for (int ch = 0; ch < 4; ++ch) {
-            gadd<kWide>(grad, off.col + 4 * sf + ch, dcol[ch] * (1.0f - f));
-            gadd<kWide>(grad, off.col2 + 4 * sf + ch, dcol[ch] * f);
+            gadd<kAcc>(grad, off.col + 4 * sf + ch, dcol[ch] * (1.0f - f));
+            gadd<kAcc>(grad, off.col2 + 4 * sf + ch, dcol[ch] * f);
             df += dcol[ch] * (c2[ch] - c1[ch]);
         }
         const float dA = df * 0.25f * (1.0f + sb) * cosf(A);
         const float dB = df * 0.25f * (1.0f + sa) * cosf(B);
         du = dA * TWO_PI_F * uvs;
         dv = dB * TWO_PI_F * uvs;
-        gadd<kWide>(grad, off.uvs + sf, dA * TWO_PI_F * u + dB * TWO_PI_F * v);
+        gadd<kAcc>(grad, off.uvs + sf, dA * TWO_PI_F * u + dB * TWO_PI_F * v);
     } else if (kShapes && skind == SURF_PERLIN) {
         // col = c1 + (c2 - c1) f, f the clipped fBm
         const float uvs = s.surf_uv_scale[sf];
@@ -919,19 +948,19 @@ __device__ void node_adj(const Scene& s, const Offs& off,
         float df = 0.0f;
 #pragma unroll
         for (int ch = 0; ch < 4; ++ch) {
-            gadd<kWide>(grad, off.col + 4 * sf + ch, dcol[ch] * (1.0f - f));
-            gadd<kWide>(grad, off.col2 + 4 * sf + ch, dcol[ch] * f);
+            gadd<kAcc>(grad, off.col + 4 * sf + ch, dcol[ch] * (1.0f - f));
+            gadd<kAcc>(grad, off.col2 + 4 * sf + ch, dcol[ch] * f);
             df += dcol[ch] * (c2[ch] - c1[ch]);
         }
         float dsc;
         perlin_adj(u, v, uvs, oct, seedk, df, &du, &dv, &dsc);
-        gadd<kWide>(grad, off.uvs + sf, dsc);
+        gadd<kAcc>(grad, off.uvs + sf, dsc);
     } else if (kShapes && skind == SURF_TEXTURE) {
         // rgb the bilinear sample, alpha surf_color[3]
-        gadd<kWide>(grad, off.col + 4 * sf + 3, dcol[3]);
+        gadd<kAcc>(grad, off.col + 4 * sf + 3, dcol[3]);
         float dsc;
         texture_adj(s, sf, u, v, dcol, gtex, &du, &dv, &dsc);
-        gadd<kWide>(grad, off.uvs + sf, dsc);
+        gadd<kAcc>(grad, off.uvs + sf, dsc);
     } else {
         int base = off.col;
         if (skind == SURF_CHECKER) {
@@ -941,7 +970,7 @@ __device__ void node_adj(const Scene& s, const Offs& off,
         }
 #pragma unroll
         for (int ch = 0; ch < 4; ++ch)
-            gadd<kWide>(grad, base + 4 * sf + ch, dcol[ch]);
+            gadd<kAcc>(grad, base + 4 * sf + ch, dcol[ch]);
     }
     if (skind == SURF_SMOOTH ||
         (kShapes && (skind == SURF_PERLIN || skind == SURF_TEXTURE)))
@@ -954,11 +983,11 @@ __device__ void node_adj(const Scene& s, const Offs& off,
     if (marched) {
         // ---- p = sx0 (1 - lambda) + sx1 lambda, d = sv: the march (K4) ----
         const float lam = rec_lam(T.rec);
-        march_reverse<kExpr, kWide>(off, T.mat, f, mt, rec_n(T.rec),
-                             scale(dp, 1.0f - lam), scale(dp, lam), dd, grad,
-                             &dorg, &dd);
-        gadd4<kWide>(grad, off.sv + 4 * row, dc);
-        if (cyl) gadd4<kWide>(grad, off.sv + 4 * row + 4, da);
+        march_reverse<kExpr, kAcc>(off, T.mat, f, *mt, rec_n(T.rec),
+                                   scale(dp, 1.0f - lam), scale(dp, lam), dd,
+                                   grad, &dorg, &dd);
+        gadd4<kAcc>(grad, off.sv + 4 * row, dc);
+        if (cyl) gadd4<kAcc>(grad, off.sv + 4 * row + 4, da);
         *d_org = dorg;
         *d_dir = dd;
         *d_w = dw;
@@ -978,7 +1007,7 @@ __device__ void node_adj(const Scene& s, const Offs& off,
         db += 2.0f * b * ddisc;
         const float dq = -ddisc;
         V4 doc = scale(oc, 2.0f * dq);
-        gadd<kWide>(grad, off.ssc + row, -2.0f * sc * dq);
+        gadd<kAcc>(grad, off.ssc + row, -2.0f * sc * dq);
         doc = madd(doc, db, d);
         dd = madd(dd, db, oc);
         dorg = add(dorg, doc);
@@ -994,7 +1023,7 @@ __device__ void node_adj(const Scene& s, const Offs& off,
         const float dqw = db / w2;
         const float dqq = dcc / w2;
         const float dw2 = -(db * b + dcc * cc) / w2;
-        gadd<kWide>(grad, off.ssc + row, -2.0f * sc * dqq);
+        gadd<kAcc>(grad, off.ssc + row, -2.0f * sc * dqq);
         const V4 dq = madd(scale(cw, dqw), 2.0f * dqq, cq);
         const V4 dcw = madd(scale(cq, dqw), 2.0f * dw2, cw);
         const float dkd = -dot(dcw, ca);
@@ -1008,21 +1037,21 @@ __device__ void node_adj(const Scene& s, const Offs& off,
     } else {
         const float dnum = dt / nd;
         const float dnd = -dt * t / nd;
-        gadd<kWide>(grad, off.ssc + row, dnum);
+        gadd<kAcc>(grad, off.ssc + row, dnum);
         dc = madd(dc, -dnum, o);
         dorg = madd(dorg, -dnum, c);
         dc = madd(dc, dnd, d);
         dd = madd(dd, dnd, c);
     }
-    gadd4<kWide>(grad, off.sv + 4 * row, dc);
-    if (cyl) gadd4<kWide>(grad, off.sv + 4 * row + 4, da);
+    gadd4<kAcc>(grad, off.sv + 4 * row, dc);
+    if (cyl) gadd4<kAcc>(grad, off.sv + 4 * row + 4, da);
     *d_org = dorg;
     *d_dir = dd;
     *d_w = dw;
 }
 
 // Adjoint of camera_ray for pixel (x, y): d(direction) -> the camera row.
-template <bool kWide>
+template <int kAcc>
 __device__ void camera_adj(const float* cam, int x, int y, int H, int W,
                            V4 dd0, float* grad) {
     const V4 F = load4(cam + 4), U = load4(cam + 8), R = load4(cam + 12);
@@ -1046,7 +1075,7 @@ __device__ void camera_adj(const float* cam, int x, int y, int H, int W,
     V4 df = dD;
     V4 drt = scale(dD, ndx);
     const V4 duu = scale(dD, ndy);
-    gadd<kWide>(grad, 16, dot(dD, rt) * sx * aspect + dot(dD, uu) * sy);
+    gadd<kAcc>(grad, 16, dot(dD, rt) * sx * aspect + dot(dD, uu) * sy);
     // uu = normalize(u1 - k2 rt), k2 = u1 . rt
     const V4 dw2 = normalize_adj(w2, duu);
     V4 du1 = dw2;
@@ -1067,15 +1096,15 @@ __device__ void camera_adj(const float* cam, int x, int y, int H, int W,
     const float dk1 = -dot(dr1, f);
     dR = madd(dR, dk1, f);
     df = madd(df, dk1, R);
-    gadd4<kWide>(grad, 4, normalize_adj(F, df));
-    gadd4<kWide>(grad, 8, dU);
-    gadd4<kWide>(grad, 12, dR);
+    gadd4<kAcc>(grad, 4, normalize_adj(F, df));
+    gadd4<kAcc>(grad, 8, dU);
+    gadd4<kAcc>(grad, 12, dR);
 }
 
 // The colour cotangent G of pixel (x, y) of the slab: in vjp mode the
 // caller's g; fused, 2 norm (acc - target), with the loss term
 // norm |acc - target|^2 added into the gradient vector.
-template <bool kWide>
+template <int kAcc>
 __device__ __forceinline__ void seed(const Offs& off, const float* gin,
                                      int x, int y, int W, const float acc[3],
                                      float norm, bool fused, float* grad,
@@ -1089,7 +1118,7 @@ __device__ __forceinline__ void seed(const Offs& off, const float* gin,
             l += r * r;
             G[ch] = r * (2.0f * norm);
         }
-        gadd<kWide>(grad, off.loss, l * norm);
+        gadd<kAcc>(grad, off.loss, l * norm);
     } else {
         G[0] = gp[0];
         G[1] = gp[1];
@@ -1099,43 +1128,124 @@ __device__ __forceinline__ void seed(const Offs& off, const float* gin,
 
 // --- the kernels' common parts ----------------------------------------------
 
-// The block's sums of its threads' own gradient entries, in a fixed order
-// (warp shuffles, then the warps in order), into its column of partials
-// [p * n_blocks + block]; the entries from MAX_PARAMS on are there already.
-template <bool kWide>
-__device__ __forceinline__ void block_partials(const Offs& off,
-                                               const float* grad,
-                                               float* partials) {
-    __shared__ float red[NWARPS][MAX_PARAMS];
-    const int np = kWide ? MAX_PARAMS : off.n;
+// The block's sums of its threads' gradient vectors, in a fixed order:
+// each warp's 32 threads in order, then the warps in order.  A shared
+// vector is summed where it lies (row r of thread t at acc[r * ACC_STRIDE
+// + t]): lane l of warp w sums row l of its warp's 32 columns
+// (warp_row_sums), a __syncthreads, then one thread a row sums the warps
+// (block_row_sums).  A local vector goes through its warp's tile of
+// shared memory, a chunk of rows at a time (tile_put, then tile_sums into
+// the warp's row red[w * MAX_PARAMS + p] of partial sums, each after a
+// __syncwarp), and after a __syncthreads block_row_sums sums red.  One
+// shared load an entry a thread, and for a local vector one local load
+// and one shared store more; the 33rd word of ACC_STRIDE and TILE_STRIDE
+// puts a warp's lanes reading their rows on 32 banks.  The CPU harness
+// runs these phases the same way, each over every thread before the next
+// (tools/kernel_harness.py block_sums).  The tiles are TILE_ROWS rows: a
+// few, so that L1 keeps what the tape spills (a 32-row tile, 39 KB of
+// shared memory a block, made config5's backward 3-6% slower, PERF.md §6).
+constexpr int TILE_STRIDE = 33;
+constexpr int TILE_ROWS = 8;
+
+// Thread tid's entries [p0, p0 + m) into rows [0, m) of its lane's column
+// of its warp's tile.
+__device__ __forceinline__ void tile_put(float* tile, const float* grad,
+                                         int p0, int m, int lane) {
+    for (int r = 0; r < m; ++r) tile[r * TILE_STRIDE + lane] = grad[p0 + r];
+}
+
+// Lane l < m: the sum of row l of its warp's tile over the 32 lanes, in
+// order, into red[l].
+__device__ __forceinline__ void tile_sums(const float* tile, int m, int lane,
+                                          float* red) {
+    if (lane >= m) return;
+    const float* row = tile + lane * TILE_STRIDE;
+    float v = row[0];
+#pragma unroll
+    for (int k = 1; k < 32; ++k) v += row[k];
+    red[lane] = v;
+}
+
+// Lane l of thread tid's warp sums rows l, l + 32, ... below m of acc over
+// the warp's 32 columns in order and leaves each sum in the row's column
+// of the warp's first thread.
+__device__ __forceinline__ void warp_row_sums(float* acc, int m, int tid) {
+    const int col = tid & ~31;
+    for (int r = tid & 31; r < m; r += 32) {
+        float* row = acc + r * ACC_STRIDE + col;
+        float v = row[0];
+#pragma unroll
+        for (int k = 1; k < 32; ++k) v += row[k];
+        row[0] = v;
+    }
+}
+
+// Thread tid sums the warps' sums of rows tid, tid + NTHREADS, ... below
+// m, warps in order, into out[r * out_stride]: row r of warp w at
+// sums[r * row_stride + w * warp_stride].
+__device__ __forceinline__ void block_row_sums(const float* sums,
+                                               int row_stride,
+                                               int warp_stride, int m,
+                                               int tid, float* out,
+                                               long long out_stride) {
+    for (int r = tid; r < m; r += NTHREADS) {
+        const float* row = sums + r * row_stride;
+        float v = row[0];
+#pragma unroll
+        for (int w = 1; w < NWARPS; ++w) v += row[w * warp_stride];
+        out[r * out_stride] = v;
+    }
+}
+
+// Floats of shared memory block_partials needs for a local vector: the
+// warps' partial sums and tiles (13.6 KB).
+constexpr int LOCAL_SUMS_FLOATS =
+    NWARPS * (MAX_PARAMS + TILE_ROWS * TILE_STRIDE);
+
+// The block's sums of its threads' own gradient entries (the first
+// MAX_PARAMS) into its column of partials [p * n_blocks + block]; the
+// entries from MAX_PARAMS on are there already.  grad: the thread's
+// column of shared memory (ACC_SHARED) or its local vector, which goes
+// through `work` (LOCAL_SUMS_FLOATS floats of shared memory).
+template <int kAcc>
+__device__ __forceinline__ void block_partials(const Offs& off, float* grad,
+                                               float* partials, float* work) {
+    const int np = min(off.n, MAX_PARAMS);
     const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
     const int lane = tid & 31, warp = tid >> 5;
-    for (int p = 0; p < np; ++p) {
-        float v = grad[p];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-        if (lane == 0) red[warp][p] = v;
-    }
-    __syncthreads();
     const int n_blocks = gridDim.x * gridDim.y;
-    const int blk = blockIdx.y * gridDim.x + blockIdx.x;
-    for (int p = tid; p < np; p += BLOCK_X * BLOCK_Y) {
-        float v = 0.0f;
-#pragma unroll
-        for (int wi = 0; wi < NWARPS; ++wi) v += red[wi][p];
-        partials[(size_t)p * n_blocks + blk] = v;
+    float* out = partials + blockIdx.y * gridDim.x + blockIdx.x;
+    __syncthreads();
+    if constexpr (kAcc == ACC_SHARED) {
+        float* acc = grad - tid;
+        warp_row_sums(acc, np, tid);
+        __syncthreads();
+        block_row_sums(acc, ACC_STRIDE, 32, np, tid, out, n_blocks);
+    } else {
+        float* tile = work + NWARPS * MAX_PARAMS +
+                      warp * TILE_ROWS * TILE_STRIDE;
+        for (int p0 = 0; p0 < np; p0 += TILE_ROWS) {
+            const int m = min(TILE_ROWS, np - p0);
+            tile_put(tile, grad, p0, m, lane);
+            __syncwarp();
+            tile_sums(tile, m, lane, work + warp * MAX_PARAMS + p0);
+            __syncwarp();
+        }
+        __syncthreads();
+        block_row_sums(work, 1, MAX_PARAMS, np, tid, out, n_blocks);
     }
 }
 
 // Zero a thread's own gradient entries and, in a wide build, point the
 // block's ext_col at its column of partial sums (the entries from
 // MAX_PARAMS on).
-template <bool kWide>
+template <int kAcc>
 __device__ __forceinline__ void thread_grad(const Offs& off, float* grad,
                                             float* partials) {
-    const int np = kWide ? MAX_PARAMS : off.n;
-    for (int p = 0; p < np; ++p) grad[p] = 0.0f;
-    if constexpr (kWide) {
+    const int np = min(off.n, MAX_PARAMS);
+    for (int p = 0; p < np; ++p)
+        grad[kAcc == ACC_SHARED ? p * ACC_STRIDE : p] = 0.0f;
+    if constexpr (kAcc == ACC_WIDE) {
         if (threadIdx.x == 0 && threadIdx.y == 0) {
             const int n_blocks = gridDim.x * gridDim.y;
             ext_col = partials + (size_t)MAX_PARAMS * n_blocks +
@@ -1196,6 +1306,78 @@ inline int check_scene(const Scene& s, const int* params, const int* sizes,
 #define TRACE_BWD_LIB_BUILDS(CASE)                                         \
     CASE(BUILD_STRAIGHT) CASE(BUILD_WARP) CASE(BUILD_EXPR)
 #endif
+
+// --- the launch: where the gradient vectors live ------------------------
+
+// Where a launch keeps the gradient vector (acc: ACC_SHARED, ACC_LOCAL or
+// ACC_WIDE), its dynamic shared memory and its occupancy.
+struct BwdPlan {
+    int acc;
+    int bytes;      // dynamic shared memory
+    int blocks;     // active blocks an SM
+};
+
+// Active blocks an SM of kernel K::fn<kB, kAcc> with `bytes` of dynamic
+// shared memory on the current device, which the kernel is then allowed
+// (0 past what a block can have).  The allowance is only ever raised (a
+// plan of more bytes than the last one stays launchable), and the last
+// answer is kept: the queries would cost host time every training step.
+template <class K, int kB, int kAcc>
+int occupancy(int bytes, int* blocks) {
+    const auto fn = K::template fn<kB, kAcc>();
+    static int allowed[64], asked[64], answer[64];   // by device
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return (int)err;
+    *blocks = 0;
+    if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+    if (asked[device] == bytes) {
+        *blocks = answer[device];
+        return 0;
+    }
+    if (bytes > allowed[device]) {
+        if (cudaFuncSetAttribute(fn,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 bytes) != cudaSuccess) {
+            cudaGetLastError();   // more than a block can have: 0 blocks
+            return 0;
+        }
+        allowed[device] = bytes;
+    }
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, NTHREADS,
+                                                        bytes);
+    if (err != cudaSuccess) return (int)err;
+    asked[device] = bytes;
+    answer[device] = *blocks;
+    return 0;
+}
+
+// The plan of backward kernel K (a struct whose fn<kB, kAcc>() is the
+// kernel of build kB keeping its vectors as kAcc) for a scene of build kB
+// and gradient layout off: each thread's vector in a column of the block's
+// shared memory (up to MAX_PARAMS entries) where that keeps the blocks an
+// SM of a local vector, or, in a build without the VM, where one block an
+// SM fits; else local.  Measured on the H100 (PERF.md §6): one
+// block an SM cost config5 4.8% and its vector's local bytes 27%; it cost
+// config6, whose VM keeps its values in local arrays, 34%.  -> 0 or a
+// cudaError.
+template <class K, int kB>
+int bwd_plan(const Offs& off, BwdPlan* plan) {
+    const int local = off.n <= MAX_PARAMS ? ACC_LOCAL : ACC_WIDE;
+    const int work = 4 * LOCAL_SUMS_FLOATS;
+    int rc, base, b;
+    if (local == ACC_LOCAL) rc = occupancy<K, kB, ACC_LOCAL>(work, &base);
+    else rc = occupancy<K, kB, ACC_WIDE>(work, &base);
+    if (rc != 0) return rc;
+    *plan = BwdPlan{local, work, base};
+    if (local == ACC_LOCAL) {
+        const int bytes = 4 * ((off.n * ACC_STRIDE + 3) & ~3);
+        if ((rc = occupancy<K, kB, ACC_SHARED>(bytes, &b)) != 0) return rc;
+        if (b >= base || (!has_vm(kB) && b >= 1))
+            *plan = BwdPlan{ACC_SHARED, bytes, b};
+    }
+    return 0;
+}
 
 inline int zero_ext(float* partials, const Offs& off, long long n_blocks,
                     cudaStream_t st) {

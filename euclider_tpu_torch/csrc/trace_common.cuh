@@ -49,7 +49,10 @@
 // colour (BUILD_SHAPES: CSG, cylinders, perlin, textures).  Each launch
 // takes the smallest build that renders its scene, so a scene runs no code
 // of a feature it does not have.  The BUILD_SHAPES builds live in a second
-// library of each kernel (TRACE_SHAPES_BUILDS).  A texture or a noise
+// library of each kernel (TRACE_SHAPES_BUILDS).  The tape backward adds a
+// bit of its own, which no other kernel takes: BUILD_TAPE, its forward
+// sweep recording each marched node's checkpoints (march).  A texture or
+// a noise
 // surface multiplies any rounding of the hit point or its UV by its UV
 // scale (up to 32 cells a unit in perlin_probe): contracted, 0.1% of
 // config3's pixels moved past 1e-4 and perlin_probe's camera gradient past
@@ -93,6 +96,7 @@ constexpr int BUILD_STRAIGHT = 0;  // no march, no portal
 constexpr int BUILD_MARCH = 1;     // + the march (attractor field), portals
 constexpr int BUILD_VM = 2;        // + the expression VM (with BUILD_MARCH)
 constexpr int BUILD_SHAPES = 4;    // + CSG, cylinders, perlin, textures
+constexpr int BUILD_TAPE = 8;      // the march records its checkpoints
 constexpr int BUILD_WARP = BUILD_MARCH;
 constexpr int BUILD_EXPR = BUILD_MARCH | BUILD_VM;
 __host__ __device__ constexpr bool has_march(int kB) {
@@ -103,6 +107,9 @@ __host__ __device__ constexpr bool has_vm(int kB) {
 }
 __host__ __device__ constexpr bool has_shapes(int kB) {
     return (kB & BUILD_SHAPES) != 0;
+}
+__host__ __device__ constexpr bool has_march_rec(int kB) {
+    return (kB & BUILD_TAPE) != 0 && has_march(kB);
 }
 
 constexpr float PI_F = 3.141592653589793f;
@@ -651,6 +658,17 @@ __device__ __forceinline__ void march_step(const Field<kExpr>& f, V4 x, V4 v,
     *x1 = madd_rn(x, f.h, *v1);
 }
 
+// What the backward's reverse march (K4, trace_adj.cuh march_reverse)
+// needs of a marched node: the state at the start of every chunk of
+// MARCH_CB steps and around the last step.  The tape backward's forward
+// sweep records it (march with kRec); otherwise march_replay re-marches.
+constexpr int MARCH_CB = 16;      // march steps per checkpoint (K4)
+constexpr int MAX_MARCH_CK = 32;  // checkpoints: march_steps <= 512
+struct MarchTape {
+    V4 ckx[MAX_MARCH_CK], ckv[MAX_MARCH_CK];  // state at each chunk's start
+    V4 xb, xe, ve;   // state before the last step (sx0), after it (sx1, sv)
+};
+
 // The end of a march: where and in which direction it crossed a boundary.
 struct MarchHit {
     int ent;           // winning entity, -1 when nothing was crossed
@@ -678,15 +696,26 @@ __device__ __forceinline__ float bisect(const Scene& s, int e, V4 x0, V4 x1) {
 // starts beyond t_max), then bisect every flipped entity and keep the
 // smallest lambda (strict '<' in entity order).  The crossing's leaf is
 // the one nearest it by boundary_abs (strict '<' in leaf order), as
-// march_finish picks it; a primitive entity is its own leaf.
-template <bool kExpr, bool kShapes>
+// march_finish picks it; a primitive entity is its own leaf.  kRec: the
+// states the reverse march needs go to *rec (when given) as they pass, the
+// n = round(dist / h) steps walked being those march_replay re-marches.
+template <bool kExpr, bool kShapes, bool kRec = false>
 __device__ __forceinline__ MarchHit march(const Scene& s, V4 org, V4 d0,
-                                          int mat) {
+                                          int mat,
+                                          MarchTape* rec = nullptr) {
     const Field<kExpr> f = field<kExpr>(s, mat);
     uint32_t sd = sides<kShapes>(s, org), crossed = 0;
     V4 x = org, v = d0, sx0 = org, sx1 = org, sv = d0;
+    V4 xb = org;   // kRec: the state before the last step walked
     float dist = 0.0f;
     for (int i = 0; i < s.march_steps; ++i) {
+        if constexpr (kRec) {
+            if (rec && i % MARCH_CB == 0) {
+                rec->ckx[i / MARCH_CB] = x;
+                rec->ckv[i / MARCH_CB] = v;
+            }
+            xb = x;
+        }
         V4 x1, v1;
         march_step<kExpr>(f, x, v, &x1, &v1);
         const uint32_t nsd = sides<kShapes>(s, x1);
@@ -703,6 +732,13 @@ __device__ __forceinline__ MarchHit march(const Scene& s, V4 org, V4 d0,
         v = v1;
         sd = nsd;
         if (beyond) break;
+    }
+    if constexpr (kRec) {
+        if (rec) {
+            rec->xb = crossed ? sx0 : xb;
+            rec->xe = crossed ? sx1 : x;
+            rec->ve = crossed ? sv : v;
+        }
     }
     MarchHit m{-1, 0, (int)rintf(dist / fmaxf(f.h, 1e-12f)), 2.0f, org, sv};
     for (int e = 0; e < s.n_ent; ++e) {
@@ -1064,11 +1100,13 @@ __device__ __forceinline__ void push(Slot* stack, int* sp, V4 org, V4 dir,
 // compiles out what the scene does not have: without BUILD_MARCH the march
 // and the portal teleport (the entry points drop it when march_steps is 0),
 // without BUILD_VM the expression VM, without BUILD_SHAPES composites,
-// cylinders, perlin and textures.
+// cylinders, perlin and textures; with BUILD_TAPE a marched node's
+// checkpoints go to *mrec (when given).
 template <int kB>
 __device__ __forceinline__ void shade(const Scene& s, const Slot& r, int self,
                                       float acc[3], Slot* stack, int* sp,
-                                      NodeRec<has_march(kB)>* rec) {
+                                      NodeRec<has_march(kB)>* rec,
+                                      MarchTape* mrec = nullptr) {
     constexpr bool kWarp = has_march(kB);
     constexpr bool kShapes = has_shapes(kB);
     // propagate: a ray in a warped material marches, any other flies
@@ -1076,7 +1114,8 @@ __device__ __forceinline__ void shade(const Scene& s, const Slot& r, int self,
     int ent, root;
     V4 p, d;
     if (kWarp && s.mat_warp[r.mat] != MAT_STRAIGHT) {
-        const MarchHit m = march<has_vm(kB), kShapes>(s, r.org, r.dir, r.mat);
+        const MarchHit m = march<has_vm(kB), kShapes, has_march_rec(kB)>(
+            s, r.org, r.dir, r.mat, mrec);
         root = m.leaf << 1;
         if (rec) set_rec(rec, m.ent, root, m.n, m.lam);
         ent = m.ent;

@@ -138,7 +138,7 @@ __device__ __forceinline__ void link_to_carry(Tape* tape, const Slot* stack,
 // K7 for one pixel: seed, the chunks in reverse from their carries, then
 // the peel and the camera ray; adds its gradient (and, fused, its loss
 // term) into grad, the textures' into gtex.
-template <int kB, bool kWide>
+template <int kB, int kAcc>
 __device__ void pixel_seg_bwd(const Scene& s, const Offs& off,
                               const float* cam, int x, int y, int H, int W,
                               int rows, Chunks ch, const float* carry,
@@ -150,7 +150,7 @@ __device__ void pixel_seg_bwd(const Scene& s, const Offs& off,
     const size_t cstride = (size_t)carry_words(s.max_depth) * npix;
     float acc[3] = {acc_in[pix], acc_in[npix + pix], acc_in[2 * npix + pix]};
     float G[3];
-    seed<kWide>(off, gin, x, y, W, acc, norm, fused, grad, G);
+    seed<kAcc>(off, gin, x, y, W, acc, norm, fused, grad, G);
     float scratch[3];   // the re-runs' colour sums, not needed
     Tape tape[MAX_SLOTS + MAX_TAPE];
     for (int j = 0; j < MAX_SLOTS; ++j) {
@@ -194,8 +194,8 @@ __device__ void pixel_seg_bwd(const Scene& s, const Offs& off,
         for (int i = n - 1; i >= MAX_SLOTS; --i) {
             V4 dorg, ddir;
             float dw;
-            node_adj<kB, kWide>(s, off, tape[i], G, tape, grad, gtex,
-                                &dorg, &ddir, &dw);
+            node_adj<kB, kAcc>(s, off, tape[i], G, tape, grad, gtex,
+                               &dorg, &ddir, &dw);
             tape[i].org = dorg;
             tape[i].dir = ddir;
             tape[i].w = dw;
@@ -208,8 +208,8 @@ __device__ void pixel_seg_bwd(const Scene& s, const Offs& off,
             tape[j].w = tape[i].w;
         }
     }
-    gadd4<kWide>(grad, 0, tape[MAX_SLOTS].org);
-    camera_adj<kWide>(cam, x, y, H, W, tape[MAX_SLOTS].dir, grad);
+    gadd4<kAcc>(grad, 0, tape[MAX_SLOTS].org);
+    camera_adj<kAcc>(cam, x, y, H, W, tape[MAX_SLOTS].dir, grad);
 }
 
 // K6: one thread per pixel of the row slab.
@@ -224,8 +224,10 @@ trace_seg_fwd_kernel(Scene s, const float* __restrict__ cam, int H, int W,
         pixel_seg_fwd<kB>(s, cam, x, y, H, W, rows, ch, carry, acc);
 }
 
-// K7: one thread per pixel of the row slab, partial sums as trace_bwd's.
-template <int kB, bool kWide>
+// K7: one thread per pixel of the row slab, partial sums as trace_bwd's:
+// the threads' gradient vectors in the block's dynamic shared memory
+// (ACC_SHARED) or local, as bwd_plan takes them for the tape kernel.
+template <int kB, int kAcc>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 trace_seg_bwd_kernel(Scene s, Offs off, const float* __restrict__ cam, int H,
                      int W, int rows, Chunks ch,
@@ -235,13 +237,21 @@ trace_seg_bwd_kernel(Scene s, Offs off, const float* __restrict__ cam, int H,
                      float* __restrict__ partials, float* gtex) {
     const int x = blockIdx.x * BLOCK_X + threadIdx.x;
     const int y = blockIdx.y * BLOCK_Y + threadIdx.y;
-    float grad[MAX_PARAMS];
-    thread_grad<kWide>(off, grad, partials);
+    const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
+    float grad_l[kAcc == ACC_SHARED ? 1 : MAX_PARAMS];
+    float* const grad = kAcc == ACC_SHARED ? dyn_smem() + tid : grad_l;
+    thread_grad<kAcc>(off, grad, partials);
     if (x < W && y < rows)
-        pixel_seg_bwd<kB, kWide>(s, off, cam, x, y, H, W, rows, ch, carry,
-                                 acc, gin, norm, fused != 0, grad, gtex);
-    block_partials<kWide>(off, grad, partials);
+        pixel_seg_bwd<kB, kAcc>(s, off, cam, x, y, H, W, rows, ch, carry,
+                                acc, gin, norm, fused != 0, grad, gtex);
+    block_partials<kAcc>(off, grad, partials, dyn_smem());
 }
+
+// The plan's kernel (trace_adj.cuh bwd_plan): K7.
+struct SegKernel {
+    template <int kB, int kAcc>
+    static auto fn() { return trace_seg_bwd_kernel<kB, kAcc>; }
+};
 
 }  // namespace
 
@@ -277,23 +287,29 @@ extern "C" int euclider_trace_seg(
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     if ((rc = zero_ext(partials, off, n_blocks, st)) != 0) return rc;
+    BwdPlan plan;
+#define TRACE_SEG_ARGS                                                     \
+    s, off, cam, H, W, rows, ch, carry, acc, gin, norm, fused, partials, gtex
 #define TRACE_SEG_CASE(kB)                                                 \
     case kB:                                                               \
         trace_seg_fwd_kernel<kB><<<grid, block, 0, st>>>(                  \
             s, cam, H, W, rows, ch, carry, acc);                           \
         err = cudaGetLastError();                                          \
         if (err != cudaSuccess) return (int)err;                           \
-        if (off.n > MAX_PARAMS)                                            \
-            trace_seg_bwd_kernel<kB, true><<<grid, block, 0, st>>>(        \
-                s, off, cam, H, W, rows, ch, carry, acc, gin, norm, fused, \
-                partials, gtex);                                           \
+        if ((rc = bwd_plan<SegKernel, kB>(off, &plan)) != 0) return rc;    \
+        if (plan.acc == ACC_SHARED)                                        \
+            trace_seg_bwd_kernel<kB, ACC_SHARED>                           \
+                <<<grid, block, plan.bytes, st>>>(TRACE_SEG_ARGS);         \
+        else if (plan.acc == ACC_LOCAL)                                    \
+            trace_seg_bwd_kernel<kB, ACC_LOCAL>                            \
+                <<<grid, block, plan.bytes, st>>>(TRACE_SEG_ARGS);         \
         else                                                               \
-            trace_seg_bwd_kernel<kB, false><<<grid, block, 0, st>>>(       \
-                s, off, cam, H, W, rows, ch, carry, acc, gin, norm, fused, \
-                partials, gtex);                                           \
+            trace_seg_bwd_kernel<kB, ACC_WIDE>                             \
+                <<<grid, block, plan.bytes, st>>>(TRACE_SEG_ARGS);         \
         break;
     TRACE_BWD_BUILDS(TRACE_SEG_CASE)
 #undef TRACE_SEG_CASE
+#undef TRACE_SEG_ARGS
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     sum_partials_kernel<<<off.n, RED_THREADS, 0, st>>>(

@@ -71,6 +71,38 @@ def _entry(name: str, segmented: bool):
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _config_entry(name: str):
+    """euclider_trace_bwd_config of the tape kernel's library ``name``."""
+    fn = ctypes.CDLL(CK.build((name,))[name]).euclider_trace_bwd_config
+    fn.argtypes = [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_config(static, tables) -> dict:
+    """The launch configuration trace_bwd takes for the scene on the
+    tables' CUDA device, chosen by size at each launch (trace_adj.cuh
+    bwd_plan): threads a block, dynamic shared memory, active blocks an SM
+    and where each thread's gradient vector lives ("shared": a column of
+    the block's shared memory, where that keeps two blocks an SM, or one in
+    a build without the expression VM; else "local")."""
+    device = _device(tables, "launch_config")
+    floats = CK._check_tables(static, tables, device)
+    _, _, params, _ = CK.scene_args(static, floats, device,
+                                    CK.tex_shapes(tables))
+    sizes, _ = grad_layout(static, floats)
+    info = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        rc = _config_entry(CK.library("trace_bwd", static))(params, sizes,
+                                                            info)
+    if rc != 0:
+        raise RuntimeError(f"euclider_trace_bwd_config failed: cudaError {rc}")
+    return {"threads": info[0], "dyn_smem_bytes": info[1],
+            "blocks_per_sm": info[2],
+            "grad_storage": {1: "shared", 2: "local"}[info[3]]}
+
+
 def _device(tables, what):
     device = tables.surf_color.device
     if device.type != "cuda":

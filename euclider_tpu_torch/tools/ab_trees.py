@@ -13,15 +13,24 @@ tree's libraries (``--libs``, by default the six trace libraries), one
 process a tree, all started together (each tree's
 ``ops/cuda_kernel.build``: one nvcc a library, in parallel, into the
 tree's own ``euclider_tpu_torch/build/``), and prints their ``-Xptxas -v``
-lines (none for a library already built); then runs one timing process
-per entry of ``--order``, in that order.  A process imports the package of its tree alone (this file
-imports nothing of the package itself) and times, at 1280x720, the
-forward kernel ``trace_fwd`` on config1, config2, config5 and config6 and
-the tape backward ``trace_bwd`` in vjp mode under a seeded cotangent on
-grad_probe, config2 and config6: the mean device time of a launch over 5
-calls after 3 warm-up calls, from torch.profiler.  Every result is one
-JSON line; the last line holds them all, with the card's name and power
-limit.  Needs a CUDA card.
+lines (none for a library already built) and, per kernel, the count of
+local, shared and shuffle instructions in its SASS (``cuobjdump -sass``:
+LDL, STL, LDS, STS, SHFL, and the generic LD and ST); then runs one timing
+process per entry of ``--order``, in that order.  A process imports the
+package of its tree alone (this file imports nothing of the package
+itself) and times, at 1280x720, the forward kernel ``trace_fwd`` on
+config1, config2, config5 and config6, the tape backward ``trace_bwd`` in
+vjp mode under a seeded cotangent on grad_probe, config2, config5 and
+config6, and the segmented backward K6 + K7 (``trace_seg_fwd_kernel`` +
+``trace_seg_bwd_kernel``, vjp mode) on config2: the mean device time of a
+launch over 5 calls after 3 warm-up calls, from torch.profiler.  Beside
+each ``trace_bwd`` time it prints the launch configuration of the
+instantiation the scene takes (threads a block, dynamic shared memory,
+where the gradient vector lives, active blocks per SM from
+``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), through the tree's C
+entry ``euclider_trace_bwd_config`` (null for a tree without it).  Every
+result is one JSON line; the last line holds them all, with the card's
+name and power limit.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -35,7 +44,12 @@ import sys
 H, W = 720, 1280
 FWD_SCENES = ("config1_sphere_room", "config2_mirror_glass",
               "config5_warp_portal", "config6_expr_space")
-BWD_SCENES = ("grad_probe", "config2_mirror_glass", "config6_expr_space")
+BWD_SCENES = ("grad_probe", "config2_mirror_glass", "config5_warp_portal",
+              "config6_expr_space")
+SEG_SCENES = ("config2_mirror_glass",)
+SEG_KEYS = ("trace_seg_fwd_kernel", "trace_seg_bwd_kernel")
+# SASS opcodes counted per kernel: local, shared and generic memory, shuffles
+SASS_OPS = ("LDL", "STL", "LDS", "STS", "SHFL", "LD", "ST")
 LIBS = ("trace_fwd", "trace_bwd", "trace_seg", "trace_fwd_shapes",
         "trace_bwd_shapes", "trace_seg_shapes")
 
@@ -60,11 +74,70 @@ def _anon(line: str) -> str:
                   line)
 
 
+def _kernel_name(mangled: str) -> str:
+    """kernel<template arguments> from a mangled SASS function name."""
+    m = re.search(r"([a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"L([ib])(\d+)E", m.group(2) or "")
+    return m.group(1) + ("<" + ", ".join(
+        v if k == "i" else ("true" if v == "1" else "false")
+        for k, v in args) + ">" if args else "")
+
+
+def sass_counts(lib: str) -> dict:
+    """{kernel: {opcode: count}} of SASS_OPS in the library's SASS, from
+    cuobjdump -sass (static instruction counts; {} without cuobjdump)."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = out.setdefault(_kernel_name(line.split(":", 1)[1].strip()),
+                                 dict.fromkeys(SASS_OPS, 0))
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                     line)
+        if cur is not None and m and m.group(1) in cur:
+            cur[m.group(1)] += 1
+    return out
+
+
 def build_worker(path: str, nofma: bool, names) -> dict:
     CK = _package(path, nofma)
     libs = CK.build(tuple(names))
     return {"libs": {k: os.path.basename(v) for k, v in libs.items()},
-            "ptxas": {k: [_anon(x) for x in v] for k, v in CK.PTXAS.items()}}
+            "ptxas": {k: [_anon(x) for x in v] for k, v in CK.PTXAS.items()},
+            "sass": {k: sass_counts(v) for k, v in libs.items()}}
+
+
+def launch_config(CK, cuda_bwd, static, tables, device):
+    """The tape kernel's launch configuration for the scene, from the
+    tree's C entry euclider_trace_bwd_config -> dict, or None for a tree
+    without it."""
+    import ctypes
+    name = CK.library("trace_bwd", static)
+    fn = getattr(ctypes.CDLL(CK.build((name,))[name]),
+                 "euclider_trace_bwd_config", None)
+    if fn is None:
+        return None
+    floats = CK._check_tables(static, tables, device)
+    _, _, params, _ = CK.scene_args(static, floats, device,
+                                    CK.tex_shapes(tables))
+    sizes, _ = cuda_bwd.grad_layout(static, floats)
+    out = (ctypes.c_int * 4)()
+    fn.argtypes = [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    rc = fn(params, sizes, out)
+    if rc != 0:
+        raise RuntimeError(f"euclider_trace_bwd_config: cudaError {rc}")
+    return {"threads": out[0], "dyn_smem_bytes": out[1],
+            "blocks_per_sm": out[2],
+            "grad_storage": {1: "shared", 2: "local"}[out[3]]}
 
 
 def time_worker(path: str, nofma: bool) -> dict:
@@ -84,6 +157,10 @@ def time_worker(path: str, nofma: bool) -> dict:
                 et.camera_to_torch(et.compile_camera(sc.camera), device))
 
     def device_ms(fn, key, n=5, warm=3, tries=3):
+        """ms of one launch of the kernel named key, or {k: ms} for a
+        tuple of names (None for a kernel no profile recorded)."""
+        keys = key if isinstance(key, tuple) else (key,)
+        got = dict.fromkeys(keys)
         for _ in range(warm):
             fn()
         torch.cuda.synchronize()
@@ -93,14 +170,17 @@ def time_worker(path: str, nofma: bool) -> dict:
                 for _ in range(n):
                     fn()
                 torch.cuda.synchronize()
-            evts = [e for e in prof.key_averages() if key in e.key]
-            us = sum(getattr(e, "device_time_total", 0.0) for e in evts)
-            calls = sum(e.count for e in evts)
-            if us > 0 and calls:
-                return us / calls / 1e3
-        return None
+            for k in keys:
+                evts = [e for e in prof.key_averages() if k in e.key]
+                us = sum(getattr(e, "device_time_total", 0.0) for e in evts)
+                calls = sum(e.count for e in evts)
+                if got[k] is None and us > 0 and calls:
+                    got[k] = us / calls / 1e3
+            if None not in got.values():
+                break
+        return got if isinstance(key, tuple) else got[key]
 
-    out = {"fwd": {}, "bwd": {}}
+    out = {"fwd": {}, "bwd": {}, "bwd_config": {}, "seg": {}}
     for name in FWD_SCENES:
         static, tables, cam = load(name)
         out["fwd"][name] = device_ms(
@@ -113,6 +193,14 @@ def time_worker(path: str, nofma: bool) -> dict:
         out["bwd"][name] = device_ms(
             lambda: cuda_bwd.vjp_cuda(static, tables, cam, H, W, g),
             "trace_bwd_kernel")
+        out["bwd_config"][name] = launch_config(CK, cuda_bwd, static, tables,
+                                                device)
+    for name in SEG_SCENES:
+        static, tables, cam = load(name)
+        ms = device_ms(lambda: cuda_bwd.vjp_cuda(
+            static, tables, cam, H, W, g, backward="segmented"), SEG_KEYS)
+        out["seg"][name] = dict(ms, total=None if None in ms.values()
+                                else sum(ms.values()))
     return out
 
 

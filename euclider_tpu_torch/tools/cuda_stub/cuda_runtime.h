@@ -4,7 +4,11 @@
 // and friends are plain IEEE operations; the harness builds with
 // -ffp-contract=off, as nvcc builds with -fmad=false).  The block-wide
 // operations stand in for one thread only: the harness's entries reduce
-// over a tile themselves.
+// over a tile themselves, or run a block's phases (the code between two
+// __syncthreads) over every thread in turn, on buffers of their own: the
+// block's dynamic shared memory (extern __shared__ on the card, which the
+// device code takes through dyn_smem()) has no host stand-in, and the
+// launch attributes and the occupancy query are the card's alone.
 #pragma once
 #include <algorithm>
 #include <cmath>
@@ -27,10 +31,28 @@ struct dim3 {
 static thread_local dim3 blockIdx, threadIdx, blockDim, gridDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaErrorInvalidDevice = 101 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaSetDevice(int) { return 0; }
+inline int cudaGetDevice(int* d) {
+    *d = 0;
+    return 0;
+}
+template <class F>
+inline int cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+    return cudaErrorInvalidValue;
+}
+template <class F>
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
+                                                        size_t) {
+    *n = 0;
+    return cudaErrorInvalidValue;
+}
+inline float* dyn_smem() { return nullptr; }
 inline int cudaGetLastError() { return 0; }
 inline void __syncthreads() {}
+inline void __syncwarp(unsigned = 0xffffffffu) {}
 inline int __syncthreads_or(int p) { return p; }
 inline float __shfl_down_sync(unsigned, float v, int) { return v; }
 inline float __fmul_rn(float a, float b) { return a * b; }

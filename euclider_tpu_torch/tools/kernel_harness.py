@@ -40,30 +40,38 @@ from ..ops import vjp as vjp_mod
 STUB = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_stub")
 CPU = torch.device("cpu")
 BUILDS = (0, 1, 3, 4, 5, 7)   # every kB of trace_common.cuh
+TAPE = 8                      # trace_common.cuh BUILD_TAPE: the tape
+                              # kernel's builds, its march recorded
 
 _CASES = "".join(f"case {k}: {{call}}<{k}>({{args}}); break; "
                  for k in BUILDS)
-# the backward's: the wide instantiation (kWide) where the gradient vector
-# is longer than a thread holds
-_WIDE_CASES = "".join(
-    f"case {k}: if (wide) {{call}}<{k}, true>({{args}}); "
-    f"else {{call}}<{k}, false>({{args}}); break; " for k in BUILDS)
+# the backward's: the gradient vector in a shared-memory column (ACC_SHARED)
+# or, where it is longer than a thread holds, local with atomics past
+# MAX_PARAMS (ACC_WIDE)
+def _acc_cases(builds, tag=0):
+    return "".join(
+        f"case {k}: if (wide) {{call}}<{k | tag}, ACC_WIDE>({{args}}); "
+        f"else {{call}}<{k | tag}, {{narrow}}>({{args}}); break; "
+        for k in builds)
 
 # included by the backward entries: a pixel's gradient vector
 _PIXEL_GRAD = """
 #include <vector>
 
-// one pixel's gradient vector, long enough for every entry: grad's own
-// part and, from MAX_PARAMS on, the part gadd sends to ext_col (stride 1)
+// one pixel's gradient vector, long enough for every entry, entry i at
+// v[i * stride]: grad's own part and, from MAX_PARAMS on (stride 1), the
+// part gadd sends to ext_col
 struct PixelGrad {
     std::vector<float> v;
-    explicit PixelGrad(int n) : v(std::max(n, MAX_PARAMS)) {
+    int stride;
+    PixelGrad(int n, int stride)
+        : v((size_t)std::max(n, MAX_PARAMS) * stride), stride(stride) {
         ext_col = v.data() + MAX_PARAMS;
         ext_stride = 1;
     }
     void zero() { std::fill(v.begin(), v.end(), 0.0f); }
     void sum_into(double* out, int n) const {
-        for (int p = 0; p < n; ++p) out[p] += v[p];
+        for (int p = 0; p < n; ++p) out[p] += v[(size_t)p * stride];
     }
 };
 
@@ -98,7 +106,7 @@ extern "C" int harness_bwd(const int32_t* const* ints,
     const Offs off = make_offs(sizes);
     const int build = scene_build(params);
     const bool wide = off.n > MAX_PARAMS;
-    PixelGrad pg(off.n);
+    PixelGrad pg(off.n, wide ? 1 : ACC_STRIDE);
     float* grad = pg.v.data();
     for (int y = 0; y < rows; ++y)
         for (int x = 0; x < W; ++x) {
@@ -109,8 +117,42 @@ extern "C" int harness_bwd(const int32_t* const* ints,
     return off.n;
 }
 
-""".replace("CASES", _WIDE_CASES.format(
-        call="pixel_backward",
+// The block's sums of NTHREADS threads' gradient vectors mat[t * n + p] ->
+// out[p], through the kernel's device code: each phase of block_partials
+// (between two of its __syncthreads or __syncwarp) over every thread of
+// the block or the warp before the next; local: the vectors go through
+// each warp's tile as local ones do (ACC_LOCAL, ACC_WIDE), else they lie
+// in the threads' columns as gadd leaves them (ACC_SHARED).
+extern "C" void harness_block_sums(const float* mat, int n, int local,
+                                   float* out) {
+    if (!local) {
+        std::vector<float> acc((size_t)n * ACC_STRIDE);
+        for (int t = 0; t < NTHREADS; ++t)
+            for (int p = 0; p < n; ++p)
+                acc[(size_t)p * ACC_STRIDE + t] = mat[(size_t)t * n + p];
+        for (int t = 0; t < NTHREADS; ++t) warp_row_sums(acc.data(), n, t);
+        for (int t = 0; t < NTHREADS; ++t)
+            block_row_sums(acc.data(), ACC_STRIDE, 32, n, t, out, 1);
+        return;
+    }
+    std::vector<float> work(LOCAL_SUMS_FLOATS);
+    for (int w = 0; w < NWARPS; ++w) {
+        float* tile = work.data() + NWARPS * MAX_PARAMS +
+                      w * TILE_ROWS * TILE_STRIDE;
+        for (int p0 = 0; p0 < n; p0 += TILE_ROWS) {
+            const int m = std::min(TILE_ROWS, n - p0);
+            for (int l = 0; l < 32; ++l)
+                tile_put(tile, mat + (size_t)(32 * w + l) * n, p0, m, l);
+            for (int l = 0; l < 32; ++l)
+                tile_sums(tile, m, l, work.data() + w * MAX_PARAMS + p0);
+        }
+    }
+    for (int t = 0; t < NTHREADS; ++t)
+        block_row_sums(work.data(), 1, MAX_PARAMS, n, t, out, 1);
+}
+
+""".replace("CASES", _acc_cases(BUILDS, TAPE).format(
+        call="pixel_backward", narrow="ACC_SHARED",
         args="s, off, cam, x, y, H, W, gin, 0.0f, false, grad, gtex")),
     "trace_seg": _PIXEL_GRAD + """
 extern "C" int harness_seg(const int32_t* const* ints,
@@ -127,7 +169,7 @@ extern "C" int harness_seg(const int32_t* const* ints,
         for (int x = 0; x < W; ++x)
             switch (build) { FWD_CASES default: return -1; }
     const bool wide = off.n > MAX_PARAMS;
-    PixelGrad pg(off.n);
+    PixelGrad pg(off.n, wide ? 1 : ACC_STRIDE);
     float* grad = pg.v.data();
     for (int y = 0; y < rows; ++y)
         for (int x = 0; x < W; ++x) {
@@ -137,8 +179,8 @@ extern "C" int harness_seg(const int32_t* const* ints,
         }
     return off.n;
 }
-""".replace("BWD_CASES", _WIDE_CASES.format(
-        call="pixel_seg_bwd",
+""".replace("BWD_CASES", _acc_cases(BUILDS).format(
+        call="pixel_seg_bwd", narrow="ACC_SHARED",
         args="s, off, cam, x, y, H, W, rows, ch, carry, acc, gin, 0.0f, "
              "false, grad, gtex")).replace("FWD_CASES", _CASES.format(
         call="pixel_seg_fwd",
@@ -260,7 +302,10 @@ def _entries(asan: bool):
     mosaic.argtypes = [i, p, ctypes.c_float, p, p, i, p, p, p]
     march = ctypes.CDLL(libs["probe_march"]).harness_probe_march
     march.argtypes = [p, p, p, ctypes.c_float, p, i, i, p, p, i, p, p, p, p]
-    return fwd, bwd, seg, mosaic, march
+    sums = ctypes.CDLL(libs["trace_bwd"]).harness_block_sums
+    sums.argtypes = [p, i, i, p]
+    sums.restype = None
+    return fwd, bwd, seg, mosaic, march, sums
 
 
 def _scene(static, tables, cam, time, y0):
@@ -289,8 +334,9 @@ def vjp(static, tables, cam, H, W, g, time=0.0, y0=0, rows=None,
         asan=False, chunk_trips=None):
     """The backward's device code in vjp mode on CPU tables under the
     cotangent g -> (d_tables, d_cam, d_time), the pixels' gradients summed
-    in float64: pixel_backward (the tape kernel) or, with ``chunk_trips``,
-    K6 (pixel_seg_fwd) over every pixel, then K7 (pixel_seg_bwd)."""
+    in float64: pixel_backward (the tape kernel, its marches recorded in
+    the forward sweep) or, with ``chunk_trips``, K6 (pixel_seg_fwd) over
+    every pixel, then K7 (pixel_seg_bwd)."""
     R = H if rows is None else rows
     floats, cam_row, (iptr, fptr, params, _ints) = _scene(static, tables,
                                                           cam, time, y0)
@@ -365,6 +411,20 @@ def compare(sc, H, W, asan=False, seams=False, chunk_trips=None) -> dict:
                                 k))
     return {"fwd_max": float(err.max()), "fwd_bad": int((err > 1e-4).sum()),
             "bwd_worst": worst[0], "leaf": worst[1]}
+
+
+def block_sums(mat, local: bool, asan=False) -> torch.Tensor:
+    """The backward kernels' block reduction (trace_adj.cuh
+    block_partials: warp_row_sums and block_row_sums, or for local vectors
+    tile_put, tile_sums and block_row_sums) of 256 threads' gradient
+    vectors ``mat`` [256, n] -> [n] float32; ``local``: the vectors go
+    through the warps' tiles as local ones do, else they lie in
+    shared-memory columns."""
+    mat = mat.detach().to(torch.float32).contiguous()
+    out = torch.zeros(mat.shape[1], dtype=torch.float32)
+    _entries(asan)[5](mat.data_ptr(), mat.shape[1], int(local),
+                      out.data_ptr())
+    return out
 
 
 def mosaic(name, x, w, g, act=None, asan=False):

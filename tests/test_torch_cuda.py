@@ -426,6 +426,41 @@ def test_render_image_diff_backward_is_the_kernel(cuda):
         rtol=1e-6)
 
 
+def flat_grads(d_tables, d_cam, d_time):
+    """A gradient's leaves (tables, camera, time) as one vector."""
+    return torch.cat([getattr(d_tables, k).reshape(-1)
+                      for k in cuda_kernel.FLOAT_FIELDS]
+                     + [c.reshape(-1) for c in d_cam] + [d_time.reshape(-1)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, acc", [("config2_mirror_glass", "shared"),
+                                       ("config6_expr_space", "local")])
+def test_backward_kernel_is_deterministic(cuda, name, acc):
+    """Two launches of vjp_cuda, and of train_step_cuda, at 180 x 320 give
+    bit-identical gradients and loss: each block sums its threads' vectors
+    in a fixed order, and a second kernel the blocks' in a fixed order;
+    these scenes have no texture and no entry past MAX_PARAMS, the only
+    sums by atomics.  The launches take the configuration chosen by size:
+    config2's gradient vectors in shared memory, config6's (142 entries, a
+    build with the VM) in local memory."""
+    from euclider_tpu_torch.ops import cuda_bwd
+    static, tables, cam = scene_on(name, cuda)
+    h, w = 180, 320
+    g = cotangent((h, w, 3), 11, cuda)
+    target = cotangent((h, w, 3), 12, cuda).sigmoid()
+    a, b = (flat_grads(*cuda_bwd.vjp_cuda(static, tables, cam, h, w, g))
+            for _ in range(2))
+    assert torch.equal(a, b)
+    cfg = cuda_bwd.launch_config(static, tables)
+    assert cfg["grad_storage"] == acc, cfg
+    (la, *ga), (lb, *gb) = (cuda_bwd.train_step_cuda(static, tables, cam,
+                                                     target, h, w)
+                            for _ in range(2))
+    assert torch.equal(la, lb)
+    assert torch.equal(flat_grads(*ga), flat_grads(*gb))
+
+
 # --- the segmented backward (K6, K7) and the lifted caps -------------------
 
 @pytest.mark.cuda

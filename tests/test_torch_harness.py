@@ -4,8 +4,9 @@ tools/cuda_stub/), against the plain versions: the forward kernel's body
 against ops/trace.py, pixel_backward against ops/vjp.py::vjp_blocked and
 the segmented kernels' (K6 over the frame, then K7) against
 ops/vjp.py::vjp_segmented, on scenes of each build (straight, BUILD_SHAPES,
-the march and the expression VM) and past the tape's 63 nodes, the march's
-32 entities and a thread's 159 gradient entries; the probes' device code
+the march and the expression VM) and past the tape's 63 nodes, the march's 32 entities and a
+thread's 159 gradient entries; the block's sums of the threads' gradient
+vectors against float64; the probes' device code
 (csrc/probe_mosaic.cu, csrc/probe_march.cu) against ops/probes.py and
 ops/march_probe.py.
 Without contraction the device code rounds as the plain version's separate
@@ -13,7 +14,9 @@ torch operations do, so the forward matches it to the last bit here.
 """
 import shutil
 
+import numpy as np
 import pytest
+import torch
 
 from euclider_tpu_torch.ops import march_probe as MP
 from euclider_tpu_torch.scene import ir
@@ -84,6 +87,33 @@ def test_device_code_past_the_entity_and_parameter_caps(harness):
     out = harness.compare(spheres_scene(), 24, 32)
     assert out["fwd_bad"] == 0 and out["fwd_max"] <= 1e-6, out
     assert out["bwd_worst"] <= 1.0, out
+
+
+@pytest.mark.parametrize("local", [False, True])
+@pytest.mark.parametrize("n", [78, 142, 160])
+def test_block_sums_match_float64(harness, n, local):
+    """The block's sums of 256 threads' gradient vectors (trace_adj.cuh
+    block_partials' phases: shared columns, or local vectors through the
+    warps' tiles) on a seeded [256 x n] matrix: to the bit the fixed order
+    they document, in float32 (each warp's 32 threads in order, then the 8
+    warps in order), and within 38 u sum |x| of the float64 sum,
+    u = 2^-24: the first-order bound of that order's 31 + 7 rounded
+    additions."""
+    rng = np.random.default_rng(n + 1000 * local)
+    mat = (rng.normal(size=(256, n)) *
+           rng.uniform(0.0, 3.0, size=n)).astype(np.float32)
+    got = harness.block_sums(torch.from_numpy(mat), local).numpy()
+    warps = mat.reshape(8, 32, n)
+    order = warps[:, 0]
+    for k in range(1, 32):
+        order = (order + warps[:, k]).astype(np.float32)
+    want = order[0]
+    for w in range(1, 8):
+        want = (want + order[w]).astype(np.float32)
+    assert np.array_equal(got, want)
+    ref = mat.astype(np.float64).sum(0)
+    bound = 38 * 2.0 ** -24 * np.abs(mat).astype(np.float64).sum(0)
+    assert np.all(np.abs(got - ref) <= bound)
 
 
 def test_mosaic_probe_device_code_matches_plain(harness):
