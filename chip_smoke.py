@@ -144,6 +144,34 @@ def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
+def ptxas(*libs):
+    """ptxas's resource lines of the libraries built in this run, one
+    entry an entry function: {lib: {"kernel<template arguments>":
+    "registers, stack frame B (spill stores B, spill loads B)"}}."""
+    import re
+    from euclider_tpu_torch.ops import cuda_kernel
+    out = {}
+    for lib in libs:
+        funcs, name, frame = {}, None, ""
+        for line in cuda_kernel.PTXAS.get(lib, []):
+            m = re.search(r"([a-z_]+_kernel)(I\w*?EEv)?", line)
+            if "entry function" in line and m:
+                args = re.findall(r"Li(\d+)E", m.group(2) or "")
+                name = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+            elif "stack frame" in line:
+                frame = line
+            elif "Used" in line and name:
+                regs = re.search(r"Used (\d+) registers", line)
+                st = re.findall(r"(\d+) bytes", frame)
+                funcs[name] = (f"{regs.group(1) if regs else '?'} registers, "
+                               f"{st[0] if st else '?'} B stack (spill "
+                               f"stores {st[1] if len(st) > 1 else '?'} B, "
+                               f"loads {st[2] if len(st) > 2 else '?'} B)")
+                name = None
+        out[lib] = funcs
+    return out
+
+
 def build_scene(name):
     """A library scene, or one of phase 6's marching gradient scenes:
     tests/test_gradients.py::test_grad_warp_strength's warp sphere before a
@@ -314,7 +342,8 @@ def cli_render(name):
 
 
 def main_path(device):
-    """Phase 5, the render path -> launches of the forward kernel on it."""
+    """Phase 5, the render path -> (launches of the forward kernel on it,
+    {scene: its launches})."""
     import torch
     import euclider_tpu_torch as et
     from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel
@@ -322,8 +351,11 @@ def main_path(device):
     names = SCENES + WARP[:1] + EXPR + SHAPES[:1]
     scenes = [load(name, device) for name in names]
     cuda_kernel.LAUNCHES = cuda_bwd.LAUNCHES = 0
-    imgs = [et.render_image(static, tables, cam, H, W)
-            for static, tables, cam in scenes]
+    imgs, by_scene = [], {}
+    for name, (static, tables, cam) in zip(names, scenes):
+        before = cuda_kernel.LAUNCHES
+        imgs.append(et.render_image(static, tables, cam, H, W))
+        by_scene[name] = cuda_kernel.LAUNCHES - before
     torch.cuda.synchronize()
     launches = cuda_kernel.LAUNCHES
     for name, img in zip(names, imgs):
@@ -331,11 +363,13 @@ def main_path(device):
         assert bool(torch.isfinite(img).all()), f"{name}: non-finite pixels"
         say("main", f"{name}: render_image {W}x{H} finite, mean rgb "
             f"{[round(float(c), 4) for c in img.mean(dim=(0, 1))]}")
-    say("main", f"kernel launches on the render path: {launches}")
+    say("main", f"kernel launches on the render path: {launches} "
+        f"{by_scene}")
     assert launches >= len(names), "the render path did not run the kernel"
+    assert min(by_scene.values()) >= 1, "a scene's render skipped the kernel"
     for name in (SCENES[1], WARP[0], EXPR[0], SHAPES[0]):
         cli_render(name)
-    return launches
+    return launches, by_scene
 
 
 # --- phase 6 -----------------------------------------------------------------
@@ -497,16 +531,35 @@ def train_path(device):
     from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel
     from euclider_tpu_torch.train import fit
 
+    by_scene = {}
+
+    def counted(name, run, *args):
+        """run(*args), its launches added to by_scene[name] (fit.main's
+        target render included)."""
+        fwd0, bwd0 = cuda_kernel.LAUNCHES, cuda_bwd.LAUNCHES
+        out = run(*args)
+        got = by_scene.setdefault(name, {"trace_fwd": 0, "trace_bwd": 0})
+        got["trace_fwd"] += cuda_kernel.LAUNCHES - fwd0
+        got["trace_bwd"] += cuda_bwd.LAUNCHES - bwd0
+        return out
+
     cuda_kernel.LAUNCHES = cuda_bwd.LAUNCHES = 0
-    fused = fit.main(["--scene", "grad_probe", "--steps", str(EXAMPLE_STEPS)])
-    unfused = fit.main(["--scene", "grad_probe", "--steps", "2",
-                        "--backend", "cuda"])
-    warp = fit.main(["--scene", WARP[0], "--steps", str(TRAIN_STEPS)])
-    expr = fit.main(["--scene", EXPR[0], "--steps", str(TRAIN_STEPS)])
-    shapes = fit.main(["--scene", SHAPES[0], "--steps", str(TRAIN_STEPS)])
-    step = fused_vs_unfused(EXPR[0], device)
+    fused = counted("grad_probe", fit.main,
+                    ["--scene", "grad_probe", "--steps", str(EXAMPLE_STEPS)])
+    unfused = counted("grad_probe", fit.main,
+                      ["--scene", "grad_probe", "--steps", "2",
+                       "--backend", "cuda"])
+    warp, expr, shapes = (counted(name, fit.main, ["--scene", name,
+                                                   "--steps",
+                                                   str(TRAIN_STEPS)])
+                          for name in (WARP[0], EXPR[0], SHAPES[0]))
+    step = counted(EXPR[0], fused_vs_unfused, EXPR[0], device)
     launches = {"trace_fwd": cuda_kernel.LAUNCHES,
-                "trace_bwd": cuda_bwd.LAUNCHES}
+                "trace_bwd": cuda_bwd.LAUNCHES,
+                **{f"{k}_by_scene": {n: c[k] for n, c in by_scene.items()}
+                   for k in ("trace_fwd", "trace_bwd")}}
+    assert sum(launches["trace_fwd_by_scene"].values()) == \
+        launches["trace_fwd"], "a training launch went uncounted"
     losses = fused["losses"]
     say("train", f"grad_probe fused, {EXAMPLE_STEPS} steps: losses "
         f"{[round(x, 6) for x in losses[:5]]} ... {losses[-1]:.6f}; "
@@ -804,9 +857,9 @@ def timing(name, device, card):
     out["hits_per_pixel"] = {e.name or f"entity{i}": n / (H * W)
                              for i, (e, n) in enumerate(zip(static.entities,
                                                             hits))}
-    out["fwd_bound_ms"], out["fwd_bound_by"], _ = bound(
+    out["fwd_bound_ms"], out["fwd_bound_by"], out["fwd_ops"] = bound(
         static, nodes, False, steps, marches, hits, tex_bytes)
-    out["bwd_bound_ms"], out["bwd_bound_by"], _ = bound(
+    out["bwd_bound_ms"], out["bwd_bound_by"], out["bwd_ops"] = bound(
         static, nodes, True, steps, marches, hits, tex_bytes)
     if name in TRAIN_SCENES:
         target = seeded((H, W, 3), 2, device, "uniform")
@@ -1113,9 +1166,10 @@ SEG_KEYS = ["trace_seg_fwd_kernel", "trace_seg_bwd_kernel",
 def carry_traffic(static, tables, cam):
     """Words of boundary carry the segmented kernels move over the frame on
     this data, worked out from trace_seg.cu: K6 stores for every pixel and
-    chunk the stack pointer and the 11 words of each slot live at the
-    chunk's start (counted by driving the plain version's loop), and the 3
-    colour sums; K7 loads the same and the 3 words of g or the target ->
+    chunk that starts with a nonempty stack the stack pointer and the 11
+    words of each slot live at the chunk's start (counted by driving the
+    plain version's loop), the 3 colour sums and the count of stored
+    chunks; K7 loads the same and the 3 words of g or the target ->
     (stored, loaded)."""
     import torch
     from euclider_tpu_torch.ops import cuda_bwd, trace, vjp
@@ -1125,17 +1179,18 @@ def carry_traffic(static, tables, cam):
     xi = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
     org, d = trace.camera_rays(cam, xi, yi, W, H)
     ar, ag, ab, slots, sp = trace.bounce_init(static, tables, org, d)
-    live = 0
+    live = chunks = 0
     if slots is not None:
         body = trace.make_bounce_body(static, tables)
         carry = (sp, ar, ag, ab, slots)
         for trips in sizes:
             live += int(carry[0].sum())
+            chunks += int((carry[0] > 0).sum())
             for _ in range(trips):
                 if not bool((carry[0] > 0).any()):
                     break
                 carry = body(carry)
-    stored = len(sizes) * H * W + cuda_bwd.SLOT_WORDS * live + 3 * H * W
+    stored = chunks + cuda_bwd.SLOT_WORDS * live + 4 * H * W
     return stored, stored + 3 * H * W
 
 
@@ -1194,13 +1249,16 @@ def deep_training(device):
     return losses
 
 
-def seg_times(name, device, card, bwd_bound):
+def seg_times(name, device, card, fwd_ops, bwd_ops):
     """Device times of the segmented kernels on one scene at 1280x720, vjp
-    and fused (torch.profiler), the times of the calls (CUDA events, median
-    of 5 after warm-up; the tape kernel's fused call beside them where the
-    tape takes the scene), and their bound: the larger of the carry's bytes
-    (carry_traffic) over HBM bandwidth and ``bwd_bound``, the operations
-    bound of the tape kernel on the same scene."""
+    and fused (torch.profiler), K6 and K7 each apart, the times of the
+    calls (CUDA events, median of 5 after warm-up; the tape kernel's fused
+    call beside them where the tape takes the scene), and each kernel's
+    bound, worked out from trace_seg.cu: K6, the larger of the forward's
+    operations (``fwd_ops``: it shades every node once) over the FP32 peak
+    and the bytes it stores (carry_traffic) over HBM bandwidth; K7, the
+    larger of the tape kernel's operations (``bwd_ops``) and the bytes it
+    loads; the pair's bound is their sum."""
     from euclider_tpu_torch.ops import cuda_bwd, vjp
     static, tables, cam = load(name, device)
     g = seeded((H, W, 3), 3, device)
@@ -1216,17 +1274,22 @@ def seg_times(name, device, card, bwd_bound):
     vjp_ms = device_ms(vjp_seg, SEG_KEYS)
     fused_ms = device_ms(step("segmented"), SEG_KEYS)
     stored, loaded = carry_traffic(static, tables, cam)
-    t_bytes = 4 * (stored + loaded) / PEAK_BYTES * 1e3
     out = {"vjp_ms": vjp_ms, "fused_ms": fused_ms,
            "vjp_call_events_ms": events_ms(vjp_seg, device),
            "fused_call_events_ms": events_ms(step("segmented"), device),
            "ms": sum(vjp_ms[k] or 0.0 for k in SEG_KEYS),
            "fused_total_ms": sum(fused_ms[k] or 0.0 for k in SEG_KEYS),
            "carry_words_stored": stored, "carry_words_loaded": loaded,
-           "carry_bound_ms": t_bytes, "ops_bound_ms": bwd_bound,
-           "bound_ms": max(t_bytes, bwd_bound),
-           "bound_by": "bytes" if t_bytes > bwd_bound else "operations",
-           "chunks": vjp.chunk_sizes(static.max_nodes)}
+           "chunks": vjp.chunk_sizes(static.max_nodes),
+           "k6_plain_ms": events_ms(lambda: vjp.segmented_forward(
+               static, tables, cam, H, W), device, 1)}
+    for k, ops, words in (("k6", fwd_ops, stored), ("k7", bwd_ops, loaded)):
+        t_ops = ops / PEAK_FP32 * 1e3
+        t_bytes = 4 * words / PEAK_BYTES * 1e3
+        out[f"{k}_bound_ms"] = max(t_ops, t_bytes)
+        out[f"{k}_bound_by"] = "bytes" if t_bytes > t_ops else "operations"
+    out["bound_ms"] = out["k6_bound_ms"] + out["k7_bound_ms"]
+    out["bound_by"] = out["k7_bound_by"]
     if static.max_nodes <= cuda_bwd.MAX_TAPE:
         out["tape_fused_call_events_ms"] = events_ms(step("tape"), device)
     for k, v in out.items():
@@ -1268,14 +1331,15 @@ def seg_phase(device, card, times):
     c2 = times[SCENES[1]]
     deep_nodes, steps, marches, hits = march_count(*load("config2_deep",
                                                          device))
-    deep_bound = bound(load("config2_deep", device)[0],
-                       int(deep_nodes.sum()), True, steps, marches, hits)
+    deep_ops = [bound(load("config2_deep", device)[0], int(deep_nodes.sum()),
+                      backward, steps, marches, hits)[2]
+                for backward in (False, True)]
     say("seg", f"config2_deep: {float(deep_nodes.float().mean()):.2f} nodes "
         f"a pixel, at most {int(deep_nodes.max())}; pixels past 63 nodes "
         f"{int((deep_nodes > 63).sum())}")
-    t = {SCENES[1]: seg_times(SCENES[1], device, card, c2["bwd_bound_ms"]),
-         "config2_deep": seg_times("config2_deep", device, card,
-                                   deep_bound[0])}
+    t = {SCENES[1]: seg_times(SCENES[1], device, card, c2["fwd_ops"],
+                              c2["bwd_ops"]),
+         "config2_deep": seg_times("config2_deep", device, card, *deep_ops)}
     say("time", f"{SCENES[1]} trace_bwd (tape, same run): vjp "
         f"{c2['vjp_device_ms']:.4f}, fused {c2['bwd_device_ms']:.4f} ms "
         f"({card})")
@@ -1284,15 +1348,32 @@ def seg_phase(device, card, times):
         "source": "euclider_tpu_torch/csrc/trace_seg.cu",
         "replaces": "euclider_tpu/ops/pallas_kernel.py:433 (K6), :472 (K7)",
         "covers": "K6 (trace_seg_fwd_kernel: the boundary carry of every "
-                  "chunk of 16 bounce trips) and K7 (trace_seg_bwd_kernel: "
-                  "the chunks re-run and swept in reverse, one launch), both "
-                  "modes, every build; the tape kernel's parameter and "
-                  "entity caps lifted (spheres48)",
+                  "chunk of 16 bounce trips that starts with a nonempty "
+                  "stack, and their count) and K7 (trace_seg_bwd_kernel: "
+                  "the stored chunks re-run and swept in reverse, one "
+                  "launch), both modes, every build; the tape kernel's "
+                  "parameter and entity caps lifted (spheres48); "
+                  "redesigned for the H100: the virtual entries zeroed only "
+                  "where the tree's last chunk needs them, no load of an "
+                  "empty chunk",
         "launches": launches["trace_seg"],
+        "launches_by_scene": {"config2_deep": launches["trace_seg"]},
         "max_abs_err": plain["vjp_err"],
         "ms": t[SCENES[1]]["ms"], "plain_ms": plain["plain_ms"],
         "bound_ms": t[SCENES[1]]["bound_ms"],
         "bound_by": t[SCENES[1]]["bound_by"], "library_ms": None,
+        "k6": {"ms": t[SCENES[1]]["vjp_ms"]["trace_seg_fwd_kernel"],
+               "bound_ms": t[SCENES[1]]["k6_bound_ms"],
+               "bound_by": t[SCENES[1]]["k6_bound_by"],
+               "plain_ms": t[SCENES[1]]["k6_plain_ms"],
+               "plain": "ops/vjp.py segmented_forward"},
+        "k7": {"ms": t[SCENES[1]]["vjp_ms"]["trace_seg_bwd_kernel"],
+               "bound_ms": t[SCENES[1]]["k7_bound_ms"],
+               "bound_by": t[SCENES[1]]["k7_bound_by"],
+               "plain_ms": plain["plain_ms"],
+               "plain": "ops/vjp.py vjp_segmented (its forward carries "
+                        "included)"},
+        "ptxas": ptxas("trace_seg", "trace_seg_shapes"),
         "ms_scene": SCENES[1], "shape": [H, W, 3],
         "tolerance": {"vs_tape_rtol": SEG_RTOL, "grad_rtol": GRAD_RTOL,
                       "loss_rtol": LOSS_RTOL},
@@ -1339,7 +1420,7 @@ def main() -> int:
     goldens = np.load(os.path.join(ROOT, "tests", "goldens.npz"))
     for name in SCENES + PROBES + WARP + EXPR + SHAPES:
         ground_truth(name, device, goldens)
-    fwd_launches = main_path(device)
+    fwd_launches, fwd_by_scene = main_path(device)
     bwd = {name: backward_check(name, device) for name in BWD_SCENES}
     bwd.update({name: backward_check(name, device, y0, SLAB_ROWS, tm)
                 for name, (y0, tm) in SLAB_SCENES.items()})
@@ -1360,8 +1441,15 @@ def main() -> int:
         "covers": "K1, every feature: straight space, CSG, cylinders, "
                   "uniform/checker/smooth/perlin/texture surfaces, the "
                   "march through the attractor field and the expression VM "
-                  "(trace_common.cuh vm_eval), portals",
+                  "(trace_common.cuh vm_eval), portals; redesigned for the "
+                  "H100: the march's side tests read a per-block table in "
+                  "shared memory, and the builds that march launch warps of "
+                  "8 x 4 pixels",
         "launches": fwd_launches + train_launches["trace_fwd"],
+        "launches_by_scene": {"render_path": fwd_by_scene,
+                              "training_path":
+                              train_launches["trace_fwd_by_scene"]},
+        "ptxas": ptxas("trace_fwd", "trace_fwd_shapes"),
         "max_abs_err": max(e[0] for e in errs.values()),
         "ms": c2["fwd_device_ms"], "plain_ms": c2["plain_frame_ms"],
         "bound_ms": c2["fwd_bound_ms"], "bound_by": c2["fwd_bound_by"],
@@ -1391,6 +1479,8 @@ def main() -> int:
                   "where it fits, chosen by size (bwd_config), the march's "
                   "checkpoints recorded in the forward sweep",
         "launches": train_launches["trace_bwd"],
+        "launches_by_scene": {"training_path":
+                              train_launches["trace_bwd_by_scene"]},
         "max_abs_err": max(b["vjp_err"] for b in bwd.values()),
         "ms": gp["bwd_device_ms"], "plain_ms": bwd["grad_probe"]["plain_ms"],
         "bound_ms": gp["bwd_bound_ms"], "bound_by": gp["bwd_bound_by"],

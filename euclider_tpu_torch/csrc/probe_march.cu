@@ -151,6 +151,7 @@ probe_march_kernel(Scene s, int stage, int mat, const float* __restrict__ org,
                    const float* __restrict__ dir, int n,
                    float* __restrict__ out, int* __restrict__ steps,
                    int* __restrict__ ent, float* __restrict__ dsv) {
+    stage_sides<BUILD_WARP>(s);
     float acc = 0.0f;
     for (int i = threadIdx.x; i < n; i += THREADS) {
         float part;

@@ -134,6 +134,7 @@ trace_bwd_kernel(Scene s, Offs off, const float* __restrict__ cam, int H,
     float grad_l[kAcc == ACC_SHARED ? 1 : MAX_PARAMS];
     float* const grad = kAcc == ACC_SHARED ? dyn_smem() + tid : grad_l;
     thread_grad<kAcc>(off, grad, partials);
+    stage_sides<kB>(s);
     if (x < W && y < rows)
         pixel_backward<kB, kAcc>(s, off, cam, x, y, H, W, gin, norm,
                                  fused != 0, grad, gtex);

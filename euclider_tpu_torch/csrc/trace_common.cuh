@@ -42,6 +42,20 @@
 // with -fmad=false besides (ops/cuda_kernel.py), so the rest of the device
 // code is not contracted either.
 //
+// A march step tests every entity's side.  Read through the scene's
+// pointers, that is a chain of dependent loads an entity (ent_root, then
+// node_kind and node_row, then shape_vec and shape_sc), the same for every
+// thread of the grid, and the longest marches (up to 960 steps a thread on
+// config5) wait on it step after step: measured on the H100 (PERF.md §6),
+// the march's share of a warp's lanes that step is 73-85% under warps of
+// a pixel row, so the cost is each step's latency, not divergence.  Every
+// kernel that marches therefore stages a side table (per entity: the root's
+// kind, centre or normal row and scalar) into the block's shared memory
+// once (stage_sides), and side() and bisect() read it: the same values in
+// the same arithmetic, so every result keeps its bits.  The table is why
+// the builds that march take at most MAX_MARCH_ENTITIES entities (with
+// the side mask's bit each).
+//
 // Six builds of every kernel (the template parameter kB, a set of BUILD_*
 // bits): straight space, + the march with the attractor field and the
 // portal teleport, + the expression VM; each with or without the shapes
@@ -449,22 +463,59 @@ __device__ __forceinline__ int material_at(const Scene& s, V4 p) {
 
 constexpr int BISECT_ITERS = 10;
 
-// geometry.py::side: membership, or the half-space side of a bare
-// hyperplane, whose flips mark the march's crossings
+// The march's side table: what side() reads of each entity, staged into
+// the block's shared memory once a launch (stage_sides).
+struct SideRow {
+    V4 c;       // the root's centre or normal row (a leaf; else zero)
+    float sc;   // its scalar
+    int kind;   // the root's node kind
+    int pad[2];
+};
+__shared__ SideRow side_rows[MAX_MARCH_ENTITIES];
+
+// Entities t, t + nt, ... of the scene into the side table.
+__device__ __forceinline__ void load_side_rows(const Scene& s, int t,
+                                               int nt) {
+    for (int e = t; e < s.n_ent; e += nt) {
+        const int node = s.ent_root[e];
+        SideRow r{{0.0f, 0.0f, 0.0f, 0.0f}, 0.0f, s.node_kind[node], {0, 0}};
+        if (r.kind <= NODE_CYLINDER) {
+            const int row = s.node_row[node];
+            r.c = load4(s.shape_vec + 4 * row);
+            r.sc = s.shape_sc[row];
+        }
+        side_rows[e] = r;
+    }
+}
+
+// The block's threads stage the side table (the builds that march).
+template <int kB>
+__device__ __forceinline__ void stage_sides(const Scene& s) {
+    if constexpr (has_march(kB)) {
+        load_side_rows(s, threadIdx.y * blockDim.x + threadIdx.x,
+                       blockDim.x * blockDim.y);
+        __syncthreads();
+    }
+}
+
+// geometry.py::side of entity ent, whose table row is r: membership, or
+// the half-space side of a bare hyperplane, whose flips mark the march's
+// crossings
+template <bool kShapes>
+__device__ __forceinline__ bool side_of(const Scene& s, int ent,
+                                        const SideRow& r, V4 p) {
+    if (r.kind == NODE_SPHERE) {
+        const V4 q = sub(p, r.c);
+        return dot_rn(q, q) < __fmul_rn(r.sc, r.sc);
+    }
+    if (kShapes && r.kind != NODE_HYPERPLANE && r.kind != NODE_HALFSPACE)
+        return member<true>(s, ent, p);
+    return dot_rn(r.c, p) < r.sc;
+}
+
 template <bool kShapes>
 __device__ __forceinline__ bool side(const Scene& s, int ent, V4 p) {
-    const int node = s.ent_root[ent];
-    if (kShapes && s.node_kind[node] != NODE_HYPERPLANE)
-        return member<true>(s, ent, p);
-    // a primitive: a sphere's membership, else the half-space side
-    const int row = s.node_row[node];
-    const V4 c = load4(s.shape_vec + 4 * row);
-    const float sc = s.shape_sc[row];
-    if (!kShapes && s.node_kind[node] == NODE_SPHERE) {
-        const V4 q = sub(p, c);
-        return dot_rn(q, q) < __fmul_rn(sc, sc);
-    }
-    return dot_rn(c, p) < sc;
+    return side_of<kShapes>(s, ent, side_rows[ent], p);
 }
 
 // bit e set: p lies on the inner side of entity e (the builds that
@@ -681,11 +732,12 @@ struct MarchHit {
 // Bisection of entity e's crossing on the segment [x0, x1] -> lambda.
 template <bool kShapes>
 __device__ __forceinline__ float bisect(const Scene& s, int e, V4 x0, V4 x1) {
-    const bool s0 = side<kShapes>(s, e, x0);
+    const SideRow r = side_rows[e];
+    const bool s0 = side_of<kShapes>(s, e, r, x0);
     float lo = 0.0f, hi = 1.0f;
     for (int k = 0; k < BISECT_ITERS; ++k) {
         const float mid = 0.5f * (lo + hi);
-        if (side<kShapes>(s, e, lerp_rn(x0, x1, mid)) == s0) lo = mid;
+        if (side_of<kShapes>(s, e, r, lerp_rn(x0, x1, mid)) == s0) lo = mid;
         else hi = mid;
     }
     return hi;

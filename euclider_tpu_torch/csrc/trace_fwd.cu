@@ -29,7 +29,17 @@
 // stack of at most MAX_SLOTS branches) and writes each pixel once.  The
 // scene is data, not code: the entity, node and surface-kind arrays and the
 // float tables are read from global memory, so one compiled kernel serves
-// every scene and branches on the scene are uniform across a warp.
+// every scene and branches on the scene are uniform across a warp.  In the
+// scenes that march, the few pixels whose rays march (6-8% of config5,
+// config6 and config7, up to 960 steps each) set the kernel's time, each
+// step waiting on its side tests: those read a table the block stages in
+// shared memory (trace_common.cuh stage_sides), and the builds that march
+// launch blocks of 8 x 32 threads, whose warps hold tiles of 8 x 4 pixels
+// that march more alike than rows of 32 (the march's SIMT efficiency on
+// config5 81% -> 90%, tools/march_simt.py).  Measured on the H100 against
+// the 32 x 8 blocks reading the scene's arrays (PERF.md §6): config5
+// 0.449 -> 0.285 ms, config7 0.414 -> 0.251; the straight builds keep
+// 32 x 8 blocks, where the tiles bought nothing.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false, without --use_fast_math: sqrtf, division and floorf stay
@@ -50,6 +60,7 @@ template <int kB>
 __global__ void trace_fwd_kernel(Scene s, const float* __restrict__ cam,
                                  int H, int W, int rows,
                                  float* __restrict__ out) {
+    stage_sides<kB>(s);
     const int x = blockIdx.x * blockDim.x + threadIdx.x;
     const int y = blockIdx.y * blockDim.y + threadIdx.y;
     if (x >= W || y >= rows) return;
@@ -71,6 +82,13 @@ __global__ void trace_fwd_kernel(Scene s, const float* __restrict__ cam,
     o[2] = acc[2];
 }
 
+// The launch's block for a build: 256 threads, 8 x 32 for the builds that
+// march (each warp a tile of 8 x 4 pixels, which march more alike than a
+// row of 32: PERF.md §6), else 32 x 8 (a warp a row of 32 pixels).
+inline dim3 fwd_block(int build) {
+    return has_march(build) ? dim3(8, 32) : dim3(32, 8);
+}
+
 }  // namespace
 
 // ints, floats, params: the scene (trace_common.cuh make_scene).
@@ -86,7 +104,7 @@ extern "C" int euclider_trace_fwd(
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (rows <= 0 || W <= 0) return 0;
-    const dim3 block(32, 8);
+    const dim3 block = fwd_block(build);
     const dim3 grid((W + block.x - 1) / block.x,
                     (rows + block.y - 1) / block.y);
     const cudaStream_t st = (cudaStream_t)stream;

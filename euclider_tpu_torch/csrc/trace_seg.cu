@@ -7,14 +7,15 @@
 // bounce trips are cut into K chunks of c trips, the last one taking the
 // rest, so that the chunks sum to trips exactly (Chunks).  K6 runs a
 // pixel's shading loop without a tape and stores the boundary carry before
-// each chunk's first trip, and the final colour sums.  K7 walks the chunks
-// backwards: from a chunk's carry it re-runs the chunk's trips with the
-// same device code, which takes the same decisions bit for bit, records a
-// tape of at most c nodes and sweeps it with node_adj; the peel (the
-// primary node) and the camera ray come last.  Unlike the TPU kernels, K7
-// is one launch: a thread keeps the carry's adjoint (9 floats a slot; the
-// colour sums' adjoint is G at every boundary) between chunks in local
-// memory, and only the forward carry goes through device memory.
+// each chunk's first trip that starts with a nonempty stack, the final
+// colour sums and the count of those chunks.  K7 walks them backwards,
+// from the last one: from a chunk's carry it re-runs the chunk's trips
+// with the same device code, which takes the same decisions bit for bit,
+// records a tape of at most c nodes and sweeps it with node_adj; the peel
+// (the primary node) and the camera ray come last.  Unlike the TPU
+// kernels, K7 is one launch: a thread keeps the carry's adjoint (9 floats
+// a slot; the colour sums' adjoint is G at every boundary) between chunks
+// in local memory, and only the forward carry goes through device memory.
 //
 // The chunk tape's first MAX_SLOTS entries are virtual: entry j holds the
 // adjoint of the carry's slot at stack position j.  A slot carried into a
@@ -25,7 +26,9 @@
 // the nodes of the chunk; after it, of the slot at j at its start: the
 // input adjoint of the node shaded from it, or, for a slot the chunk
 // never popped (below its lowest pop), the same slot's adjoint unchanged.
-// Threads whose stack is empty at a boundary skip their later chunks.
+// Only the last chunk of the tree (chunk K - 1) can end with slots on the
+// stack, which no trip shaded: their entries are zeroed there, and no
+// other entry is ever read before a later chunk has written it.
 //
 // The carry goes through one buffer of K carries a pixel, word-major over
 // the slab's pixels so that a warp's stores and loads coalesce: word w of
@@ -34,8 +37,24 @@
 // depth) at 1 + 11 j.  Only the live slots j < sp are stored and loaded.
 //
 // What bounds them: the tape kernel's work (trace_bwd.cu), K6's forward
-// sweep once more, and the carry's bytes: per pixel and chunk K6 stores
-// and K7 loads the stack pointer and 11 words a live slot.
+// sweep once more, and the carry's bytes: per pixel and stored chunk K6
+// stores and K7 loads the stack pointer and 11 words a live slot.
+// Measured on the H100 (PERF.md §6), what K7 paid beyond the tape kernel
+// was local memory and exposed latency, not arithmetic: zeroing all 16
+// virtual entries up front (144 local stores a thread, which L1 cannot
+// hold beside the block's shared gradient columns) took 31% of its time
+// on config2, and reading the stack pointer of every chunk (K - 1 of
+// them empty for most pixels) left a device-memory load exposed per
+// chunk.  So the entries are zeroed only where the last chunk needs them,
+// and K6 writes each pixel's count of stored chunks, so that K7 loads no
+// empty chunk's stack pointer; its loop still runs over every chunk, so
+// that a warp's threads re-run a chunk together (a loop started from each
+// thread's own last chunk re-ran different chunks in one pass of a warp:
+// 0.32 ms on config2 against 0.29).  K7 went from 0.446 to 0.289 ms on
+// config2 and from 0.567 to 0.350 on config2_deep.  A per-thread tape
+// sized to the chunk (MAX_SLOTS + c nodes instead of MAX_SLOTS +
+// MAX_TAPE) measured the same: local memory interleaves the threads word
+// by word, so only the touched entries cost.
 //
 // Built like trace_bwd.cu, twice (the BUILD_SHAPES builds with
 // -DTRACE_SHAPES_BUILDS).
@@ -95,8 +114,9 @@ __device__ __forceinline__ Slot load_slot(const float* c, size_t npix,
 }
 
 // K6 for one pixel: the shading loop, chunk k's carry stored before its
-// first trip (sp = 0 for the chunks after the stack empties), the final
-// colour sums into acc_out[ch * npix + pixel].
+// first trip while the stack is nonempty, the final colour sums into
+// acc_out[ch * npix + pixel] (ch < 3) and the count of stored chunks
+// into acc_out[3 * npix + pixel].
 template <int kB>
 __device__ void pixel_seg_fwd(const Scene& s, const float* cam, int x, int y,
                               int H, int W, int rows, Chunks ch, float* carry,
@@ -110,19 +130,18 @@ __device__ void pixel_seg_fwd(const Scene& s, const float* cam, int x, int y,
     const Slot root{load4(cam), d0, 1.0f, s.ambient, s.max_depth, -1, 0};
     shade<kB>(s, root, 0, acc, stack, &sp, nullptr);
     int k = 0;
-    for (int it = 0; it < ch.trips; ++it) {
+    for (int it = 0; it < ch.trips && sp > 0; ++it) {
         if (it == k * ch.c) {
             store_carry(carry + k * cstride + pix, npix, stack, sp);
             ++k;
         }
-        if (sp == 0) break;
         --sp;
         const Slot nd = stack[sp];
         shade<kB>(s, nd, it + 1, acc, stack, &sp, nullptr);
     }
-    for (; k < ch.K; ++k) carry[k * cstride + pix] = __int_as_float(0);
 #pragma unroll
     for (int c = 0; c < 3; ++c) acc_out[c * npix + pix] = acc[c];
+    acc_out[3 * npix + pix] = __int_as_float(k);
 }
 
 // A chunk's end: each slot still on the stack that a node of the chunk
@@ -135,9 +154,9 @@ __device__ __forceinline__ void link_to_carry(Tape* tape, const Slot* stack,
             tape[stack[j].parent].child[stack[j].branch] = j;
 }
 
-// K7 for one pixel: seed, the chunks in reverse from their carries, then
-// the peel and the camera ray; adds its gradient (and, fused, its loss
-// term) into grad, the textures' into gtex.
+// K7 for one pixel: seed, the stored chunks in reverse from their
+// carries, then the peel and the camera ray; adds its gradient (and,
+// fused, its loss term) into grad, the textures' into gtex.
 template <int kB, int kAcc>
 __device__ void pixel_seg_bwd(const Scene& s, const Offs& off,
                               const float* cam, int x, int y, int H, int W,
@@ -149,24 +168,21 @@ __device__ void pixel_seg_bwd(const Scene& s, const Offs& off,
     const size_t npix = (size_t)rows * W, pix = (size_t)y * W + x;
     const size_t cstride = (size_t)carry_words(s.max_depth) * npix;
     float acc[3] = {acc_in[pix], acc_in[npix + pix], acc_in[2 * npix + pix]};
+    const int stored = __float_as_int(acc_in[3 * npix + pix]);
     float G[3];
     seed<kAcc>(off, gin, x, y, W, acc, norm, fused, grad, G);
     float scratch[3];   // the re-runs' colour sums, not needed
     Tape tape[MAX_SLOTS + MAX_TAPE];
-    for (int j = 0; j < MAX_SLOTS; ++j) {
-        tape[j].org = vzero();
-        tape[j].dir = vzero();
-        tape[j].w = 0.0f;
-    }
     Slot stack[MAX_SLOTS];
     // the chunks, last first, then (k = -1) the peel: the primary node,
-    // whose children are the first carry's slots
+    // whose children are the first carry's slots.  k runs over every
+    // chunk, so that a warp's threads re-run the same chunk together.
     for (int k = ch.K - 1; k >= -1; --k) {
+        if (k >= stored) continue;
         int sp0 = 0, sp = 0, n = MAX_SLOTS;
         if (k >= 0) {
             const float* c = carry + k * cstride + pix;
             sp0 = __float_as_int(c[0]);
-            if (sp0 == 0) continue;
             for (int j = 0; j < sp0; ++j) {
                 stack[j] = load_slot(c, npix, j);
                 tape[j].child[0] = -1;
@@ -190,6 +206,12 @@ __device__ void pixel_seg_bwd(const Scene& s, const Offs& off,
             ++n;
             if (ch.K == 0) sp = 0;   // no trip shades the root's children
         }
+        if (k == ch.K - 1)   // the tree's last chunk: slots left unshaded
+            for (int j = 0; j < sp; ++j) {
+                tape[j].org = vzero();
+                tape[j].dir = vzero();
+                tape[j].w = 0.0f;
+            }
         link_to_carry(tape, stack, sp);
         for (int i = n - 1; i >= MAX_SLOTS; --i) {
             V4 dorg, ddir;
@@ -220,6 +242,7 @@ trace_seg_fwd_kernel(Scene s, const float* __restrict__ cam, int H, int W,
                      float* __restrict__ acc) {
     const int x = blockIdx.x * BLOCK_X + threadIdx.x;
     const int y = blockIdx.y * BLOCK_Y + threadIdx.y;
+    stage_sides<kB>(s);
     if (x < W && y < rows)
         pixel_seg_fwd<kB>(s, cam, x, y, H, W, rows, ch, carry, acc);
 }
@@ -241,6 +264,7 @@ trace_seg_bwd_kernel(Scene s, Offs off, const float* __restrict__ cam, int H,
     float grad_l[kAcc == ACC_SHARED ? 1 : MAX_PARAMS];
     float* const grad = kAcc == ACC_SHARED ? dyn_smem() + tid : grad_l;
     thread_grad<kAcc>(off, grad, partials);
+    stage_sides<kB>(s);
     if (x < W && y < rows)
         pixel_seg_bwd<kB, kAcc>(s, off, cam, x, y, H, W, rows, ch, carry,
                                 acc, gin, norm, fused != 0, grad, gtex);
@@ -259,7 +283,8 @@ struct SegKernel {
 // arguments and gradient vector as euclider_trace_bwd, for any max_nodes,
 // and chunk_trips (1 .. 63), carry: scratch of K * carry_words(max_depth)
 // * rows * W floats (K = ceil((max_nodes - 1) / chunk_trips)), acc:
-// scratch of 3 * rows * W floats (the rendered slab, channel-major).
+// scratch of 4 * rows * W floats (the rendered slab, channel-major, then
+// each pixel's count of stored chunks).
 extern "C" int euclider_trace_seg(
     const int32_t* const* ints, const float* const* floats, const int* params,
     float t_max, const int* sizes, const float* cam, int H, int W, int rows,
@@ -282,7 +307,7 @@ extern "C" int euclider_trace_seg(
     const dim3 block(BLOCK_X, BLOCK_Y);
     const dim3 grid((W + BLOCK_X - 1) / BLOCK_X, (rows + BLOCK_Y - 1) / BLOCK_Y);
     const long long n_blocks = (long long)grid.x * grid.y;
-    if (partials_len < n_blocks * off.n || acc_len < 3 * npix ||
+    if (partials_len < n_blocks * off.n || acc_len < 4 * npix ||
         carry_len < (long long)ch.K * carry_words(s.max_depth) * npix)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;

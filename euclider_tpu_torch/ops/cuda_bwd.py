@@ -218,7 +218,7 @@ def _launch(static, floats, cam_row, H, W, rows, gin, norm, fused,
         LAUNCHES += 1
     else:
         carry = _carry(static, rows, W, chunk_trips, device)
-        acc = torch.empty(3 * rows * W, dtype=torch.float32, device=device)
+        acc = torch.empty(4 * rows * W, dtype=torch.float32, device=device)
         rc = _entry(CK.library("trace_seg", static), True)(
             *args, chunk_trips, carry.data_ptr(), carry.numel(),
             acc.data_ptr(), acc.numel(), *tail)

@@ -141,6 +141,41 @@ def _grad(outs, inputs, gouts):
                                [g for _, g in pairs], allow_unused=True)
 
 
+def _peel(static, tab, cam, xi, yi, W: int, H: int, time):
+    """The primary node of pixels (xi, yi): its colour sums, or the carry
+    (sp, ar, ag, ab, slots) of a scene with deferred branches."""
+    org, d = trace.camera_rays(cam, xi, yi, W, H)
+    ar, ag, ab, slots, sp = trace.bounce_init(static, tab, org, d, True, time)
+    return [ar, ag, ab] if slots is None else (sp, ar, ag, ab, slots)
+
+
+def _carries(static, tab, carry, sizes, time) -> list:
+    """Each chunk's start carry, from the peel's ``carry``: the bounce
+    trips of ``sizes`` run chunk after chunk."""
+    carries = []
+    if isinstance(carry, tuple):
+        body = trace.make_bounce_body(static, tab, True, time)
+        for trips in sizes:
+            carries.append(carry)
+            carry = _run_chunk(body, carry, trips)
+    return carries
+
+
+def segmented_forward(static, tables, cam, H: int, W: int, time=0.0,
+                      chunk_trips: int = CHUNK_TRIPS) -> list:
+    """The plain version of K6 on the H x W frame: the peel and the chunks
+    of bounce trips without a graph -> each chunk's start carry (none for
+    a scene without deferred branches).  ``vjp_segmented`` runs the same
+    per block of rows."""
+    dev = tables.surf_color.device
+    yi = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    xi = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
+    with torch.no_grad():
+        return _carries(static, tables,
+                        _peel(static, tables, cam, xi, yi, W, H, time),
+                        chunk_sizes(static.max_nodes, chunk_trips), time)
+
+
 def vjp_segmented(static, tables, cam, H: int, W: int, g,
                   block_rows: int = BWD_BLOCK_ROWS, time=0.0, y0: int = 0,
                   rows: int | None = None, chunk_trips: int = CHUNK_TRIPS):
@@ -184,19 +219,11 @@ def vjp_segmented(static, tables, cam, H: int, W: int, g,
                           device=g.device)[None, :].expand(bh, W)
 
         def peel():
-            org, d = trace.camera_rays(CameraParams(*cam_l), xi, yi, W, H)
-            ar, ag, ab, slots, sp = trace.bounce_init(static, tab, org, d,
-                                                      True, time_l)
-            return [ar, ag, ab] if slots is None else (sp, ar, ag, ab, slots)
+            return _peel(static, tab, CameraParams(*cam_l), xi, yi, W, H,
+                         time_l)
 
-        carries = []
         with torch.no_grad():
-            carry = peel()
-            if isinstance(carry, tuple):
-                body = trace.make_bounce_body(static, tab, True, time_l)
-                for trips in sizes:
-                    carries.append(carry)
-                    carry = _run_chunk(body, carry, trips)
+            carries = _carries(static, tab, peel(), sizes, time_l)
         gb = g[by0:by0 + bh].to(torch.float32)
         dfl = [gb[..., 0], gb[..., 1], gb[..., 2]]
         if carries:

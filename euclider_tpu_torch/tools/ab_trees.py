@@ -18,19 +18,44 @@ local, shared and shuffle instructions in its SASS (``cuobjdump -sass``:
 LDL, STL, LDS, STS, SHFL, and the generic LD and ST); then runs one timing
 process per entry of ``--order``, in that order.  A process imports the
 package of its tree alone (this file imports nothing of the package
-itself) and times, at 1280x720, the forward kernel ``trace_fwd`` on
-config1, config2, config5 and config6, the tape backward ``trace_bwd`` in
-vjp mode under a seeded cotangent on grad_probe, config2, config5 and
-config6, and the segmented backward K6 + K7 (``trace_seg_fwd_kernel`` +
-``trace_seg_bwd_kernel``, vjp mode) on config2: the mean device time of a
-launch over 5 calls after 3 warm-up calls, from torch.profiler.  Beside
-each ``trace_bwd`` time it prints the launch configuration of the
-instantiation the scene takes (threads a block, dynamic shared memory,
-where the gradient vector lives, active blocks per SM from
-``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), through the tree's C
-entry ``euclider_trace_bwd_config`` (null for a tree without it).  Every
-result is one JSON line; the last line holds them all, with the card's
-name and power limit.  Needs a CUDA card.
+itself) and times, at 1280x720, the groups that ``--only`` names (all by
+default):
+
+- ``fwd``: the forward kernel ``trace_fwd`` on FWD_SCENES;
+- ``bwd``: the tape backward ``trace_bwd`` in vjp mode under a seeded
+  cotangent on BWD_SCENES, each beside the launch configuration of the
+  instantiation the scene takes (threads a block, dynamic shared memory,
+  where the gradient vector lives, active blocks per SM from
+  ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), through the tree's C
+  entry ``euclider_trace_bwd_config`` (null for a tree without it);
+- ``seg``: the segmented backward in vjp mode on SEG_SCENES (config5
+  forced onto it, so that K7's marching build is timed), K6
+  (``trace_seg_fwd_kernel``), K7 (``trace_seg_bwd_kernel``) and the
+  partials' sum each timed apart;
+- ``probe``: the march-bisect probe P1 (``probe_march_kernel``), every
+  stage on its crossing tile;
+
+each the mean device time of a launch over 5 calls after 3 warm-up calls,
+from torch.profiler; and
+
+- ``e2e``: the calls of E2E_CELLS as a user makes them, host work
+  included (a frame of ``render_image_cuda``, one fused training step
+  ``make_fused_value_and_grad(..., "cuda-fused")``, one segmented vjp
+  call), the median of 20 calls after 3 warm-up calls by CUDA events,
+  each call synchronised; beside it (``e2e_host``) the median host time
+  from the start event's record to the call's return, which is the host
+  work that the events count where the card waits on it;
+- ``host``: the host steps of one ``render_image_cuda`` call on
+  HOST_SCENES, each timed alone (the float tables' checks, the camera
+  row, the scene arguments, the C entry that launches the kernel, and
+  the whole call), the median of 300 calls after 30, each after a
+  synchronise, on the host's clock.
+
+Every result is one JSON line.  Then one line a
+kernel and scene holds its times in the order of the runs (``time``
+lines: K6 and K7 on lines of their own, so that either can be read
+alone), and the last line holds everything, with the card's name and
+power limit.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -43,15 +68,25 @@ import sys
 
 H, W = 720, 1280
 FWD_SCENES = ("config1_sphere_room", "config2_mirror_glass",
-              "config5_warp_portal", "config6_expr_space")
+              "config3_csg_textured", "config5_warp_portal",
+              "config6_expr_space", "config7_warp4d", "config2_deep")
 BWD_SCENES = ("grad_probe", "config2_mirror_glass", "config5_warp_portal",
               "config6_expr_space")
-SEG_SCENES = ("config2_mirror_glass",)
-SEG_KEYS = ("trace_seg_fwd_kernel", "trace_seg_bwd_kernel")
+# config2 at max_depth 8 and max_nodes 255 (chip_smoke.py's config2_deep)
+SEG_SCENES = ("config2_mirror_glass", "config2_deep", "config5_warp_portal")
+SEG_KEYS = ("trace_seg_fwd_kernel", "trace_seg_bwd_kernel",
+            "sum_partials_kernel")
+# (call, scene) timed end to end: "frame", "step" (fused) or "seg" (vjp)
+E2E_CELLS = (("frame", "config2_mirror_glass"),
+             ("frame", "config5_warp_portal"), ("step", "grad_probe"),
+             ("step", "config6_expr_space"), ("seg", "config2_mirror_glass"))
+HOST_SCENES = ("config1_sphere_room", "config2_mirror_glass",
+               "config5_warp_portal")
+GROUPS = ("fwd", "bwd", "seg", "probe", "e2e", "host")
 # SASS opcodes counted per kernel: local, shared and generic memory, shuffles
 SASS_OPS = ("LDL", "STL", "LDS", "STS", "SHFL", "LD", "ST")
 LIBS = ("trace_fwd", "trace_bwd", "trace_seg", "trace_fwd_shapes",
-        "trace_bwd_shapes", "trace_seg_shapes")
+        "trace_bwd_shapes", "trace_seg_shapes", "probe_march")
 
 
 def _package(path: str, nofma: bool):
@@ -86,24 +121,33 @@ def _kernel_name(mangled: str) -> str:
 
 
 def sass_counts(lib: str) -> dict:
-    """{kernel: {opcode: count}} of SASS_OPS in the library's SASS, from
-    cuobjdump -sass (static instruction counts; {} without cuobjdump)."""
+    """{kernel: {opcode: count, "digest": hash}} of SASS_OPS in the
+    library's SASS, from cuobjdump -sass (static instruction counts; {}
+    without cuobjdump); the digest hashes the kernel's instructions without
+    their addresses and encodings, so two builds of one kernel with equal
+    digests run the same code."""
+    import hashlib
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {}
     text = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True).stdout
-    out, cur = {}, None
+    out, hashes, cur = {}, {}, None
     for line in text.splitlines():
         if "Function :" in line:
-            cur = out.setdefault(_kernel_name(line.split(":", 1)[1].strip()),
-                                 dict.fromkeys(SASS_OPS, 0))
+            cur = _kernel_name(line.split(":", 1)[1].strip())
+            out.setdefault(cur, dict.fromkeys(SASS_OPS, 0))
+            hashes[cur] = hashlib.sha256()
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
-                     line)
-        if cur is not None and m and m.group(1) in cur:
-            cur[m.group(1)] += 1
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+((?:@!?U?P\w+\s+)?"
+                     r"([A-Z0-9_]+)[^;]*;)", line)
+        if cur is not None and m:
+            hashes[cur].update(m.group(1).encode())
+            if m.group(2) in out[cur]:
+                out[cur][m.group(2)] += 1
+    for k, h in hashes.items():
+        out[k]["digest"] = h.hexdigest()[:12]
     return out
 
 
@@ -140,7 +184,18 @@ def launch_config(CK, cuda_bwd, static, tables, device):
             "grad_storage": {1: "shared", 2: "local"}[out[3]]}
 
 
-def time_worker(path: str, nofma: bool) -> dict:
+def _scene(et, name):
+    """A library scene, or config2_deep: config2 at max_depth 8 and
+    max_nodes 255, past the tape kernel's 63 nodes."""
+    if name == "config2_deep":
+        from dataclasses import replace
+        sc = et.get_scene("config2_mirror_glass")
+        return replace(sc, name=name, settings=replace(
+            sc.settings, max_depth=8, max_nodes=255))
+    return et.get_scene(name)
+
+
+def time_worker(path: str, nofma: bool, groups=GROUPS) -> dict:
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -151,7 +206,7 @@ def time_worker(path: str, nofma: bool) -> dict:
     device = torch.device("cuda", 0)
 
     def load(name):
-        sc = et.get_scene(name)
+        sc = _scene(et, name)
         static, tables = et.compile_scene(sc)
         return (static, et.tables_to_torch(tables, device),
                 et.camera_to_torch(et.compile_camera(sc.camera), device))
@@ -180,34 +235,139 @@ def time_worker(path: str, nofma: bool) -> dict:
                 break
         return got if isinstance(key, tuple) else got[key]
 
-    out = {"fwd": {}, "bwd": {}, "bwd_config": {}, "seg": {}}
-    for name in FWD_SCENES:
+    def events_ms(fn, n=20, warm=3):
+        """Median ms of one call of fn by CUDA events, host work included,
+        and the median host ms from the start event's record to fn's
+        return."""
+        import statistics
+        import time
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        ms, host = [], []
+        for _ in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            host.append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        return statistics.median(ms), statistics.median(host)
+
+    def host_ms(fn, n=300, warm=30):
+        """Median host ms of one call of fn, each after a synchronise."""
+        import statistics
+        import time
+        ms = []
+        for i in range(warm + n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            if i >= warm:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ms)
+
+    out = {"fwd": {}, "bwd": {}, "bwd_config": {}, "seg": {}, "probe": {},
+           "e2e": {}, "e2e_host": {}, "host": {}}
+    for name in FWD_SCENES if "fwd" in groups else ():
         static, tables, cam = load(name)
         out["fwd"][name] = device_ms(
             lambda: CK.render_image_cuda(static, tables, cam, H, W),
             "trace_fwd_kernel")
     g = torch.from_numpy(np.random.default_rng(3).normal(
         size=(H, W, 3)).astype(np.float32)).to(device)
-    for name in BWD_SCENES:
+    for name in BWD_SCENES if "bwd" in groups else ():
         static, tables, cam = load(name)
         out["bwd"][name] = device_ms(
             lambda: cuda_bwd.vjp_cuda(static, tables, cam, H, W, g),
             "trace_bwd_kernel")
         out["bwd_config"][name] = launch_config(CK, cuda_bwd, static, tables,
                                                 device)
-    for name in SEG_SCENES:
+    for name in SEG_SCENES if "seg" in groups else ():
         static, tables, cam = load(name)
         ms = device_ms(lambda: cuda_bwd.vjp_cuda(
             static, tables, cam, H, W, g, backward="segmented"), SEG_KEYS)
         out["seg"][name] = dict(ms, total=None if None in ms.values()
                                 else sum(ms.values()))
+    if "probe" in groups:
+        from euclider_tpu_torch.ops import march_probe as MP
+        static, tables = MP.probe_scene(device)
+        org, d = MP.crossing_tile(device)
+        for stage in MP.STAGES:
+            out["probe"][stage] = device_ms(
+                lambda: MP.march_probe_cuda(static, tables, org, d, stage),
+                "probe_march_kernel")
+    if "e2e" in groups:
+        from euclider_tpu_torch.train.inverse import (
+            InverseParams, make_fused_value_and_grad)
+        target = torch.from_numpy(np.random.default_rng(2).uniform(
+            size=(H, W, 3)).astype(np.float32)).to(device)
+    for call, name in E2E_CELLS if "e2e" in groups else ():
+        static, tables, cam = load(name)
+        if call == "frame":
+            fn = lambda: CK.render_image_cuda(static, tables, cam, H, W)
+        elif call == "step":
+            vg = make_fused_value_and_grad(static, H, W, "cuda-fused")
+            params = InverseParams(tables, cam)
+            fn = lambda: vg(params, target)
+        else:
+            fn = lambda: cuda_bwd.vjp_cuda(static, tables, cam, H, W, g,
+                                           backward="segmented")
+        out["e2e"][f"{call}:{name}"], out["e2e_host"][f"{call}:{name}"] = \
+            events_ms(fn)
+    for name in HOST_SCENES if "host" in groups else ():
+        static, tables, cam = load(name)
+        floats = CK._check_tables(static, tables, device)
+        cam_row = CK._pack_camera(cam, 0.0, 0, device)
+        args = CK.scene_args(static, floats, device, CK.tex_shapes(tables))
+        frame = torch.empty((H, W, 3), dtype=torch.float32, device=device)
+        entry = CK._entry(CK.library("trace_fwd", static))
+        stream = torch.cuda.current_stream(device).cuda_stream
+        out["host"][name] = {k: host_ms(fn) for k, fn in (
+            ("check_tables", lambda: CK._check_tables(static, tables,
+                                                      device)),
+            ("pack_camera", lambda: CK._pack_camera(cam, 0.0, 0, device)),
+            ("scene_args", lambda: CK.scene_args(static, floats, device,
+                                                 CK.tex_shapes(tables))),
+            ("c_entry", lambda: entry(*args[:3], static.t_max,
+                                      cam_row.data_ptr(), H, W, H,
+                                      frame.data_ptr(), device.index,
+                                      stream)),
+            ("render", lambda: CK.render_image_cuda(static, tables, cam, H,
+                                                    W)))}
     return out
 
 
-def _worker(mode: str, spec: str, libs: str) -> dict:
+def time_lines(runs) -> list:
+    """One line a kernel and scene: its times (ms a launch) in the order
+    of the runs, tagged with each run's tree."""
+    keys = []
+    for r in runs:
+        for group in ("fwd", "bwd", "probe", "e2e", "e2e_host"):
+            keys += [(group, k, None) for k in r.get(group, {})]
+        for group in ("seg", "host"):
+            for name, ms in r.get(group, {}).items():
+                keys += [(group, name, k) for k in ms]
+    lines = []
+    for key in dict.fromkeys(keys):
+        group, name, kernel = key
+        ts = [(r["tree"], r.get(group, {}).get(name)) for r in runs]
+        if kernel is not None:
+            ts = [(t, (v or {}).get(kernel)) for t, v in ts]
+        lines.append(" ".join(
+            [group, name] + ([kernel] if kernel else [])
+            + [f"{t}={'-' if v is None else f'{v:.4f}'}" for t, v in ts]))
+    return lines
+
+
+def _worker(mode: str, spec: str, libs: str, only: str = "") -> dict:
     path, _, opt = spec.partition(":")
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                            "--worker", mode, "--path", path, "--libs", libs]
+                          + (["--only", only] if only else [])
                           + (["--nofma"] if opt == "nofma" else []),
                           capture_output=True, text=True, timeout=1800)
     if proc.returncode != 0:
@@ -224,14 +384,20 @@ def main(argv=None) -> int:
                     help="comma-separated tree names, timed in this order")
     ap.add_argument("--libs", default=",".join(LIBS),
                     help="the libraries to build (comma-separated)")
+    ap.add_argument("--only", default="",
+                    help="comma-separated groups to time, of "
+                         f"{', '.join(GROUPS)} (default: all)")
     ap.add_argument("--worker", choices=("build", "time"))
     ap.add_argument("--path")
     ap.add_argument("--nofma", action="store_true")
     args = ap.parse_args(argv)
+    groups = tuple(filter(None, args.only.split(","))) or GROUPS
+    if set(groups) - set(GROUPS):
+        ap.error(f"--only takes groups of {GROUPS}, got {args.only}")
     if args.worker == "build":
         out = build_worker(args.path, args.nofma, args.libs.split(","))
     elif args.worker == "time":
-        out = time_worker(args.path, args.nofma)
+        out = time_worker(args.path, args.nofma, groups)
     if args.worker:
         print(json.dumps(out), flush=True)
         return 0
@@ -248,9 +414,11 @@ def main(argv=None) -> int:
         print(json.dumps({"tree": name, "build": b}), flush=True)
     runs = []
     for name in filter(None, args.order.split(",")):
-        t = _worker("time", trees[name], args.libs)
+        t = _worker("time", trees[name], args.libs, args.only)
         runs.append({"tree": name, **t})
         print(json.dumps(runs[-1]), flush=True)
+    for line in time_lines(runs):
+        print("time", line, flush=True)
     print(json.dumps({"card": card, "trees": trees, "builds": builds,
                       "runs": runs}), flush=True)
     return 0

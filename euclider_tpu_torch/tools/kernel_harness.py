@@ -84,12 +84,13 @@ extern "C" int harness_fwd(const int32_t* const* ints,
                            float t_max, const float* cam, int H, int W,
                            int rows, float* out) {
     const Scene s = make_scene(ints, floats, params, t_max, cam);
+    load_side_rows(s, 0, 1);
     const int build = scene_build(params);
-    blockDim = dim3(32, 8);
+    blockDim = fwd_block(build);
     for (int y = 0; y < rows; ++y)
         for (int x = 0; x < W; ++x) {
-            blockIdx = dim3(x / 32, y / 8);
-            threadIdx = dim3(x % 32, y % 8);
+            blockIdx = dim3(x / blockDim.x, y / blockDim.y);
+            threadIdx = dim3(x % blockDim.x, y % blockDim.y);
             switch (build) { CASES default: return 1; }
         }
     return 0;
@@ -103,6 +104,7 @@ extern "C" int harness_bwd(const int32_t* const* ints,
                            int H, int W, int rows, const float* gin,
                            double* out, float* gtex) {
     const Scene s = make_scene(ints, floats, params, t_max, cam);
+    load_side_rows(s, 0, 1);
     const Offs off = make_offs(sizes);
     const int build = scene_build(params);
     const bool wide = off.n > MAX_PARAMS;
@@ -162,6 +164,7 @@ extern "C" int harness_seg(const int32_t* const* ints,
                            int chunk_trips, float* carry, float* acc,
                            double* out, float* gtex) {
     const Scene s = make_scene(ints, floats, params, t_max, cam);
+    load_side_rows(s, 0, 1);
     const Offs off = make_offs(sizes);
     const int build = scene_build(params);
     const Chunks ch = make_chunks(s.max_nodes, chunk_trips);
@@ -219,6 +222,7 @@ extern "C" int harness_probe_march(const int32_t* const* ints,
                                    float* out, int* steps, int* ent,
                                    float* dsv) {
     const Scene s = make_scene(ints, floats, params, t_max, cam);
+    load_side_rows(s, 0, 1);
     if (scene_build(params) != BUILD_WARP || s.march_steps > TAPE_STEPS)
         return 1;
     float acc = 0.0f;
@@ -353,7 +357,7 @@ def vjp(static, tables, cam, H, W, g, time=0.0, y0=0, rows=None,
         K = len(vjp_mod.chunk_sizes(static.max_nodes, chunk_trips))
         carry = torch.zeros(max(1, K * (1 + CB.SLOT_WORDS
                                         * (static.max_depth + 1)) * R * W))
-        col = torch.zeros(3 * R * W)
+        col = torch.zeros(4 * R * W)
         got = seg(*args, chunk_trips, carry.data_ptr(), col.data_ptr(),
                   acc.ctypes.data, gtex.data_ptr())
     if got != n:

@@ -121,12 +121,38 @@ def deep_scene(smooth=False):
         sc.settings, max_depth=8, max_nodes=255))
 
 
+def warp32_scene(n=30):
+    """A marching scene at the march's 32-entity cap: a warp sphere, a
+    smooth wall and n = 30 small spheres, each with its own uniform
+    surface, on a ring inside the warp region, so that marched rays cross
+    the ring's spheres (the last one is entity 31, the side mask's top
+    bit)."""
+    import math
+    from euclider_tpu_torch.scene import ir
+    region = ir.Entity(ir.Sphere((0, 0, -4), 1.8),
+                       material=ir.WarpSpace(center=(0, 0, -4), strength=0.4,
+                                             step=0.05),
+                       surface=ir.UniformSurface((0, 0, 0, 0.0)))
+    wall = ir.Entity(ir.Hyperplane((0, 0, 1), -8.0),
+                     surface=ir.SmoothSurface(uv_scale=0.5))
+    balls = tuple(ir.Entity(
+        ir.Sphere((1.1 * math.cos(2 * math.pi * i / n),
+                   1.1 * math.sin(2 * math.pi * i / n), -4.0), 0.2),
+        surface=ir.UniformSurface((0.2 + 0.6 * i / n, 0.5, 0.8 - 0.6 * i / n,
+                                   1.0)),
+        name=f"ball{i}") for i in range(n))
+    return ir.Scene(dim=3, name="warp32", entities=(region, wall) + balls,
+                    settings=ir.RenderSettings(max_depth=3, march_steps=200,
+                                               background=(0.1, 0.1, 0.2)))
+
+
 def scene_on(name, device, **settings):
     sc = {"warp_gradient_scene": warp_gradient_scene,
           "expr_gradient_scene": expr_gradient_scene,
           "cylinder_test": cylinder_scene,
           "cylinder_smooth": lambda: cylinder_scene(True),
           "spheres48": spheres_scene,
+          "warp32": warp32_scene,
           "config2_deep": deep_scene,
           "config2_deep_smooth": lambda: deep_scene(True)}.get(
               name, lambda: ett.get_scene(name))()
@@ -155,7 +181,8 @@ def test_encoder_refuses_a_tree_deeper_than_the_stack():
                                   "config6_expr_space",
                                   "config7_warp4d",
                                   "perlin_probe",
-                                  "cylinder_test"])
+                                  "cylinder_test",
+                                  "warp32"])
 def test_kernel_matches_plain(cuda, name):
     static, tables, cam = scene_on(name, cuda)
     before = cuda_kernel.LAUNCHES
@@ -168,6 +195,18 @@ def test_kernel_matches_plain(cuda, name):
     # chip_smoke.py: 99.9% of pixels within 1e-4)
     bad = ((got - ref).abs().amax(dim=-1) > 1e-4).float().mean()
     assert float(bad) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["config5_warp_portal", "config7_warp4d"])
+def test_marching_kernel_renders_to_the_bit(cuda, name):
+    """config5 and config7 at 1280 x 720 through the builds that march,
+    launched in blocks of 8 x 32 threads (warps of 8 x 4 pixels) with the
+    side table in shared memory: the plain version's frame to the bit."""
+    static, tables, cam = scene_on(name, cuda)
+    got = cuda_kernel.render_image_cuda(static, tables, cam, 720, 1280)
+    ref = trace.render_image(static, tables, cam, 720, 1280)
+    assert torch.equal(got, ref), float((got - ref).abs().max())
 
 
 @pytest.mark.cuda
@@ -496,6 +535,43 @@ def test_segmented_kernels_match_the_tape_kernel(cuda, name):
                                         chunk_trips=2)
     assert abs(float(ls) - float(lt)) <= 1e-5 * float(lt)
     grads_close(tape[:2], seg[:2], rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_trips", [16, 21])
+def test_segmented_kernels_match_the_tape_kernel_in_long_chunks(cuda,
+                                                                chunk_trips):
+    """K6/K7 on config2 at chunk_trips 16 (the default: its 62 trips in
+    chunks of 16, 16, 16 and 14) and 21 (21, 21 and 20) against trace_bwd
+    under the same cotangent, within chip_smoke.py's 1e-5 relative."""
+    from euclider_tpu_torch.ops import cuda_bwd
+    static, tables, cam = scene_on("config2_mirror_glass", cuda)
+    g = cotangent((BH, BW, 3), 7, cuda)
+    tape = cuda_bwd.vjp_cuda(static, tables, cam, BH, BW, g, backward="tape")
+    seg = cuda_bwd.vjp_cuda(static, tables, cam, BH, BW, g,
+                            backward="segmented", chunk_trips=chunk_trips)
+    grads_close(tape[:2], seg[:2], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_segmented_kernels_are_deterministic(cuda):
+    """Two launches of K6/K7 on config2 at 180 x 320, vjp and fused, give
+    bit-identical gradients and loss (the tape kernel's fixed-order sums;
+    config2 has no texture and no entry past MAX_PARAMS)."""
+    from euclider_tpu_torch.ops import cuda_bwd
+    static, tables, cam = scene_on("config2_mirror_glass", cuda)
+    h, w = 180, 320
+    g = cotangent((h, w, 3), 13, cuda)
+    target = cotangent((h, w, 3), 14, cuda).sigmoid()
+    a, b = (flat_grads(*cuda_bwd.vjp_cuda(static, tables, cam, h, w, g,
+                                          backward="segmented"))
+            for _ in range(2))
+    assert torch.equal(a, b)
+    (la, *ga), (lb, *gb) = (cuda_bwd.train_step_cuda(
+        static, tables, cam, target, h, w, backward="segmented")
+        for _ in range(2))
+    assert torch.equal(la, lb)
+    assert torch.equal(flat_grads(*ga), flat_grads(*gb))
 
 
 @pytest.mark.cuda

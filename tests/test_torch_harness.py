@@ -13,6 +13,7 @@ Without contraction the device code rounds as the plain version's separate
 torch operations do, so the forward matches it to the last bit here.
 """
 import shutil
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -20,8 +21,9 @@ import torch
 
 from euclider_tpu_torch.ops import march_probe as MP
 from euclider_tpu_torch.scene import ir
+from euclider_tpu_torch.scene.library import get_scene
 from euclider_tpu_torch.tools import kernel_harness as KH
-from test_torch_cuda import deep_scene, spheres_scene
+from test_torch_cuda import deep_scene, spheres_scene, warp32_scene
 
 
 @pytest.fixture(scope="module")
@@ -35,11 +37,14 @@ def harness():
 @pytest.mark.parametrize("name, H, W", [("config3_csg_textured", 48, 64),
                                         ("perlin_probe", 48, 64),
                                         ("config2_mirror_glass", 24, 32),
-                                        ("config6_expr_space", 24, 32)])
+                                        ("config6_expr_space", 24, 32),
+                                        ("warp32", 16, 24)])
 def test_device_code_matches_plain(harness, name, H, W):
     """Forward exact; every leaf's gradient (texels, camera and time
-    included) within 1e-3 * max(max |ref|, 1) under a seeded cotangent."""
-    out = harness.compare(name, H, W)
+    included) within 1e-3 * max(max |ref|, 1) under a seeded cotangent.
+    warp32 marches at the side table's 32-entity cap (its last entity,
+    the side mask's top bit, is crossed by marched rays)."""
+    out = harness.compare(warp32_scene() if name == "warp32" else name, H, W)
     assert out["fwd_bad"] == 0 and out["fwd_max"] <= 1e-6, out
     assert out["bwd_worst"] <= 1.0, out
 
@@ -68,14 +73,24 @@ def test_device_code_of_a_csg_bounded_warp_region(harness):
 
 @pytest.mark.parametrize("name, H, W, chunk_trips", [
     ("config2_mirror_glass", 24, 32, 1), ("config5_warp_portal", 9, 16, 2),
-    ("config6_expr_space", 12, 16, 3), ("config2_deep", 12, 16, 16)])
+    ("config6_expr_space", 12, 16, 3), ("config2_deep", 12, 16, 16),
+    ("config2_mirror_glass", 24, 32, 16), ("config2_mirror_glass", 24, 32, 21),
+    ("config2_deep", 12, 16, 63), ("config2_capped", 24, 32, 2)])
 def test_segmented_device_code_matches_plain(harness, name, H, W,
                                              chunk_trips):
     """K6 then K7's device code against vjp_segmented at the same chunks:
     boundaries after every trip (config2), in a marching build and in the
     VM build, and a tree past the tape kernel's 63 nodes (config2 at
-    max_depth 8 and max_nodes 255 with a smooth floor)."""
+    max_depth 8 and max_nodes 255 with a smooth floor); chunk_trips 16
+    (config2's 62 trips in chunks of 16, 16, 16 and 14), 21 (21, 21 and
+    20) and 63, the most a tape holds (config2_deep's 254 trips in 5
+    chunks); and
+    config2 at max_nodes 6, whose trees the cap cuts, so that the last
+    chunk ends with slots on the stack that no trip shades."""
     sc = deep_scene(smooth=True) if name == "config2_deep" else name
+    if name == "config2_capped":
+        sc = get_scene("config2_mirror_glass")
+        sc = replace(sc, settings=replace(sc.settings, max_nodes=6))
     out = harness.compare(sc, H, W, chunk_trips=chunk_trips)
     assert out["fwd_bad"] == 0 and out["fwd_max"] <= 1e-6, out
     assert out["bwd_worst"] <= 1.0, out
