@@ -63,21 +63,28 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                the crossing tile, and the Mosaic probes P2-P5
                (csrc/probe_mosaic.cu, ops/probes.py) on the mosaic tool's
                tiles (P3 in both branches, P5 also dead), through the
-               dispatchers: P1 every lane whose march agrees within
+               dispatchers: P1 (a thread-block cluster) every lane whose
+               march agrees within
                1e-5 * max(max |ref|, 1) of the plain version, at most 1% of
                lanes marching otherwise, vjp (K4's rebuild) against finish
                (a stored tape) within 1e-5 relative, the crossing tile
-               crossing on 25-75% of lanes with sum(d shape_vec) != 0; P2-P5
+               crossing on 25-75% of lanes with sum(d shape_vec) != 0,
+               the tile's sum the same bits in two launches and on every
+               lane, in march_probe.tile_sum's fixed order; P2-P5
                within 1e-5 relative (P3 1e-6); then the entry points python
                -m euclider_tpu_torch.tools.mosaic_probe and .march_bisect
                STAGE (every stage) as subprocesses: exit 0 and a launch of
-               every kernel they cover; the probes' times and bounds.
+               every kernel they cover; the probes' times and bounds,
+               P1's beside its tile's longest lane run alone and an empty
+               kernel's.
  10. seg     - the segmented backward (K6, K7 in csrc/trace_seg.cu) and the
-               lifted caps at 1280x720: config2 through
-               backward='segmented' against the tape kernel in both modes
-               (every leaf within 1e-5 * max(max |ref|, 1), the fused loss
-               within 1e-5 relative) and against its plain version
-               vjp_segmented (phase 6's rule); config2_deep (config2 at
+               lifted caps at 1280x720: config2 (the straight builds),
+               config5 and config5 with smooth surfaces (the builds that
+               march) through backward='segmented' against the tape
+               kernel in both modes (every leaf within 1e-5 * max(max
+               |ref|, 1), the fused loss within 1e-5 relative), config2
+               against its plain version vjp_segmented (phase 6's rule);
+               config2_deep (config2 at
                max_depth 8, max_nodes 255) rendered by the forward kernel,
                differentiated through backward='auto' on a 64-row slab
                against vjp_blocked (phase 6's rule), and 5 fused training
@@ -85,7 +92,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                spheres48 (config2 and 44 small spheres: 48 entities, 797
                parameters) rendered and differentiated on a 64-row
                slab, as phases 3 and 6 hold theirs; the segmented kernels'
-               device times on config2 and config2_deep.
+               device times on config2, config2_deep and config5 forced
+               onto backward='segmented' (K6's and K7's march builds), K6
+               beside trace_fwd's time on the same scene.
 The second-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1004,15 +1013,44 @@ def march_probe_check(device, card):
     assert 0.25 <= cross["crossed"] < 0.75 and cross["dsv"] != 0.0, \
         "the crossing tile does not cross as it should"
     org, d = tiles["crossing"]
+    # the cluster's fixed-order sum: the same bits in two launches and on
+    # every lane, equal to march_probe.tile_sum of the lanes' shares
+    n = org.numel() // 4
+    checks = [torch.empty(2 * n, device=device) for _ in range(2)]
+    a, b = (MP.march_probe_cuda(static, tables, org, d, "vjp", check=c)
+            for c in checks)
+    torch.cuda.synchronize()
+    same = (torch.equal(a.out, b.out) and torch.equal(a.dsv, b.dsv)
+            and bool((checks[0][n:] == a.dsv).all())
+            and bool((checks[1][n:] == b.dsv).all()))
+    ordered = torch.equal(MP.tile_sum(checks[0][:n]), a.dsv.cpu())
+    say("probe", f"probe_march vjp on the crossing tile: two launches and "
+        f"every lane the same bits {same}; the sum in tile_sum's order to "
+        f"the bit {ordered}")
+    assert same and ordered, "probe_march's tile sum is not fixed"
+    stages["fixed_order_sum"] = same and ordered
     ref = got["crossing", "fwd"]
-    times = {}
+    # the tile's longest lane (the most steps, among the lanes that cross),
+    # run alone: the floor of a lane a thread
+    key = ref.steps.reshape(-1).long() + (ref.ent.reshape(-1) >= 0).long() \
+        * (1 << 20)
+    lane = int(torch.argmax(key))
+    o1, d1 = (t.reshape(-1, 4)[lane:lane + 1] for t in (org, d))
+    empty_ms = device_ms(lambda: MP.empty_cuda(device),
+                         ["probe_empty_kernel"])["probe_empty_kernel"]
+    times = {"longest_lane": lane, "empty_ms": empty_ms}
     for st in MP.STAGES:
         ms = device_ms(lambda: MP.march_probe_cuda(static, tables, org, d, st),
                        ["probe_march_kernel"])["probe_march_kernel"]
+        lane_ms = device_ms(
+            lambda: MP.march_probe_cuda(static, tables, o1, d1, st),
+            ["probe_march_kernel"])["probe_march_kernel"]
         bound, by = march_probe_bound(static, ref.steps, ref.ent, st)
-        times[st] = {"ms": ms, "bound_ms": bound, "bound_by": by}
-        say("time", f"probe_march {st} (crossing tile): {ms:.6f} ms, bound "
-            f"{bound:.6g} ms ({by}) ({card})")
+        times[st] = {"ms": ms, "lane_ms": lane_ms, "bound_ms": bound,
+                     "bound_by": by}
+        say("time", f"probe_march {st} (crossing tile): {ms:.6f} ms; its "
+            f"longest lane ({lane}) alone {lane_ms:.6f} ms; an empty kernel "
+            f"{empty_ms:.6f} ms; bound {bound:.6g} ms ({by}) ({card})")
     plain_ms = events_ms(
         lambda: MP.march_probe_plain(static, tables, org, d, "vjp"), device,
         1)
@@ -1025,6 +1063,9 @@ def march_probe_check(device, card):
             "bound_ms": times["vjp"]["bound_ms"],
             "bound_by": times["vjp"]["bound_by"], "library_ms": None,
             "ms_stage": "vjp on the crossing tile", "shape": [8, 128],
+            "lane_ms": times["vjp"]["lane_ms"], "empty_ms": empty_ms,
+            "launches_by": "the probes' path (the probe tool and this "
+                           "phase); no user path runs P1",
             "tolerance": {"rtol": MP.RTOL, "max_flipped_frac": MP.MAX_FLIPPED,
                           "vjp_vs_finish_rtol": MP.RTOL},
             "card": card, "stages": stages, "times": times}
@@ -1194,12 +1235,12 @@ def carry_traffic(static, tables, cam):
     return stored, stored + 3 * H * W
 
 
-def seg_vs_tape(device):
-    """config2 at 1280x720 through backward='segmented' against the tape
+def seg_vs_tape(name, device):
+    """The scene at 1280x720 through backward='segmented' against the tape
     kernel under the same cotangent and target: every leaf (and the time)
     within SEG_RTOL * max(max |ref|, 1), the fused loss within LOSS_RTOL."""
     from euclider_tpu_torch.ops import cuda_bwd
-    static, tables, cam = load(SCENES[1], device)
+    static, tables, cam = load(name, device)
     g = seeded((H, W, 3), 0, device)
     target = seeded((H, W, 3), 1, device, "uniform")
     out = {}
@@ -1217,13 +1258,14 @@ def seg_vs_tape(device):
         ratio, leaf, err = grads_err(tape[:2], seg[:2], SEG_RTOL)
         t_ratio = abs(float(seg[2]) - float(tape[2])) / (
             SEG_RTOL * max(abs(float(tape[2])), 1.0))
-        say("seg", f"{SCENES[1]} {mode}: segmented vs tape kernel, worst leaf "
+        say("seg", f"{name} {mode}: segmented vs tape kernel, worst leaf "
             f"{leaf} err {err:.4g} = {ratio:.4f} of {SEG_RTOL:g} * "
             f"max(max|ref|, 1); time {t_ratio:.4f}; loss rel {lrel:.2e} "
             f"(limit {LOSS_RTOL:g})")
         assert ratio <= 1.0 and t_ratio <= 1.0, \
-            f"{mode}: the segmented kernels disagree with the tape kernel"
-        assert lrel <= LOSS_RTOL, "the segmented fused loss disagrees"
+            f"{name} {mode}: the segmented kernels disagree with the tape " \
+            "kernel"
+        assert lrel <= LOSS_RTOL, f"{name}: the segmented fused loss disagrees"
         out[mode] = {"err_over_tol": ratio, "leaf": leaf, "err": err,
                      "loss_rel": lrel}
     return out
@@ -1303,7 +1345,11 @@ def seg_phase(device, card, times):
     from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel
     from euclider_tpu_torch.ops.cuda_kernel import _check_tables
 
-    tape = seg_vs_tape(device)
+    # the straight builds on config2, K6's and K7's march builds on config5
+    # (its gradients zero almost everywhere) and config5 with smooth
+    # surfaces, before phase 10 times them
+    tape = {name: seg_vs_tape(name, device)
+            for name in (SCENES[1], WARP[0], "config5_smooth")}
     plain = backward_check(SCENES[1], device, backward="segmented",
                            ref_fn="vjp_segmented")
     errs = {name: kernel_vs_plain(name, device) for name in DEEP_SLABS}
@@ -1337,12 +1383,22 @@ def seg_phase(device, card, times):
     say("seg", f"config2_deep: {float(deep_nodes.float().mean()):.2f} nodes "
         f"a pixel, at most {int(deep_nodes.max())}; pixels past 63 nodes "
         f"{int((deep_nodes > 63).sum())}")
+    c5 = times[WARP[0]]
     t = {SCENES[1]: seg_times(SCENES[1], device, card, c2["fwd_ops"],
                               c2["bwd_ops"]),
-         "config2_deep": seg_times("config2_deep", device, card, *deep_ops)}
+         "config2_deep": seg_times("config2_deep", device, card, *deep_ops),
+         # config5 forced onto the segmented path: K6's and K7's march
+         # builds
+         WARP[0]: seg_times(WARP[0], device, card, c5["fwd_ops"],
+                            c5["bwd_ops"])}
     say("time", f"{SCENES[1]} trace_bwd (tape, same run): vjp "
         f"{c2['vjp_device_ms']:.4f}, fused {c2['bwd_device_ms']:.4f} ms "
         f"({card})")
+    for name in (SCENES[1], WARP[0]):
+        k6 = t[name]["vjp_ms"]["trace_seg_fwd_kernel"]
+        say("time", f"{name} segmented: K6 {k6:.4f} ms = "
+            f"{k6 / times[name]['fwd_device_ms']:.3f} x trace_fwd's "
+            f"{times[name]['fwd_device_ms']:.4f} ms (same run) ({card})")
     return {
         "name": "trace_seg", "route": "cuda",
         "source": "euclider_tpu_torch/csrc/trace_seg.cu",
@@ -1355,7 +1411,9 @@ def seg_phase(device, card, times):
                   "parameter and entity caps lifted (spheres48); "
                   "redesigned for the H100: the virtual entries zeroed only "
                   "where the tree's last chunk needs them, no load of an "
-                  "empty chunk",
+                  "empty chunk, K6's builds that march in warps of 8 x 4 "
+                  "pixels under a launch bound of one block an SM, its "
+                  "straight builds under one of four",
         "launches": launches["trace_seg"],
         "launches_by_scene": {"config2_deep": launches["trace_seg"]},
         "max_abs_err": plain["vjp_err"],
@@ -1385,7 +1443,11 @@ def seg_phase(device, card, times):
                    "spheres48": dict(many, n_params=n_params,
                                      max_abs_err=errs["spheres48"][0],
                                      bad_frac=errs["spheres48"][1]),
-                   SCENES[1]: t[SCENES[1]]}}
+                   SCENES[1]: t[SCENES[1]],
+                   WARP[0]: dict(t[WARP[0]], forced="backward='segmented'",
+                                 trace_fwd_ms=c5["fwd_device_ms"],
+                                 vs_tape=tape[WARP[0]],
+                                 vs_tape_smooth=tape["config5_smooth"])}}
 
 
 def main() -> int:

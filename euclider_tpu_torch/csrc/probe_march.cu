@@ -14,10 +14,11 @@
 //           in local memory and walked back, no rebuild;
 //   loop    as vjp with val = dvec.y: the cotangent reaches only the
 //           direction.
-// sum(d shape_vec) is the tile's: the lanes' sums are reduced over the block
-// in a fixed order (warp shuffles, then the warps) and added to every lane.
-// ops/march_probe.py::march_probe_plain is the plain version (autograd
-// through ops/march.py).
+// sum(d shape_vec) is the tile's: the lanes' sums are reduced in a fixed
+// order (each warp's by shuffles, then the block's warps in order, then
+// the cluster's blocks in rank order: ops/march_probe.py::tile_sum) and
+// added to every lane.  ops/march_probe.py::march_probe_plain is the plain
+// version (autograd through ops/march.py).
 //
 // The kernel runs the device code of the render and its backward, not a
 // copy of it: march and surface_at (trace_common.cuh, as trace_fwd does),
@@ -29,21 +30,39 @@
 // is zero, and p = sx0 (1 - lambda) + sx1 lambda sends (1 - lambda) dp and
 // lambda dp to the crossing step's segment slots, as node_adj does.
 //
-// One block, each thread taking lanes i, i + THREADS, ...: the probe's input
-// is one (8, 128) tile.  What bounds it: the FP32 work of 23 march steps a
-// lane with five side tests each, forward and twice more in the reverse
-// (the rebuild and the adjoint), far below the card.
+// What bounds it: the FP32 work of 23 march steps a lane with five side
+// tests each, forward and twice more in the reverse (the rebuild and the
+// adjoint), far below the card; the probe's input is one (8, 128) tile, so
+// its time is one lane's chain of dependent steps.  The design spreads the
+// tile as thinly as it goes: a lane a thread, in a thread-block cluster of
+// up to 8 blocks of 128 threads (one warp a scheduler on each of 8 SMs),
+// whose blocks sum their partials through distributed shared memory, each
+// block reading all of them in rank order, so every lane adds the same
+// bits and none writes before the whole sum is known.  Measured on the
+// H100 (PERF.md §6) against the first design's one block of 256 threads
+// walking 4 lanes each: every stage 0.24-0.26x its time, within 1.0-1.2x
+// of the tile's longest lane run alone, the floor of a lane a thread.  Not
+// taken: one block of 1024 threads (0.52-0.63x: the launch bound's 64
+// registers, 32 warps on 4 schedulers), 32 blocks of a warp with the last
+// block adding the sum (1.1-1.3x the cluster's), the finish tape in shared
+// memory (no gain: its steps stay in L1).
 //
 // Built like trace_fwd.cu: nvcc -gencode arch=compute_90a,code=sm_90a
 // -std=c++17 -O3 -fmad=false, without --use_fast_math.
 
+#include <cooperative_groups.h>
+
 #include "trace_adj.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int STAGE_FWD = 0, STAGE_VJP = 1, STAGE_FINISH = 2, STAGE_LOOP = 3;
 constexpr int TAPE_STEPS = 32;   // the finish stage's tape: march_steps
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;     // lanes a block
+constexpr int CLUSTER = 8;       // blocks a cluster: the portable most
+constexpr int MAX_LANES = THREADS * CLUSTER;   // one (8, 128) tile
 
 // The adjoint of the n march steps from (org, d0) through a tape of their
 // pre-step states: g_sx0, g_sx1, g_sv the cotangents of the crossing
@@ -146,52 +165,107 @@ __device__ void probe_lane(const Scene& s, int stage, int mat, V4 o, V4 d,
     *out = val + d_org.x;
 }
 
+// The tile's sum of the lanes' values v in the fixed order: warp
+// shuffles, the block's warps in order, then after the cluster's barrier
+// the blocks' partials in rank order, read from each block's shared
+// memory; every thread of the cluster returns the same bits.
+__device__ __forceinline__ float cluster_sum(float v) {
+    __shared__ float red[THREADS / 32];
+    __shared__ float part;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        float b = 0.0f;
+#pragma unroll
+        for (int k = 0; k < THREADS / 32; ++k) b += red[k];
+        part = b;
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    float sum = 0.0f;
+    const int nb = (int)cluster.num_blocks();
+    for (int r = 0; r < nb; ++r) sum += *cluster.map_shared_rank(&part, r);
+    cluster.sync();   // no block leaves while another reads its partial
+    return sum;
+}
+
+// Lane blockIdx.x * THREADS + threadIdx.x of the tile; the grid is one
+// cluster.  check, when given: each lane's share of sum(d shape_vec) at
+// check[i] and the tile's sum it added at check[n + i].
 __global__ void __launch_bounds__(THREADS)
 probe_march_kernel(Scene s, int stage, int mat, const float* __restrict__ org,
                    const float* __restrict__ dir, int n,
                    float* __restrict__ out, int* __restrict__ steps,
-                   int* __restrict__ ent, float* __restrict__ dsv) {
+                   int* __restrict__ ent, float* __restrict__ dsv,
+                   float* __restrict__ check) {
     stage_sides<BUILD_WARP>(s);
-    float acc = 0.0f;
-    for (int i = threadIdx.x; i < n; i += THREADS) {
-        float part;
+    const int i = blockIdx.x * THREADS + threadIdx.x;
+    float val = 0.0f, part = 0.0f;
+    if (i < n)
         probe_lane(s, stage, mat, load4(org + 4 * i), load4(dir + 4 * i),
-                   out + i, steps + i, ent + i, &part);
-        acc += part;
+                   &val, steps + i, ent + i, &part);
+    // fwd has no sum: the stage is the launch's, so every block skips it
+    const float sum = stage == STAGE_FWD ? 0.0f : cluster_sum(part);
+    if (i < n) {
+        out[i] = stage == STAGE_FWD ? val : val + sum;
+        if (check) {
+            check[i] = part;
+            check[n + i] = sum;
+        }
     }
-    __shared__ float red[THREADS / 32];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = acc;
-    __syncthreads();
-    float sum = 0.0f;
-#pragma unroll
-    for (int k = 0; k < THREADS / 32; ++k) sum += red[k];
-    if (stage != STAGE_FWD)
-        for (int i = threadIdx.x; i < n; i += THREADS) out[i] = out[i] + sum;
-    if (threadIdx.x == 0) *dsv = sum;
+    if (i == 0) *dsv = sum;
 }
+
+// An empty kernel: the floor of any one-tile launch, timed beside P1.
+__global__ void probe_empty_kernel() {}
 
 }  // namespace
 
 // ints, floats, params, t_max and cam as trace_fwd.cu's entry point takes
-// them (cam: only its scene time, cam[17], is read); org and dir [n, 4];
-// mat the material every lane marches in -> 0 or a cudaError.
+// them (cam: only its scene time, cam[17], is read); org and dir [n, 4],
+// n <= MAX_LANES; mat the material every lane marches in; check null or
+// 2 n floats (probe_march_kernel) -> 0 or a cudaError.  The launch is one
+// cluster of ceil(n / THREADS) blocks; a refused launch is an error.
 extern "C" int euclider_probe_march(const int32_t* const* ints,
                                     const float* const* floats,
                                     const int* params, float t_max,
                                     const float* cam, int stage, int mat,
                                     const float* org, const float* dir, int n,
                                     float* out, int* steps, int* ent,
-                                    float* dsv, int device, void* stream) {
+                                    float* dsv, float* check, int device,
+                                    void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     const Scene s = make_scene(ints, floats, params, t_max, cam);
-    if (n <= 0 || stage < STAGE_FWD || stage > STAGE_LOOP ||
+    if (n <= 0 || n > MAX_LANES || stage < STAGE_FWD || stage > STAGE_LOOP ||
         scene_build(params) != BUILD_WARP || s.march_steps > TAPE_STEPS ||
         s.n_ent > MAX_MARCH_ENTITIES)
         return (int)cudaErrorInvalidValue;
-    probe_march_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(
-        s, stage, mat, org, dir, n, out, steps, ent, dsv);
+    const unsigned blocks = (n + THREADS - 1) / THREADS;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = blocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, probe_march_kernel, s, stage, mat, org, dir,
+                             n, out, steps, ent, dsv, check);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+}
+
+// One launch of the empty kernel, one warp.
+extern "C" int euclider_probe_empty(int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    probe_empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
     return (int)cudaGetLastError();
 }

@@ -56,6 +56,21 @@
 // MAX_TAPE) measured the same: local memory interleaves the threads word
 // by word, so only the touched entries cost.
 //
+// K6 is trace_fwd's loop with the carry's stores, and costs about what
+// trace_fwd does.  Measured on the H100 (PERF.md §6): the stores are 2-4%
+// of it.  Its builds that march, held to 64 registers by a launch bound
+// of 256 threads alone, took config5 1.18x trace_fwd's time; in blocks of
+// 8 x 4-pixel warps as trace_fwd's and a bound of one block an SM (72
+// registers) K6 takes 0.87x its old time on config5, without any bound
+// (86-88 registers) 0.82x, but then its straight builds take 72 registers
+// and 1.4% more time on config2 and config2_deep, and under a register
+// cap of 64 2.5% more.  So the bound asks for four blocks an SM where the
+// build does not march: 1.3-1.9% less than the old kernel.  Each thread's
+// stack stays in local memory: as columns of the block's shared memory
+// (11 words a slot, max_depth + 1 slots) it cost config2 15% and
+// config2_deep 21% (two blocks an SM instead of four) and bought config5
+// nothing.
+//
 // Built like trace_bwd.cu, twice (the BUILD_SHAPES builds with
 // -DTRACE_SHAPES_BUILDS).
 
@@ -234,17 +249,25 @@ __device__ void pixel_seg_bwd(const Scene& s, const Offs& off,
     camera_adj<kAcc>(cam, x, y, H, W, tape[MAX_SLOTS].dir, grad);
 }
 
-// K6: one thread per pixel of the row slab.
+// K6: one thread per pixel of the row slab, in blocks of seg_fwd_block's
+// shape, under a launch bound of four such blocks an SM in the straight
+// builds (64 registers) and one in the builds that march (72, no spills).
 template <int kB>
-__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
+__global__ void __launch_bounds__(NTHREADS, has_march(kB) ? 1 : 4)
 trace_seg_fwd_kernel(Scene s, const float* __restrict__ cam, int H, int W,
                      int rows, Chunks ch, float* __restrict__ carry,
                      float* __restrict__ acc) {
-    const int x = blockIdx.x * BLOCK_X + threadIdx.x;
-    const int y = blockIdx.y * BLOCK_Y + threadIdx.y;
+    const int x = blockIdx.x * blockDim.x + threadIdx.x;
+    const int y = blockIdx.y * blockDim.y + threadIdx.y;
     stage_sides<kB>(s);
     if (x < W && y < rows)
         pixel_seg_fwd<kB>(s, cam, x, y, H, W, rows, ch, carry, acc);
+}
+
+// K6's block for a build, as trace_fwd.cu's fwd_block: 8 x 32 for the
+// builds that march (each warp a tile of 8 x 4 pixels), else 32 x 8.
+inline dim3 seg_fwd_block(int build) {
+    return has_march(build) ? dim3(8, 32) : dim3(BLOCK_X, BLOCK_Y);
 }
 
 // K7: one thread per pixel of the row slab, partial sums as trace_bwd's:
@@ -310,6 +333,9 @@ extern "C" int euclider_trace_seg(
     if (partials_len < n_blocks * off.n || acc_len < 4 * npix ||
         carry_len < (long long)ch.K * carry_words(s.max_depth) * npix)
         return (int)cudaErrorInvalidValue;
+    const dim3 fblock = seg_fwd_block(build);
+    const dim3 fgrid((W + fblock.x - 1) / fblock.x,
+                     (rows + fblock.y - 1) / fblock.y);
     cudaStream_t st = (cudaStream_t)stream;
     if ((rc = zero_ext(partials, off, n_blocks, st)) != 0) return rc;
     BwdPlan plan;
@@ -317,7 +343,7 @@ extern "C" int euclider_trace_seg(
     s, off, cam, H, W, rows, ch, carry, acc, gin, norm, fused, partials, gtex
 #define TRACE_SEG_CASE(kB)                                                 \
     case kB:                                                               \
-        trace_seg_fwd_kernel<kB><<<grid, block, 0, st>>>(                  \
+        trace_seg_fwd_kernel<kB><<<fgrid, fblock, 0, st>>>(                \
             s, cam, H, W, rows, ch, carry, acc);                           \
         err = cudaGetLastError();                                          \
         if (err != cudaSuccess) return (int)err;                           \

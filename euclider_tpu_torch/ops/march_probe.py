@@ -20,8 +20,9 @@ tool's output tile:
 ``march_probe_plain`` is the plain version: autograd through the port's
 march (``ops/march.py``: ``march_init``, ``make_march_body``,
 ``march_finish``; ``ops/trace.py``: ``warp_mask``, ``make_accel``).
-``csrc/probe_march.cu`` is the kernel.  It runs the device code of the
-render and its backward (trace_common.cuh ``march``, ``surface_at``;
+``csrc/probe_march.cu`` is the kernel: one thread-block cluster, a lane a
+thread, whose tile-wide sum ``tile_sum`` spells out.  It runs the device
+code of the render and its backward (trace_common.cuh ``march``, ``surface_at``;
 trace_adj.cuh ``march_replay``, ``march_reverse`` and its step adjoint,
 ``surface_uv_adj``, ``leaf_normal_adj``):
 ``vjp`` and ``loop`` rebuild the steps backwards as K4 does, ``finish``
@@ -57,6 +58,8 @@ MARCH_STEPS = 23
 WARP_MAT = 1         # config5's warp material
 TIME = 0.25
 TAPE_STEPS = 32      # csrc/probe_march.cu: the finish stage's tape
+THREADS = 128        # csrc/probe_march.cu: lanes a block of the cluster
+MAX_LANES = 1024     # lanes a launch: a cluster of 8 blocks
 WARP_CENTRE = (0.0, 0.2, -5.0)   # config5's warp sphere
 CROSS_R = (1.25, 1.55)           # the crossing tile's origin radii
 CROSS_SEED = 11
@@ -143,6 +146,28 @@ def passes(res: dict, lanes: int) -> bool:
             and res["flipped"] <= MAX_FLIPPED * lanes)
 
 
+def tile_sum(parts, threads: int = THREADS) -> torch.Tensor:
+    """The tile's sum(d shape_vec) from its lanes' parts [n], in the
+    kernel's fixed order for blocks of ``threads`` lanes (lane i in block
+    i // threads): each warp's 32 lanes as __shfl_down_sync's tree sums
+    them (offsets 16, 8, 4, 2, 1; lane 0's value), each block's warps in
+    order from 0, then the blocks in order from 0 -> 0-dim float32, on
+    the CPU."""
+    p = parts.detach().reshape(-1).to("cpu", torch.float32)
+    blocks = -(-p.numel() // threads)
+    v = torch.cat([p, p.new_zeros(blocks * threads - p.numel())])
+    v = v.reshape(blocks, threads // 32, 32)
+    for o in (16, 8, 4, 2, 1):
+        v = torch.cat([v[..., :32 - o] + v[..., o:], v[..., 32 - o:]], -1)
+    total = torch.zeros((), dtype=torch.float32)
+    for b in range(blocks):
+        block = torch.zeros((), dtype=torch.float32)
+        for w in range(threads // 32):
+            block = block + v[b, w, 0]
+        total = total + block
+    return total
+
+
 def march_probe_plain(static, tables, org, d, stage: str) -> ProbeOut:
     """The stage by autograd through the plain march -> ProbeOut."""
     if stage not in STAGES:
@@ -188,18 +213,44 @@ def _entry():
     fn = ctypes.CDLL(CK.build(("probe_march",))["probe_march"]
                      ).euclider_probe_march
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, ctypes.c_float, p, i, i, p, p, i, p, p, p, p, i,
-                   p]
+    fn.argtypes = [p, p, p, ctypes.c_float, p, i, i, p, p, i, p, p, p, p, p,
+                   i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def march_probe_cuda(static, tables, org, d, stage: str) -> ProbeOut:
+@functools.lru_cache(maxsize=None)
+def _empty_entry():
+    from . import cuda_kernel as CK
+    fn = ctypes.CDLL(CK.build(("probe_march",))["probe_march"]
+                     ).euclider_probe_empty
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def empty_cuda(device) -> None:
+    """One launch of csrc/probe_march.cu's empty kernel (one warp) on
+    the CUDA device: the floor of any one-tile launch, timed beside P1."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"empty_cuda takes a CUDA device, got {device}")
+    rc = _empty_entry()(device.index or 0,
+                        torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"probe_empty launch failed: cudaError {rc}")
+
+
+def march_probe_cuda(static, tables, org, d, stage: str,
+                     check=None) -> ProbeOut:
     """The stage through csrc/probe_march.cu -> ProbeOut; CUDA tensors
-    only.  Raises ValueError, before any launch, for a scene that does not
-    take the kernel's build (the march and the attractor field: no
-    expression material, no CSG, cylinder, perlin or texture) or marches
-    more than TAPE_STEPS steps."""
+    only, at most MAX_LANES lanes (one cluster).  ``check``, a CUDA float32
+    tensor of 2 n elements or None: the kernel writes each lane's share of
+    sum(d shape_vec) into its first n and the tile's sum each lane added
+    into its last n.  Raises ValueError, before any launch, for a scene
+    that does not take the kernel's build (the march and the attractor
+    field: no expression material, no CSG, cylinder, perlin or texture)
+    or marches more than TAPE_STEPS steps."""
     global LAUNCHES
     from . import cuda_kernel as CK
     if stage not in STAGES:
@@ -228,15 +279,24 @@ def march_probe_cuda(static, tables, org, d, stage: str) -> ProbeOut:
     org = org.detach().to(torch.float32).contiguous()
     d = d.detach().to(torch.float32).contiguous()
     shape = org.shape[:-1]
+    n = org.numel() // 4
+    if not 1 <= n <= MAX_LANES:
+        raise ValueError(f"{n} lanes; probe_march takes 1 to {MAX_LANES}")
+    if check is not None and (check.device != device
+                              or check.dtype != torch.float32
+                              or not check.is_contiguous()
+                              or check.numel() != 2 * n):
+        raise ValueError(f"check must be a contiguous float32 tensor of "
+                         f"{2 * n} elements on {device}")
     out = torch.empty(shape, dtype=torch.float32, device=device)
     steps = torch.empty(shape, dtype=torch.int32, device=device)
     ent = torch.empty(shape, dtype=torch.int32, device=device)
     dsv = torch.empty((), dtype=torch.float32, device=device)
     rc = _entry()(iptr, fptr, params, static.t_max, cam.data_ptr(),
                   STAGES.index(stage), WARP_MAT, org.data_ptr(), d.data_ptr(),
-                  out.numel(), out.data_ptr(), steps.data_ptr(),
-                  ent.data_ptr(), dsv.data_ptr(), device.index,
-                  torch.cuda.current_stream(device).cuda_stream)
+                  n, out.data_ptr(), steps.data_ptr(), ent.data_ptr(),
+                  dsv.data_ptr(), None if check is None else check.data_ptr(),
+                  device.index, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"probe_march launch failed: cudaError {rc}")
     LAUNCHES += 1

@@ -29,14 +29,17 @@ default):
   ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), through the tree's C
   entry ``euclider_trace_bwd_config`` (null for a tree without it);
 - ``seg``: the segmented backward in vjp mode on SEG_SCENES (config5
-  forced onto it, so that K7's marching build is timed), K6
+  forced onto it, so that K6's and K7's marching builds are timed), K6
   (``trace_seg_fwd_kernel``), K7 (``trace_seg_bwd_kernel``) and the
-  partials' sum each timed apart;
+  partials' sum each timed apart, each call after a frame of the forward
+  kernel, whose time (``trace_fwd_kernel``) the same profiles give;
 - ``probe``: the march-bisect probe P1 (``probe_march_kernel``), every
-  stage on its crossing tile;
+  stage on its crossing tile and (``<stage>_lane``) on the tile's longest
+  lane alone (``longest_lane``), and the tree's empty kernel of one warp
+  (``march_probe.empty_cuda``, where the tree has one);
 
-each the mean device time of a launch over 5 calls after 3 warm-up calls,
-from torch.profiler; and
+each the mean device time of a launch over ``--calls`` calls (5 by
+default) after 3 warm-up calls, from torch.profiler; and
 
 - ``e2e``: the calls of E2E_CELLS as a user makes them, host work
   included (a frame of ``render_image_cuda``, one fused training step
@@ -184,6 +187,17 @@ def launch_config(CK, cuda_bwd, static, tables, device):
             "grad_storage": {1: "shared", 2: "local"}[out[3]]}
 
 
+def longest_lane(MP, static, tables, org, d) -> int:
+    """The lane of the tile whose march walks the most steps, among the
+    lanes that cross if any does (those also bisect and run the reverse
+    sweep), from the kernel's fwd stage."""
+    import torch
+    got = MP.march_probe_cuda(static, tables, org, d, "fwd")
+    steps = got.steps.reshape(-1).to(torch.int64)
+    crossed = got.ent.reshape(-1) >= 0
+    return int(torch.argmax(steps + crossed.to(torch.int64) * (1 << 20)))
+
+
 def _scene(et, name):
     """A library scene, or config2_deep: config2 at max_depth 8 and
     max_nodes 255, past the tape kernel's 63 nodes."""
@@ -195,7 +209,7 @@ def _scene(et, name):
     return et.get_scene(name)
 
 
-def time_worker(path: str, nofma: bool, groups=GROUPS) -> dict:
+def time_worker(path: str, nofma: bool, groups=GROUPS, calls=5) -> dict:
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -211,7 +225,7 @@ def time_worker(path: str, nofma: bool, groups=GROUPS) -> dict:
         return (static, et.tables_to_torch(tables, device),
                 et.camera_to_torch(et.compile_camera(sc.camera), device))
 
-    def device_ms(fn, key, n=5, warm=3, tries=3):
+    def device_ms(fn, key, n=calls, warm=3, tries=3):
         """ms of one launch of the kernel named key, or {k: ms} for a
         tuple of names (None for a kernel no profile recorded)."""
         keys = key if isinstance(key, tuple) else (key,)
@@ -288,18 +302,32 @@ def time_worker(path: str, nofma: bool, groups=GROUPS) -> dict:
                                                 device)
     for name in SEG_SCENES if "seg" in groups else ():
         static, tables, cam = load(name)
-        ms = device_ms(lambda: cuda_bwd.vjp_cuda(
-            static, tables, cam, H, W, g, backward="segmented"), SEG_KEYS)
-        out["seg"][name] = dict(ms, total=None if None in ms.values()
-                                else sum(ms.values()))
+
+        def frame_and_seg():
+            CK.render_image_cuda(static, tables, cam, H, W)
+            cuda_bwd.vjp_cuda(static, tables, cam, H, W, g,
+                              backward="segmented")
+
+        ms = device_ms(frame_and_seg, SEG_KEYS + ("trace_fwd_kernel",))
+        seg = [ms[k] for k in SEG_KEYS]
+        out["seg"][name] = dict(ms, total=None if None in seg else sum(seg))
     if "probe" in groups:
         from euclider_tpu_torch.ops import march_probe as MP
         static, tables = MP.probe_scene(device)
         org, d = MP.crossing_tile(device)
+        lane = longest_lane(MP, static, tables, org, d)
         for stage in MP.STAGES:
             out["probe"][stage] = device_ms(
                 lambda: MP.march_probe_cuda(static, tables, org, d, stage),
                 "probe_march_kernel")
+            o1, d1 = (t.reshape(-1, 4)[lane:lane + 1] for t in (org, d))
+            out["probe"][f"{stage}_lane"] = device_ms(
+                lambda: MP.march_probe_cuda(static, tables, o1, d1, stage),
+                "probe_march_kernel")
+        empty = getattr(MP, "empty_cuda", None)   # None in older trees
+        if empty is not None:
+            out["probe"]["empty"] = device_ms(lambda: empty(device),
+                                              "probe_empty_kernel")
     if "e2e" in groups:
         from euclider_tpu_torch.train.inverse import (
             InverseParams, make_fused_value_and_grad)
@@ -363,10 +391,12 @@ def time_lines(runs) -> list:
     return lines
 
 
-def _worker(mode: str, spec: str, libs: str, only: str = "") -> dict:
+def _worker(mode: str, spec: str, libs: str, only: str = "",
+            calls: int = 5) -> dict:
     path, _, opt = spec.partition(":")
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--worker", mode, "--path", path, "--libs", libs]
+                           "--worker", mode, "--path", path, "--libs", libs,
+                           "--calls", str(calls)]
                           + (["--only", only] if only else [])
                           + (["--nofma"] if opt == "nofma" else []),
                           capture_output=True, text=True, timeout=1800)
@@ -387,6 +417,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="comma-separated groups to time, of "
                          f"{', '.join(GROUPS)} (default: all)")
+    ap.add_argument("--calls", type=int, default=5,
+                    help="calls a kernel's device time is averaged over")
     ap.add_argument("--worker", choices=("build", "time"))
     ap.add_argument("--path")
     ap.add_argument("--nofma", action="store_true")
@@ -397,7 +429,7 @@ def main(argv=None) -> int:
     if args.worker == "build":
         out = build_worker(args.path, args.nofma, args.libs.split(","))
     elif args.worker == "time":
-        out = time_worker(args.path, args.nofma, groups)
+        out = time_worker(args.path, args.nofma, groups, args.calls)
     if args.worker:
         print(json.dumps(out), flush=True)
         return 0
@@ -414,7 +446,7 @@ def main(argv=None) -> int:
         print(json.dumps({"tree": name, "build": b}), flush=True)
     runs = []
     for name in filter(None, args.order.split(",")):
-        t = _worker("time", trees[name], args.libs, args.only)
+        t = _worker("time", trees[name], args.libs, args.only, args.calls)
         runs.append({"tree": name, **t})
         print(json.dumps(runs[-1]), flush=True)
     for line in time_lines(runs):

@@ -1,0 +1,15 @@
+// Host stand-in for the cooperative groups that csrc/ uses (a thread-block
+// cluster's barrier, size and shared-memory mapping), so that g++ compiles
+// the device code around them (tools/kernel_harness.py): one block stands
+// in for the cluster.  The harness sums the lanes itself, in the cluster's
+// order (ops/march_probe.py tile_sum).
+#pragma once
+namespace cooperative_groups {
+struct cluster_group {
+    void sync() const {}
+    unsigned num_blocks() const { return 1; }
+    template <class T>
+    T* map_shared_rank(T* addr, int) const { return addr; }
+};
+inline cluster_group this_cluster() { return cluster_group{}; }
+}  // namespace cooperative_groups

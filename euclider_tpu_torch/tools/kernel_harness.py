@@ -214,27 +214,23 @@ extern "C" void harness_probe(int probe, const float* x, float w,
 }
 """,
     "probe_march": """
+// The lanes in order, each writing its output before the tile's sum and
+// its share of sum(d shape_vec) into part[i]; march_probe() adds the sum.
 extern "C" int harness_probe_march(const int32_t* const* ints,
                                    const float* const* floats,
                                    const int* params, float t_max,
                                    const float* cam, int stage, int mat,
                                    const float* org, const float* dir, int n,
                                    float* out, int* steps, int* ent,
-                                   float* dsv) {
+                                   float* part) {
     const Scene s = make_scene(ints, floats, params, t_max, cam);
     load_side_rows(s, 0, 1);
-    if (scene_build(params) != BUILD_WARP || s.march_steps > TAPE_STEPS)
+    if (scene_build(params) != BUILD_WARP || s.march_steps > TAPE_STEPS ||
+        n <= 0 || n > MAX_LANES)
         return 1;
-    float acc = 0.0f;
-    for (int i = 0; i < n; ++i) {
-        float part;
+    for (int i = 0; i < n; ++i)
         probe_lane(s, stage, mat, load4(org + 4 * i), load4(dir + 4 * i),
-                   out + i, steps + i, ent + i, &part);
-        acc += part;
-    }
-    if (stage != STAGE_FWD)
-        for (int i = 0; i < n; ++i) out[i] = out[i] + acc;
-    *dsv = acc;
+                   out + i, steps + i, ent + i, part + i);
     return 0;
 }
 """,
@@ -448,7 +444,9 @@ def mosaic(name, x, w, g, act=None, asan=False):
 
 
 def march_probe(static, tables, org, d, stage, asan=False) -> MP.ProbeOut:
-    """probe_march.cu's lanes on CPU tables -> ProbeOut."""
+    """probe_march.cu's lanes on CPU tables -> ProbeOut, the tile's
+    sum(d shape_vec) taken from the lanes' shares in the kernel's order
+    (march_probe.tile_sum) and added to every lane, as the kernel does."""
     floats = CK._check_tables(static, tables, CPU)
     iptr, fptr, params, _ints = CK.scene_args(static, floats, CPU,
                                               CK.tex_shapes(tables))
@@ -459,15 +457,18 @@ def march_probe(static, tables, org, d, stage, asan=False) -> MP.ProbeOut:
     out = torch.zeros(shape, dtype=torch.float32)
     steps = torch.zeros(shape, dtype=torch.int32)
     ent = torch.zeros(shape, dtype=torch.int32)
-    dsv = torch.zeros((), dtype=torch.float32)
+    part = torch.zeros(shape, dtype=torch.float32)
     rc = _entries(asan)[4](iptr, fptr, params, static.t_max, cam.data_ptr(),
                            MP.STAGES.index(stage), MP.WARP_MAT,
                            org.data_ptr(), d.data_ptr(), out.numel(),
                            out.data_ptr(), steps.data_ptr(), ent.data_ptr(),
-                           dsv.data_ptr())
+                           part.data_ptr())
     if rc != 0:
         raise RuntimeError("harness_probe_march refused the scene")
-    return MP.ProbeOut(out, steps, ent, dsv)
+    if stage == "fwd":   # the kernel takes no sum
+        return MP.ProbeOut(out, steps, ent, torch.zeros(()))
+    dsv = MP.tile_sum(part)
+    return MP.ProbeOut(out + dsv, steps, ent, dsv)
 
 
 def compare_mosaic(asan=False) -> dict:

@@ -503,34 +503,35 @@ def test_backward_kernel_is_deterministic(cuda, name, acc):
 # --- the segmented backward (K6, K7) and the lifted caps -------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["config2_mirror_glass",
-                                  "warp_gradient_scene",
-                                  "expr_gradient_scene",
-                                  "config3_csg_textured"])
-def test_segmented_kernels_match_the_tape_kernel(cuda, name):
+@pytest.mark.parametrize("name,h,w", [
+    ("config2_mirror_glass", BH, BW), ("warp_gradient_scene", BH, BW),
+    ("expr_gradient_scene", BH, BW), ("config3_csg_textured", BH, BW),
+    ("config2_mirror_glass", 37, 45), ("warp_gradient_scene", 37, 45)])
+def test_segmented_kernels_match_the_tape_kernel(cuda, name, h, w):
     """K6/K7 (chunks of 2 trips) against trace_bwd under the same cotangent
-    and target in both modes, on the straight, march, VM and shapes builds:
-    the same device code, each kernel contracted into FMAs by nvcc on its
-    own outside the shapes builds (-fmad=false), so within 1e-4 relative
-    (the march build moved the camera's gradient by 1.4e-5 of its
-    magnitude on the H100)."""
+    and target in both modes, on the straight, march, VM and shapes builds,
+    and at 37 x 45, ragged against K6's 32 x 8 blocks (straight) and its
+    8 x 32 blocks (the march build) on both axes: the same device code,
+    each kernel contracted into FMAs by nvcc on its own outside the shapes
+    builds (-fmad=false), so within 1e-4 relative (the march build moved
+    the camera's gradient by 1.4e-5 of its magnitude on the H100)."""
     from euclider_tpu_torch.ops import cuda_bwd
     static, tables, cam = scene_on(name, cuda)
     tm = 0.3 if name == "expr_gradient_scene" else 0.0
-    g = cotangent((BH, BW, 3), 5, cuda)
+    g = cotangent((h, w, 3), 5, cuda)
     s0 = cuda_bwd.SEG_LAUNCHES
-    tape = cuda_bwd.vjp_cuda(static, tables, cam, BH, BW, g, tm,
+    tape = cuda_bwd.vjp_cuda(static, tables, cam, h, w, g, tm,
                              backward="tape")
-    seg = cuda_bwd.vjp_cuda(static, tables, cam, BH, BW, g, tm,
+    seg = cuda_bwd.vjp_cuda(static, tables, cam, h, w, g, tm,
                             backward="segmented", chunk_trips=2)
     assert cuda_bwd.SEG_LAUNCHES == s0 + 1
     grads_close(tape[:2], seg[:2], rtol=1e-4)
     assert abs(float(tape[2]) - float(seg[2])) <= 1e-4 * max(
         abs(float(tape[2])), 1.0)
-    target = cotangent((BH, BW, 3), 6, cuda).sigmoid()
-    lt, *tape = cuda_bwd.train_step_cuda(static, tables, cam, target, BH, BW,
+    target = cotangent((h, w, 3), 6, cuda).sigmoid()
+    lt, *tape = cuda_bwd.train_step_cuda(static, tables, cam, target, h, w,
                                          tm, backward="tape")
-    ls, *seg = cuda_bwd.train_step_cuda(static, tables, cam, target, BH, BW,
+    ls, *seg = cuda_bwd.train_step_cuda(static, tables, cam, target, h, w,
                                         tm, backward="segmented",
                                         chunk_trips=2)
     assert abs(float(ls) - float(lt)) <= 1e-5 * float(lt)
@@ -708,6 +709,44 @@ def test_march_probe_kernel_matches_plain(cuda, stage, tile):
             tape.out.abs().max())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["vjp", "finish", "loop"])
+def test_march_probe_kernel_sums_the_tile_in_a_fixed_order(cuda, stage):
+    """P1's cluster on the crossing tile: two launches give the same bits
+    (output and sum(d shape_vec)); every lane added the same sum, which is
+    the lanes' shares summed in march_probe.tile_sum's order to the bit;
+    a ragged launch of 300 lanes (3 blocks, the last one part empty)
+    agrees with the plain version on them."""
+    from euclider_tpu_torch.ops import march_probe as MP
+    static, tables = MP.probe_scene(cuda)
+    org, d = MP.crossing_tile(cuda)
+    n = org.numel() // 4
+    checks = [torch.empty(2 * n, device=cuda) for _ in range(2)]
+    a, b = (MP.march_probe_cuda(static, tables, org, d, stage, check=c)
+            for c in checks)
+    torch.cuda.synchronize()
+    assert torch.equal(a.out, b.out) and torch.equal(a.dsv, b.dsv)
+    assert torch.equal(checks[0], checks[1])
+    assert bool((checks[0][n:] == a.dsv).all())
+    assert torch.equal(MP.tile_sum(checks[0][:n]), a.dsv.cpu())
+    o3, d3 = (t.reshape(-1, 4)[:300] for t in (org, d))
+    got = MP.march_probe_cuda(static, tables, o3, d3, stage)
+    res = MP.compare(MP.march_probe_plain(static, tables, o3, d3, stage), got)
+    assert MP.passes(res, 300), res
+
+
+@pytest.mark.cuda
+def test_march_probe_kernel_refuses_more_than_a_cluster(cuda):
+    """More lanes than one cluster holds raise before any launch."""
+    from euclider_tpu_torch.ops import march_probe as MP
+    static, tables = MP.probe_scene(cuda)
+    org = torch.zeros((MP.MAX_LANES + 1, 4), device=cuda)
+    before = MP.LAUNCHES
+    with pytest.raises(ValueError, match="lanes"):
+        MP.march_probe_cuda(static, tables, org, org, "fwd")
+    assert MP.LAUNCHES == before
+
+
 def test_probe_wrappers_refuse_cpu_tensors():
     """probe_mosaic's and probe_march's wrappers raise on CPU tensors
     before any launch."""
@@ -725,6 +764,8 @@ def test_probe_wrappers_refuse_cpu_tensors():
     org, d = MP.tool_tile()
     with pytest.raises(ValueError, match="CUDA"):
         MP.march_probe_cuda(static, tables, org, d, "fwd")
+    with pytest.raises(ValueError, match="CUDA"):
+        MP.empty_cuda("cpu")
     assert (dict(P.MOSAIC_LAUNCHES), MP.LAUNCHES) == before
 
 

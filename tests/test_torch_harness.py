@@ -141,15 +141,20 @@ def test_mosaic_probe_device_code_matches_plain(harness):
         assert err <= (1e-6 if name.startswith("probe_cond") else 1e-5), errs
 
 
+@pytest.mark.parametrize("tile", ["tool", "crossing"])
 @pytest.mark.parametrize("stage", MP.STAGES)
-def test_march_probe_device_code_matches_plain(harness, stage):
-    """probe_march.cu's stage on the crossing tile against
+def test_march_probe_device_code_matches_plain(harness, stage, tile):
+    """probe_march.cu's stage on the tool's and the crossing tile, its
+    tile sum in the kernel's order (march_probe.tile_sum), against
     march_probe_plain: every lane within 1e-5 * max(max |ref|, 1), no lane
-    marching otherwise, and the crossings reached."""
-    out = harness.compare_march("crossing", stage)
+    marching otherwise, the crossings reached on the crossing tile and
+    none on the tool's."""
+    out = harness.compare_march(tile, stage)
     assert out["flipped"] == 0 and out["max_err"] <= out["limit"], out
-    assert 0.25 <= out["crossed"] < 0.75, out
-    assert (out["dsv"] != 0.0) == (stage in ("vjp", "finish")), out
+    crossing = tile == "crossing"
+    assert (0.25 <= out["crossed"] < 0.75) if crossing else (
+        out["crossed"] == 0.0), out
+    assert (out["dsv"] != 0.0) == (crossing and stage in ("vjp", "finish")), out
 
 
 def test_march_probe_rebuild_matches_the_stored_tape(harness):
