@@ -27,15 +27,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                config3; the forward kernel's launch count must rise on this
                path.
   6. bwd     - grad_probe, config2, config3 (every texel of its texture
-               too, whose gradient must be nonzero), perlin_probe and the
+               too, whose gradient must be nonzero), perlin_probe, the
                cylinder scene with smooth surfaces (its cylinders' rows of
-               shape_vec must get a nonzero gradient) at 1280x720, and a
-               64-row slab of the
-               1280x720 frame across the warp or expression region of the
-               warp gradient scene, of config5, of config5 with smooth
-               surfaces, of the expression gradient scene (at scene time
-               0.3; its mat_expr_params' and time's gradients must be
-               nonzero) and of config6: vjp_cuda against the plain
+               shape_vec must get a nonzero gradient) and config4 (4D) at
+               1280x720, and a 64-row slab of the 1280x720 frame across the
+               warp or expression region (its rays must march:
+               march_count) of the warp gradient scene, of config5, of
+               config5 with smooth surfaces, of the expression gradient
+               scene (at scene time 0.3; its mat_expr_params' and time's
+               gradients must be nonzero), of config6, of config7 (4D) and
+               of config7 with smooth surfaces (its warp parameters'
+               gradients must be nonzero): vjp_cuda against the plain
                row-blocked backward under a seeded cotangent, every leaf
                (and the time) within 1e-3 * max(max |ref|, 1); then
                train_step_cuda against the forward kernel + MSE + vjp_cuda
@@ -56,13 +58,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                configuration (threads a block, dynamic shared memory,
                active blocks an SM, where the gradient vector lives:
                cuda_bwd.launch_config).
-  9. probe   - probe_rev (csrc/probe_rev.cu) against rev_march_plain on one
-               (8, 128) tile: dx and dw within 1e-5 relative; its times.
+  9. probe   - probe_rev (csrc/probe_rev.cu, a thread-block cluster)
+               against rev_march_plain on one (8, 128) tile and on its
+               first 1000 elements: dx and dw within 1e-5 relative, two
+               launches the same bits; its times.
                The probes' path: every stage of the march-bisect probe P1
                (csrc/probe_march.cu, ops/march_probe.py) on the tool's and
                the crossing tile, and the Mosaic probes P2-P5
                (csrc/probe_mosaic.cu, ops/probes.py) on the mosaic tool's
-               tiles (P3 in both branches, P5 also dead), through the
+               tiles (P3 in both branches, P5 also dead, and live and dead
+               on 1000 elements), through the
                dispatchers: P1 (a thread-block cluster) every lane whose
                march agrees within
                1e-5 * max(max |ref|, 1) of the plain version, at most 1% of
@@ -71,12 +76,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                crossing on 25-75% of lanes with sum(d shape_vec) != 0,
                the tile's sum the same bits in two launches and on every
                lane, in march_probe.tile_sum's fixed order; P2-P5
-               within 1e-5 relative (P3 1e-6); then the entry points python
+               within 1e-5 relative (P3 1e-6), P5 (a thread-block cluster)
+               the same bits in two launches; then the entry points python
                -m euclider_tpu_torch.tools.mosaic_probe and .march_bisect
                STAGE (every stage) as subprocesses: exit 0 and a launch of
                every kernel they cover; the probes' times and bounds,
-               P1's beside its tile's longest lane run alone and an empty
-               kernel's.
+               P1's, P5's and P6's beside their tile's longest lane run
+               alone, P1's beside an empty kernel's.
  10. seg     - the segmented backward (K6, K7 in csrc/trace_seg.cu) and the
                lifted caps at 1280x720: config2 (the straight builds),
                config5 and config5 with smooth surfaces (the builds that
@@ -116,17 +122,25 @@ EXPR = ("config6_expr_space",)
 SHAPES = ("config3_csg_textured", "perlin_probe", "cylinder_test",
           "config4_hypersphere")
 BWD_SCENES = ("grad_probe", "config2_mirror_glass", "config3_csg_textured",
-              "perlin_probe", "cylinder_smooth")
+              "perlin_probe", "cylinder_smooth", "config4_hypersphere")
 # timed training steps
 TRAIN_SCENES = BWD_SCENES[:2] + WARP[:1] + EXPR + SHAPES[:2]
 # marching scenes of phase 6: a 64-row slab [y0, y0 + 64) across the warp
 # or expression region (the plain backward keeps every march step of every
-# pixel), and the scene time it is taken at
+# pixel; each slab must march), and the scene time it is taken at; config7
+# is 4D (rows 212-467 march, most around 300)
 SLAB_SCENES = {"warp_gradient_scene": (328, 0.0),
                "config5_warp_portal": (300, 0.0),
                "config5_smooth": (300, 0.0),
                "expr_gradient_scene": (328, 0.3),
-               "config6_expr_space": (300, 0.0)}
+               "config6_expr_space": (300, 0.0),
+               "config7_warp4d": (300, 0.0),
+               "config7_smooth": (300, 0.0)}
+# slabs whose warp parameters must get a nonzero gradient
+WARP_GRAD_SCENES = ("config7_smooth",)
+# scenes of SLAB_SCENES with smooth surfaces, and the library scene of each
+SMOOTH = {"config5_smooth": "config5_warp_portal",
+          "config7_smooth": "config7_warp4d"}
 SLAB_ROWS = 64
 # phase 10: scenes past the tape's 63 nodes, and past 32 entities and 159
 # gradient entries, with the slab of each that phase 10 differentiates
@@ -185,10 +199,10 @@ def build_scene(name):
     """A library scene, or one of phase 6's marching gradient scenes:
     tests/test_gradients.py::test_grad_warp_strength's warp sphere before a
     smooth wall, tests/test_expr_space.py::_tiny_expr_scene with the
-    time-dependent field p0 sin(p1 z + t), and config5 with smooth surfaces
-    on the marker, the backdrop and the floor (on uniform and checker
-    surfaces the warp's, the expression's and the portal's gradients are
-    zero almost everywhere)."""
+    time-dependent field p0 sin(p1 z + t), and config5 and config7 (4D)
+    with smooth surfaces on the marker, the backdrop and the floor (on
+    uniform and checker surfaces the warp's, the expression's and the
+    portal's gradients are zero almost everywhere)."""
     from dataclasses import replace
     import euclider_tpu_torch as et
     from euclider_tpu_torch.scene import ir
@@ -259,12 +273,13 @@ def build_scene(name):
                 reflectivity=0.3 if i % 2 else 0.0),
             name=f"ball{i}") for i in range(44))
         return replace(sc, name=name, entities=sc.entities + balls)
-    if name == "config5_smooth":
-        sc = et.get_scene("config5_warp_portal")
+    if name in SMOOTH:
+        sc = et.get_scene(SMOOTH[name])
         return replace(sc, entities=tuple(
             replace(e, surface=ir.SmoothSurface(uv_scale=0.8))
-            if e.name in ("portal_marker", "backdrop_sphere", "floor") else e
-            for e in sc.entities))
+            if e.name in ("portal_marker", "backdrop_sphere", "floor",
+                          "portal_marker4d", "backdrop_hypersphere")
+            else e for e in sc.entities))
     return et.get_scene(name)
 
 
@@ -330,24 +345,49 @@ def ground_truth(name, device, goldens):
 
 # --- phase 5 -----------------------------------------------------------------
 
-def cli_render(name):
-    """The CLI with --backend cuda at 1280x720 -> the PNG's path."""
-    png = os.path.join(ROOT, "euclider_tpu_torch", "build",
-                       f"smoke_cli_{name}.png")
-    if os.path.exists(png):
-        os.remove(png)
-    cmd = [sys.executable, "-m", "euclider_tpu_torch", "--scene", name,
-           "--size", f"{W}x{H}", "--backend", "cuda", "--out", png]
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    assert proc.returncode == 0, f"CLI failed:\n{proc.stdout}{proc.stderr}"
-    with open(png, "rb") as f:
-        head = f.read(24)
-    assert head[:8] == b"\x89PNG\r\n\x1a\n", "CLI wrote no PNG"
-    size = (int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big"))
-    assert size == (W, H), f"CLI PNG is {size}"
-    say("main", f"CLI --backend cuda --scene {name} wrote "
-        f"{os.path.relpath(png, ROOT)} ({size[0]}x{size[1]})")
+def run_together(cmds, timeout=600):
+    """The commands as subprocesses from the repository's root, all
+    started together (each spends seconds reaching the card) -> [(exit
+    code, stdout, stderr)] in order.  Every process is waited for, and
+    killed if waiting for any fails."""
+    procs = [subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    out = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=timeout)
+            out.append((p.returncode, o, e))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def cli_renders(names):
+    """The CLI with --backend cuda at 1280x720 on each scene, the
+    processes run together; each must write its PNG."""
+    pngs = [os.path.join(ROOT, "euclider_tpu_torch", "build",
+                         f"smoke_cli_{name}.png") for name in names]
+    for png in pngs:
+        if os.path.exists(png):
+            os.remove(png)
+    done = run_together([[sys.executable, "-m", "euclider_tpu_torch",
+                          "--scene", name, "--size", f"{W}x{H}", "--backend",
+                          "cuda", "--out", png]
+                         for name, png in zip(names, pngs)])
+    for name, png, (rc, out, err) in zip(names, pngs, done):
+        assert rc == 0, f"CLI failed on {name}:\n{out}{err}"
+        with open(png, "rb") as f:
+            head = f.read(24)
+        assert head[:8] == b"\x89PNG\r\n\x1a\n", "CLI wrote no PNG"
+        size = (int.from_bytes(head[16:20], "big"),
+                int.from_bytes(head[20:24], "big"))
+        assert size == (W, H), f"CLI PNG is {size}"
+        say("main", f"CLI --backend cuda --scene {name} wrote "
+            f"{os.path.relpath(png, ROOT)} ({size[0]}x{size[1]})")
 
 
 def main_path(device):
@@ -376,8 +416,7 @@ def main_path(device):
         f"{by_scene}")
     assert launches >= len(names), "the render path did not run the kernel"
     assert min(by_scene.values()) >= 1, "a scene's render skipped the kernel"
-    for name in (SCENES[1], WARP[0], EXPR[0], SHAPES[0]):
-        cli_render(name)
+    cli_renders((SCENES[1], WARP[0], EXPR[0], SHAPES[0]))
     return launches, by_scene
 
 
@@ -458,13 +497,24 @@ def backward_check(name, device, y0=0, rows=H, tm=0.0, backward="auto",
     t_ratio = t_err / (GRAD_RTOL * max(abs(float(ref[2])), 1.0))
     assert ratio <= 1.0, f"{name}: vjp_cuda disagrees with the plain backward"
     assert t_ratio <= 1.0, f"{name}: the time's gradient disagrees"
+    extra = {}
+    if name in SLAB_SCENES:
+        _, steps, marches, _ = march_count(static, tables, cam, y0, rows)
+        extra.update(marched_nodes=marches, march_steps=steps)
+        say("bwd", f"{name}: {marches} nodes of the slab march, {steps} live "
+            "march steps")
+        assert marches > 0, f"{name}: no ray of the slab marches"
+    if name in WARP_GRAD_SCENES:
+        for k in ("mat_warp_center", "mat_warp_strength", "mat_warp_step"):
+            assert float(getattr(ref[0], k).abs().max()) > 0 and \
+                float(getattr(got[0], k).abs().max()) > 0, \
+                f"{name}: {k} got no gradient"
     if name == "expr_gradient_scene":
         assert float(ref[0].mat_expr_params.abs().max()) > 0 and \
             float(got[0].mat_expr_params.abs().max()) > 0, \
             f"{name}: mat_expr_params got no gradient"
         assert float(ref[2]) != 0.0 and float(got[2]) != 0.0, \
             f"{name}: the scene time got no gradient"
-    extra = {}
     for i, (a, b) in enumerate(zip(ref[0].textures, got[0].textures)):
         extra[f"textures[{i}]_max"] = (float(a.abs().max()),
                                        float(b.abs().max()))
@@ -681,17 +731,20 @@ def events_ms(fn, device, warm=3):
     return time_render(fn, device, 5)
 
 
-def node_count(static, tables, cam):
-    """Ray-tree nodes the forward shades at each pixel (the primary node
-    included), counted by driving the plain version's loop -> [H, W]."""
+def node_count(static, tables, cam, y0=0, rows=H):
+    """Ray-tree nodes the forward shades at each pixel of rows [y0, y0 +
+    rows) (the primary node included), counted by driving the plain
+    version's loop -> [rows, W]."""
     import torch
     from euclider_tpu_torch.ops import trace
     dev = tables.surf_color.device
-    yi = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
-    xi = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
+    yi = torch.arange(y0, y0 + rows, dtype=torch.float32,
+                      device=dev)[:, None].expand(rows, W)
+    xi = torch.arange(W, dtype=torch.float32,
+                      device=dev)[None, :].expand(rows, W)
     org, d = trace.camera_rays(cam, xi, yi, W, H)
     ar, ag, ab, slots, sp = trace.bounce_init(static, tables, org, d)
-    nodes = torch.ones((H, W), dtype=torch.int32, device=dev)
+    nodes = torch.ones((rows, W), dtype=torch.int32, device=dev)
     if slots is not None:
         body = trace.make_bounce_body(static, tables)
         carry = (sp, ar, ag, ab, slots)
@@ -704,9 +757,9 @@ def node_count(static, tables, cam):
     return nodes
 
 
-def march_count(static, tables, cam):
+def march_count(static, tables, cam, y0=0, rows=H):
     """node_count, plus the march's work that the plain render's data needs
-    and the entity each node hits: -> (nodes [H, W], live march steps
+    and the entity each node hits: -> (nodes [rows, W], live march steps
     summed over the frame, marched nodes, hits [n_ent]: nodes that hit
     each entity).  Counted by wrapping the plain version's march step, its
     node shading and its propagation for the length of the count."""
@@ -746,7 +799,7 @@ def march_count(static, tables, cam):
     march.make_march_body = counting
     trace._shade_node, trace.propagate = shading, propagating
     try:
-        nodes = node_count(static, tables, cam)
+        nodes = node_count(static, tables, cam, y0, rows)
     finally:
         march.make_march_body = make_body
         trace._shade_node, trace.propagate = shade_node, propagate
@@ -904,9 +957,12 @@ PROBE_REV_OPS = 19        # one reverse step (rebuild + adjoint)
 
 
 def probe_check(device, card):
-    """Phase 9: probe_rev against rev_march_plain on the probe's tile."""
+    """Phase 9: probe_rev against rev_march_plain on the probe's tile and
+    on its first 1000 elements (a cluster whose last block is part empty);
+    two launches give the same bits."""
     import torch
     from euclider_tpu_torch.ops import probes
+    from euclider_tpu_torch.tools.ab_trees import rev_steps
 
     x = seeded((8, 128), 7, device) * 0.8
     g = seeded((8, 128), 8, device)
@@ -923,17 +979,19 @@ def probe_check(device, card):
         f"{err_dw:.3e}; limit {PROBE_RTOL:g}); launches {launches}")
     assert launches == 1, "rev_march_vjp did not run the kernel"
     assert err_dx <= PROBE_RTOL and err_dw <= PROBE_RTOL, "probe_rev disagrees"
+    x1k, g1k = x.reshape(-1)[:1000], g.reshape(-1)[:1000]
+    rel = rel_errs(probes.rev_march_cuda(x1k, w, g1k),
+                   probes.rev_march_plain(x1k, w, g1k))
+    again = probes.rev_march_cuda(x, w, g)
+    same = torch.equal(again[0], dx) and torch.equal(again[1], dw)
+    say("probe", f"probe_rev on 1000 elements vs plain: rel {rel:.3e} (limit "
+        f"{PROBE_RTOL:g}); two launches the same bits {same}")
+    assert rel <= PROBE_RTOL and same, "probe_rev disagrees or is not fixed"
 
-    # the steps this input walks: the forward of rev_march, counted
-    xx, v = x * 0.3, x * 0.2 + 0.1
-    done = torch.zeros_like(x, dtype=torch.bool)
-    steps = 0
-    for _ in range(probes.R_STEPS):
-        steps += int((~done).sum())
-        v1 = v + probes.R_H * (0.3 * torch.sin(w * xx))
-        x1 = xx + probes.R_H * v1
-        xx, v = torch.where(done, xx, x1), torch.where(done, v, v1)
-        done = done | (x1 > 1.0)
+    walked = rev_steps(probes, x, w)   # the steps each element walks
+    steps = int(walked.sum())
+    lane = int(walked.reshape(-1).argmax())
+    xl, gl = x.reshape(-1)[lane:lane + 1], g.reshape(-1)[lane:lane + 1]
     ops = steps * (PROBE_STEP_OPS + PROBE_REV_OPS)
     t_ops = ops / PEAK_FP32 * 1e3
     t_bytes = 3 * x.numel() * 4 / PEAK_BYTES * 1e3
@@ -941,14 +999,23 @@ def probe_check(device, card):
            "dw_rel": err_dw, "launches": launches,
            "ms": device_ms(lambda: probes.rev_march_cuda(x, w, g),
                            ["probe_rev_kernel"])["probe_rev_kernel"],
+           "lane_ms": device_ms(lambda: probes.rev_march_cuda(xl, w, gl),
+                                ["probe_rev_kernel"])["probe_rev_kernel"],
+           "longest_lane": lane, "ragged_rel": rel, "fixed_bits": same,
            "plain_ms": events_ms(lambda: probes.rev_march_plain(x, w, g),
                                  device, 1),
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops > t_bytes else "bytes",
            "steps_per_element": steps / x.numel()}
-    for k in ("ms", "plain_ms", "bound_ms"):
+    for k in ("ms", "lane_ms", "plain_ms", "bound_ms"):
         say("time", f"probe_rev {k}: {out[k]:.6f} ({card})")
     return out
+
+
+def rel_errs(got, ref):
+    """The largest of each output's max |got - ref| over max |ref|."""
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(got, ref))
 
 
 def march_probe_bound(static, steps, ent, stage):
@@ -1079,11 +1146,13 @@ MOSAIC_RTOL = {"probe_cond": 1e-6}   # else PROBE_RTOL
 # FP32 operations per element on the timed inputs (probe_mosaic.cu): P2 24
 # steps of x + 0.1 tanh(w x) (4) forward, recomputed, and their adjoint
 # (6); P3 the tile sum and the live branch (2 v + sin v: 3; its VJP: 4);
-# P4 two trips of 12 such steps forward, recomputed and transposed; P5 the
-# same with the two-variable step (8 forward, 16 adjoint)
+# P4 one trip of 12 such steps forward, recomputed and transposed; P5 the
+# same with the two-variable step (8 forward, 16 adjoint).  P4's and P5's
+# second trip repeats the first on the same inputs, so the work their
+# inputs need is one trip (P6's count is one repeat too)
 MOSAIC_OPS = {"probe_ckpt": 24 * (4 + 4 + 6), "probe_cond": 1 + 3 + 4,
-              "probe_nested": 2 * 12 * (4 + 4 + 6),
-              "probe_gated": 2 * 12 * (8 + 8 + 16)}
+              "probe_nested": 12 * (4 + 4 + 6),
+              "probe_gated": 12 * (8 + 8 + 16)}
 # bytes per element: the tiles in and out (P3: x, g, y, dx; P5: x, g, act,
 # dx; the others x, g, dx)
 MOSAIC_BYTES = {"probe_ckpt": 12, "probe_cond": 16, "probe_nested": 12,
@@ -1092,8 +1161,11 @@ MOSAIC_BYTES = {"probe_ckpt": 12, "probe_cond": 16, "probe_nested": 12,
 
 def mosaic_check(device, card):
     """P2-P5 on the card: the probes' path through the dispatchers on the
-    mosaic tool's tiles (P3 in both branches, P5 also dead), each against
-    its plain version, then their times -> the kernels' records."""
+    mosaic tool's tiles (P3 in both branches, P5 also dead, and on its
+    first 1000 elements, live and dead: a cluster whose last block is part
+    empty), each against its plain version; P5's two launches give the
+    same bits; then their times (P5's beside one lane alone) -> the
+    kernels' records."""
     import torch
     from euclider_tpu_torch.ops import probes as P
 
@@ -1113,6 +1185,12 @@ def mosaic_check(device, card):
         "gated_dead": ("probe_gated",
                        lambda: P.gated_march_vjp(x5, 0.8, g5, 0 * x5),
                        lambda: P.gated_march_plain(x5, 0.8, g5, 0 * x5))}
+    x1k, g1k = x5.reshape(-1)[:1000], g5.reshape(-1)[:1000]
+    for case, act in (("gated_1000", None), ("gated_dead_1000", 0 * x1k)):
+        cases[case] = ("probe_gated",
+                       lambda act=act: P.gated_march_vjp(x1k, 0.8, g1k, act),
+                       lambda act=act: P.gated_march_plain(x1k, 0.8, g1k,
+                                                           act))
     cond_in = {}
     for shift in (1.0, -1.0):
         x, g = tile(2, 1.0, shift), tile(3)
@@ -1139,6 +1217,14 @@ def mosaic_check(device, card):
         assert rel <= rtol, f"{name} ({case}) disagrees with its plain version"
         abs_err[name] = max(abs_err[name], *(float(d) for d, _ in diffs))
         rel_err[case] = rel
+    again = P.gated_march_cuda(x5, 0.8, g5)
+    same = all(torch.equal(a, b) for a, b in zip(again, got["gated"]))
+    # P5's dx against the plain version's (one trip of autograd, doubled)
+    dx_bits = {case: torch.equal(got[case][0], cases[case][2]()[0])
+               for case in ("gated", "gated_dead")}
+    say("probe", f"probe_gated: two launches the same bits {same}; dx the "
+        f"plain version's bits {dx_bits}")
+    assert same, "probe_gated's sum is not fixed"
     timed = {"probe_ckpt": ("ckpt", lambda: P.ckpt_scratch_cuda(x0, 0.7, g0)),
              "probe_cond": ("cond+1", lambda: P.cond_cuda(*cond_in[1.0])),
              "probe_nested": ("nested",
@@ -1157,6 +1243,14 @@ def mosaic_check(device, card):
                         key=lambda t: t[0])
         say("time", f"{name}: {ms:.6f} ms, by CUDA events {events:.6f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound:.3g} ms ({by}) ({card})")
+        extra = {}
+        if name == "probe_gated":   # every lane walks the same steps
+            extra = {"fixed_bits": same, "dx_plain_bits": dx_bits,
+                     "lane_ms": device_ms(lambda: P.gated_march_cuda(
+                         x5.reshape(-1)[:1], 0.8, g5.reshape(-1)[:1]),
+                         [f"{name}_kernel"])[f"{name}_kernel"]}
+            say("time", f"{name} one lane alone: {extra['lane_ms']:.6f} ms "
+                f"({card})")
         records.append({
             "name": name, "route": "cuda",
             "source": "euclider_tpu_torch/csrc/probe_mosaic.cu",
@@ -1165,7 +1259,7 @@ def mosaic_check(device, card):
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "padded_ms": events, "ms_case": case, "shape": [8, 128],
             "tolerance": {"rtol": MOSAIC_RTOL.get(name, PROBE_RTOL)},
-            "card": card,
+            "card": card, **extra,
             "rel_errs": {c: v for c, v in rel_err.items()
                          if cases[c][0] == name}})
     return records
@@ -1173,27 +1267,26 @@ def mosaic_check(device, card):
 
 def probe_tools():
     """The probes' entry points as a user runs them, each a subprocess on
-    the card: mosaic_probe (P2-P6 against their plain versions) and
-    march_bisect for every stage; each must exit 0 and launch every kernel
-    it covers."""
+    the card, run together: mosaic_probe (P2-P6 against their plain
+    versions) and march_bisect for every stage; each must exit 0 and
+    launch every kernel it covers."""
     from euclider_tpu_torch.ops import march_probe as MP
 
-    def run(*args):
-        proc = subprocess.run([sys.executable, "-m",
-                               f"euclider_tpu_torch.tools.{args[0]}",
-                               *args[1:]], cwd=ROOT, capture_output=True,
-                              text=True, timeout=600)
-        for line in proc.stdout.splitlines():
+    runs = [("mosaic_probe",)] + [("march_bisect", st) for st in MP.STAGES]
+    done = run_together([[sys.executable, "-m",
+                          f"euclider_tpu_torch.tools.{args[0]}", *args[1:]]
+                         for args in runs])
+    last = {}
+    for args, (rc, out, err) in zip(runs, done):
+        for line in out.splitlines():
             say("probe", f"{' '.join(args)}: {line}")
-        assert proc.returncode == 0, f"{' '.join(args)}: exit " \
-            f"{proc.returncode}\n{proc.stderr[-2000:]}"
-        return json.loads(proc.stdout.splitlines()[-1])
-
-    launches = run("mosaic_probe")["launches"]
+        assert rc == 0, f"{' '.join(args)}: exit {rc}\n{err[-2000:]}"
+        last[args] = json.loads(out.splitlines()[-1])
+    launches = last["mosaic_probe",]["launches"]
     assert all(n >= 1 for n in launches.values()) and len(launches) == 5, \
         f"mosaic_probe did not launch every kernel: {launches}"
     for st in MP.STAGES:
-        assert run("march_bisect", st)["launches"] == 1, \
+        assert last["march_bisect", st]["launches"] == 1, \
             f"march_bisect {st} did not launch probe_march"
 
 
@@ -1552,7 +1645,7 @@ def main() -> int:
         "scenes": {n: dict(bwd[n], **{k: times[n][k] for k in (
             "fused_step_ms", "unfused_step_ms", "bwd_device_ms",
             "sum_device_ms", "vjp_device_ms", "bwd_bound_ms", "bwd_config")
-            if n in times}) for n in bwd}}, {
+            if k in times.get(n, {})}) for n in bwd}}, {
         "name": "probe_rev", "route": "cuda",
         "source": "euclider_tpu_torch/csrc/probe_rev.cu",
         "replaces": "tools/mosaic_probe.py:502",
@@ -1562,7 +1655,9 @@ def main() -> int:
         "library_ms": None, "shape": [8, 128],
         "tolerance": {"rtol": PROBE_RTOL}, "card": card,
         "dx_rel": probe["dx_rel"], "dw_rel": probe["dw_rel"],
-        "steps_per_element": probe["steps_per_element"]}, seg, march,
+        **{k: probe[k] for k in ("lane_ms", "longest_lane", "ragged_rel",
+                                 "fixed_bits", "steps_per_element")}},
+        seg, march,
         *mosaic]
     for rec in record:
         keys = SEG_KEYS if rec["name"] == "trace_seg" else [

@@ -38,7 +38,8 @@
 // up to 8 blocks of 128 threads (one warp a scheduler on each of 8 SMs),
 // whose blocks sum their partials through distributed shared memory, each
 // block reading all of them in rank order, so every lane adds the same
-// bits and none writes before the whole sum is known.  Measured on the
+// bits and none writes before the whole sum is known (probe_cluster.cuh's
+// cluster_sum and launch_cluster, shared with P5 and P6).  Measured on the
 // H100 (PERF.md §6) against the first design's one block of 256 threads
 // walking 4 lanes each: every stage 0.24-0.26x its time, within 1.0-1.2x
 // of the tile's longest lane run alone, the floor of a lane a thread.  Not
@@ -50,19 +51,13 @@
 // Built like trace_fwd.cu: nvcc -gencode arch=compute_90a,code=sm_90a
 // -std=c++17 -O3 -fmad=false, without --use_fast_math.
 
-#include <cooperative_groups.h>
-
 #include "trace_adj.cuh"
-
-namespace cg = cooperative_groups;
+#include "probe_cluster.cuh"
 
 namespace {
 
 constexpr int STAGE_FWD = 0, STAGE_VJP = 1, STAGE_FINISH = 2, STAGE_LOOP = 3;
 constexpr int TAPE_STEPS = 32;   // the finish stage's tape: march_steps
-constexpr int THREADS = 128;     // lanes a block
-constexpr int CLUSTER = 8;       // blocks a cluster: the portable most
-constexpr int MAX_LANES = THREADS * CLUSTER;   // one (8, 128) tile
 
 // The adjoint of the n march steps from (org, d0) through a tape of their
 // pre-step states: g_sx0, g_sx1, g_sv the cotangents of the crossing
@@ -165,43 +160,18 @@ __device__ void probe_lane(const Scene& s, int stage, int mat, V4 o, V4 d,
     *out = val + d_org.x;
 }
 
-// The tile's sum of the lanes' values v in the fixed order: warp
-// shuffles, the block's warps in order, then after the cluster's barrier
-// the blocks' partials in rank order, read from each block's shared
-// memory; every thread of the cluster returns the same bits.
-__device__ __forceinline__ float cluster_sum(float v) {
-    __shared__ float red[THREADS / 32];
-    __shared__ float part;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        float b = 0.0f;
-#pragma unroll
-        for (int k = 0; k < THREADS / 32; ++k) b += red[k];
-        part = b;
-    }
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();
-    float sum = 0.0f;
-    const int nb = (int)cluster.num_blocks();
-    for (int r = 0; r < nb; ++r) sum += *cluster.map_shared_rank(&part, r);
-    cluster.sync();   // no block leaves while another reads its partial
-    return sum;
-}
-
-// Lane blockIdx.x * THREADS + threadIdx.x of the tile; the grid is one
-// cluster.  check, when given: each lane's share of sum(d shape_vec) at
-// check[i] and the tile's sum it added at check[n + i].
-__global__ void __launch_bounds__(THREADS)
+// Lane blockIdx.x * CLUSTER_THREADS + threadIdx.x of the tile; the grid is
+// one cluster (probe_cluster.cuh).  check, when given: each lane's share
+// of sum(d shape_vec) at check[i] and the tile's sum it added at
+// check[n + i].
+__global__ void __launch_bounds__(CLUSTER_THREADS)
 probe_march_kernel(Scene s, int stage, int mat, const float* __restrict__ org,
                    const float* __restrict__ dir, int n,
                    float* __restrict__ out, int* __restrict__ steps,
                    int* __restrict__ ent, float* __restrict__ dsv,
                    float* __restrict__ check) {
     stage_sides<BUILD_WARP>(s);
-    const int i = blockIdx.x * THREADS + threadIdx.x;
+    const int i = blockIdx.x * CLUSTER_THREADS + threadIdx.x;
     float val = 0.0f, part = 0.0f;
     if (i < n)
         probe_lane(s, stage, mat, load4(org + 4 * i), load4(dir + 4 * i),
@@ -225,9 +195,10 @@ __global__ void probe_empty_kernel() {}
 
 // ints, floats, params, t_max and cam as trace_fwd.cu's entry point takes
 // them (cam: only its scene time, cam[17], is read); org and dir [n, 4],
-// n <= MAX_LANES; mat the material every lane marches in; check null or
+// n <= CLUSTER_LANES; mat the material every lane marches in; check null or
 // 2 n floats (probe_march_kernel) -> 0 or a cudaError.  The launch is one
-// cluster of ceil(n / THREADS) blocks; a refused launch is an error.
+// cluster of ceil(n / CLUSTER_THREADS) blocks (launch_cluster); a refused
+// launch is an error.
 extern "C" int euclider_probe_march(const int32_t* const* ints,
                                     const float* const* floats,
                                     const int* params, float t_max,
@@ -239,27 +210,13 @@ extern "C" int euclider_probe_march(const int32_t* const* ints,
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     const Scene s = make_scene(ints, floats, params, t_max, cam);
-    if (n <= 0 || n > MAX_LANES || stage < STAGE_FWD || stage > STAGE_LOOP ||
+    if (stage < STAGE_FWD || stage > STAGE_LOOP ||
         scene_build(params) != BUILD_WARP || s.march_steps > TAPE_STEPS ||
         s.n_ent > MAX_MARCH_ENTITIES)
         return (int)cudaErrorInvalidValue;
-    const unsigned blocks = (n + THREADS - 1) / THREADS;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(blocks);
-    cfg.blockDim = dim3(THREADS);
-    cfg.dynamicSmemBytes = 0;
-    cfg.stream = (cudaStream_t)stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = blocks;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, probe_march_kernel, s, stage, mat, org, dir,
-                             n, out, steps, ent, dsv, check);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    return (int)launch_cluster(probe_march_kernel, n, (cudaStream_t)stream,
+                               s, stage, mat, org, dir, n, out, steps, ent,
+                               dsv, check);
 }
 
 // One launch of the empty kernel, one warp.

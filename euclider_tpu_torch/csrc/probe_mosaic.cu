@@ -21,22 +21,34 @@
 // ops/probes.py holds their plain versions (autograd through the same
 // recurrences) and the wrappers.
 //
-// One thread per element; one block, the probe's input being one tile.
 // The scratch of the TPU kernels (the checkpoint stack in VMEM, the inner
-// backward's run_scoped buffer) is per-thread local arrays here.  The
-// tile-wide decisions are block-wide: P3's sum by a fixed reduction tree
-// (each thread sums its elements in order, warp shuffles, then the warps
-// in order; no atomics, so the sign of a sum near zero cannot change from
-// run to run), P5's any() by __syncthreads_or.  dw is summed the same way,
-// so every result is deterministic.  What bounds them: the tanhf/sinf work
-// of 24 to 72 steps per element, far below the card; each is one launch
-// of one block.
+// backward's run_scoped buffer) is per-thread local arrays here.  What
+// bounds them: the tanhf/sinf work of 24 to 72 steps per element, far
+// below the card, so a launch's time is its lanes' chains of dependent
+// steps.  P2-P4: one block of 256 threads, each walking its elements in
+// turn; the tile-wide decisions are block-wide: P3's sum by a fixed
+// reduction tree (each thread sums its elements in order, warp shuffles,
+// then the warps in order; no atomics, so the sign of a sum near zero
+// cannot change from run to run), and dw is summed the same way.  P5: a
+// lane a thread in one thread-block cluster of up to 8 blocks of 128
+// (probe_cluster.cuh), its any() decided cluster-wide before any lane
+// marches and dw summed in the cluster's fixed order; its two trips have
+// the same inputs (the tool's loop takes jax.vjp of the same outer at the
+// same x, w, g twice), so it runs one and doubles it: in float 0 + t + t
+// is 2 t exactly, the same bits.  Every result is deterministic.  Measured
+// on the H100 (PERF.md §6): P5 0.24x its first design's time (one block of
+// 256 threads walking 4 lanes each and both trips; one trip alone gave
+// 0.51x), within 1.1x of one lane run alone.  Not taken: 32 blocks of a
+// warp whose last block adds the partials in order (2% faster on the live
+// tile, 3% slower on the dead one, and its partials and counter are
+// device-wide state in global memory that two streams' launches would
+// share), the chunk loops unrolled (13% slower).
 //
 // Built like trace_fwd.cu: nvcc -gencode arch=compute_90a,code=sm_90a
 // -std=c++17 -O3 -fmad=false, without --use_fast_math: every operation
 // rounds as the plain version's separate torch operations do.
 
-#include <cuda_runtime.h>
+#include "probe_cluster.cuh"
 
 namespace {
 
@@ -46,7 +58,7 @@ constexpr int N_STEPS = 12;   // P4, P5: steps of the inner march
 constexpr int CB = 4;         // P4, P5: steps per chunk
 constexpr int NB = N_STEPS / CB;
 constexpr int TRIPS = 2;      // P4, P5: the outer loop's VJPs, accumulated
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;  // P2-P4: threads of their one block
 
 // x + 0.1 tanh(w x)
 __device__ __forceinline__ float step(float x, float w) {
@@ -193,20 +205,16 @@ __device__ void gated_trip(float x, float w, float g, bool live, float* dx,
     *dw = gw;
 }
 
+// P5's TRIPS trips: one, scaled (every trip has the same inputs)
 __device__ void gated_element(float x, float w, float g, bool live,
                               float* dx, float* dw) {
-    float ax = 0.0f, aw = 0.0f;
-    for (int j = 0; j < TRIPS; ++j) {
-        float tx, tw;
-        gated_trip(x, w, g, live, &tx, &tw);
-        ax = ax + tx;
-        aw = aw + tw;
-    }
-    *dx = ax;
-    *dw = aw;
+    float tx, tw;
+    gated_trip(x, w, g, live, &tx, &tw);
+    *dx = TRIPS * tx;
+    *dw = TRIPS * tw;
 }
 
-// --- the kernels: one block over the tile -----------------------------------
+// --- the kernels: P2-P4 one block over the tile, P5 one cluster ------------
 
 // The block's sum of v in a fixed order (warp shuffles, then the warps in
 // order), the same value in every thread.
@@ -260,28 +268,25 @@ probe_nested_kernel(const float* __restrict__ x, float w,
     if (threadIdx.x == 0) *dw = acc;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Lane blockIdx.x * CLUSTER_THREADS + threadIdx.x of the tile; the grid is
+// one cluster.  No lane marches before the tile's any() is known.
+__global__ void __launch_bounds__(CLUSTER_THREADS)
 probe_gated_kernel(const float* __restrict__ x, float w,
                    const float* __restrict__ g,
                    const float* __restrict__ act, int n,
                    float* __restrict__ dx, float* __restrict__ dw) {
-    int any = 0;
-    for (int i = threadIdx.x; i < n; i += THREADS) any |= act[i] > 0.5f;
-    const bool live = __syncthreads_or(any) != 0;
-    float acc = 0.0f;
-    for (int i = threadIdx.x; i < n; i += THREADS) {
-        float dwi;
-        gated_element(x[i], w, g[i], live, dx + i, &dwi);
-        acc += dwi;
-    }
-    acc = block_sum(acc);
-    if (threadIdx.x == 0) *dw = acc;
+    const int i = blockIdx.x * CLUSTER_THREADS + threadIdx.x;
+    const bool live = cluster_any(i < n && act[i] > 0.5f);
+    float dwi = 0.0f;
+    if (i < n) gated_element(x[i], w, g[i], live, dx + i, &dwi);
+    const float sum = cluster_sum(dwi);
+    if (i == 0) *dw = sum;
 }
 
 }  // namespace
 
-// The entry points: one launch of one block on the caller's stream ->
-// 0 or a cudaError.
+// The entry points: one launch on the caller's stream (P2-P4 one block,
+// P5 one cluster of at most CLUSTER_LANES lanes) -> 0 or a cudaError.
 
 extern "C" int euclider_probe_ckpt(const float* x, float w, const float* g,
                                    int n, float* dx, float* dw, int device,
@@ -320,8 +325,6 @@ extern "C" int euclider_probe_gated(const float* x, float w, const float* g,
                                     float* dw, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    if (n <= 0) return (int)cudaErrorInvalidValue;
-    probe_gated_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(x, w, g, act,
-                                                                n, dx, dw);
-    return (int)cudaGetLastError();
+    return (int)launch_cluster(probe_gated_kernel, n, (cudaStream_t)stream,
+                               x, w, g, act, n, dx, dw);
 }

@@ -17,15 +17,24 @@
 // reverse needs no side test.  ops/probes.py::rev_march_plain is the plain
 // version (autograd through the march).
 //
-// dw is summed without atomics: each thread sums its elements, the block
-// sums its threads with warp shuffles and shared memory in a fixed order.
-// One block: the probe's input is one (8, 128) tile.  What bounds it: the
-// sinf/cosf work of 3 x R_STEPS steps per element, far below the card.
+// What bounds it: the sinf/cosf work of up to 3 x R_STEPS steps per
+// element, far below the card; the probe's input is one (8, 128) tile, so
+// its time is its longest lane's chain of dependent steps.  A lane a
+// thread in one thread-block cluster of up to 8 blocks of 128
+// (probe_cluster.cuh); dw is summed without atomics, in the cluster's
+// fixed order (warp shuffles, the block's warps, the blocks' partials in
+// rank order), so two launches give the same bits.  Measured on the H100
+// (PERF.md §6) against its first design's one block of 256 threads
+// walking 4 lanes each: 0.28x its time, within 1.1x of the tile's longest
+// lane run alone; sincosf in the reverse step takes 12% off sinf and cosf
+// apart (the same bits).  Not taken: 32 blocks of a warp whose last block
+// adds the partials (2% slower), the chunk loops unrolled (13% slower:
+// more local loads, not fewer).
 //
 // Built like trace_fwd.cu: nvcc -gencode arch=compute_90a,code=sm_90a
 // -std=c++17 -O3 -fmad=false, without --use_fast_math.
 
-#include <cuda_runtime.h>
+#include "probe_cluster.cuh"
 
 namespace {
 
@@ -34,7 +43,6 @@ constexpr int R_CB = 8;
 constexpr int R_NB = (R_STEPS + R_CB - 1) / R_CB;
 constexpr float R_H = 0.11f;
 constexpr int REPEATS = 2;
-constexpr int THREADS = 256;
 
 __device__ __forceinline__ float accel(float x, float w) {
     return 0.3f * sinf(w * x);
@@ -74,7 +82,8 @@ __device__ void element(float x, float w, float g, float* dx, float* dw) {
         for (int j = 0; j < live; ++j) {
             // rebuild the state before the step from the state after it
             const float xp = __fsub_rn(xc, __fmul_rn(h, vc));
-            const float s = sinf(w * xp), c = cosf(w * xp);
+            float s, c;   // one range reduction for both
+            sincosf(w * xp, &s, &c);
             const float vp = __fsub_rn(vc, __fmul_rn(h, 0.3f * s));
             // adjoint of v1 = vp + h a(xp), x1 = xp + h v1
             const float gv1 = gv + h * gx;
@@ -91,38 +100,28 @@ __device__ void element(float x, float w, float g, float* dx, float* dw) {
     *dw = REPEATS * gw;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Lane blockIdx.x * CLUSTER_THREADS + threadIdx.x of the tile; the grid is
+// one cluster.
+__global__ void __launch_bounds__(CLUSTER_THREADS)
 probe_rev_kernel(const float* __restrict__ x, float w,
                  const float* __restrict__ g, int n,
                  float* __restrict__ dx, float* __restrict__ dw) {
-    float acc = 0.0f;
-    for (int i = threadIdx.x; i < n; i += THREADS) {
-        float dwi;
-        element(x[i], w, g[i], dx + i, &dwi);
-        acc += dwi;
-    }
-    __shared__ float red[THREADS / 32];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = acc;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        float s = 0.0f;
-#pragma unroll
-        for (int k = 0; k < THREADS / 32; ++k) s += red[k];
-        *dw = s;
-    }
+    const int i = blockIdx.x * CLUSTER_THREADS + threadIdx.x;
+    float dwi = 0.0f;
+    if (i < n) element(x[i], w, g[i], dx + i, &dwi);
+    const float sum = cluster_sum(dwi);
+    if (i == 0) *dw = sum;
 }
 
 }  // namespace
 
+// One launch on the caller's stream: one cluster of at most CLUSTER_LANES
+// lanes -> 0 or a cudaError.
 extern "C" int euclider_probe_rev(const float* x, float w, const float* g,
                                   int n, float* dx, float* dw, int device,
                                   void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    if (n <= 0) return (int)cudaErrorInvalidValue;
-    probe_rev_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(x, w, g, n, dx,
-                                                              dw);
-    return (int)cudaGetLastError();
+    return (int)launch_cluster(probe_rev_kernel, n, (cudaStream_t)stream, x,
+                               w, g, n, dx, dw);
 }

@@ -49,7 +49,8 @@ SOURCES = {"trace_fwd": os.path.join(CSRC, "trace_fwd.cu"),
 SOURCES.update({f"{k}_shapes": SOURCES[k] for k in ("trace_fwd", "trace_bwd",
                                                      "trace_seg")})
 HEADERS = (os.path.join(CSRC, "trace_common.cuh"),
-           os.path.join(CSRC, "trace_adj.cuh"))
+           os.path.join(CSRC, "trace_adj.cuh"),
+           os.path.join(CSRC, "probe_cluster.cuh"))
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
@@ -87,7 +88,7 @@ def _nvcc() -> str:
 
 def _library(name: str) -> str:
     """Path of the library built from SOURCES[name].  Its name carries a
-    hash of the source, the shared header and the flags, so an edit to any
+    hash of the source, the shared headers and the flags, so an edit to any
     of them builds anew and never loads a stale library."""
     h = hashlib.sha256(" ".join(_flags(name)).encode())
     for path in (SOURCES[name],) + HEADERS:

@@ -41,6 +41,11 @@ and its VJP under a cotangent g, accumulated twice (the probe's loop of two
 inverting them (``x = x1 - h v1``, ``v = v1 - h a(x)``) from checkpoints
 taken every ``R_CB`` steps.  ``rev_march_vjp`` runs the kernel on CUDA
 tensors and the plain version on CPU tensors.
+
+P5's and P6's kernels run a lane a thread in one thread-block cluster
+(``csrc/probe_cluster.cuh``), so each takes at most ``MAX_LANES`` elements,
+one (8, 128) tile; their wrappers refuse more with ``ValueError`` before
+any launch.  P2-P4 take any number in one block.
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ R_CB = 8
 R_H = 0.11
 
 LAUNCHES = 0         # launches of probe_rev made by rev_march_vjp
+MAX_LANES = 1024     # P5, P6: a cluster of 8 blocks of 128 lanes
 
 # P2-P5 (tools/mosaic_probe.py)
 K = 6                # P2: checkpoints
@@ -102,10 +108,18 @@ def _entry():
     return fn
 
 
+def _lanes(name, x):
+    """Refuse a tile that one cluster does not hold, before any launch."""
+    if not 1 <= x.numel() <= MAX_LANES:
+        raise ValueError(f"{x.numel()} elements; {name} takes 1 to "
+                         f"{MAX_LANES} (one cluster)")
+
+
 def rev_march_cuda(x, w, g):
     """The probe's VJP through csrc/probe_rev.cu -> (dx, dw); CUDA tensors
-    only."""
+    of at most MAX_LANES elements only."""
     global LAUNCHES
+    _lanes("probe_rev", x)
     if x.device.type != "cuda":
         raise ValueError(f"rev_march_cuda takes CUDA tensors, got {x.device}")
     if g.shape != x.shape:
@@ -287,9 +301,11 @@ def nested_march_cuda(x, w, g):
 
 
 def gated_march_cuda(x, w, g, act=None):
-    """P5 through csrc/probe_mosaic.cu -> (dx, dw); CUDA tensors only."""
+    """P5 through csrc/probe_mosaic.cu -> (dx, dw); CUDA tensors of at most
+    MAX_LANES elements only."""
     if act is None:
         act = (x > -1e9).to(torch.float32)
+    _lanes("probe_gated", x)
     return _vjp_cuda("probe_gated", x, w, g, act)
 
 

@@ -9,8 +9,9 @@ Each ``--tree NAME=PATH[:nofma]`` is a checkout of the repository; ``:nofma``
 builds that tree's libraries with ``-fmad=false`` added where its own flags
 lack it, so that a tree from before every library was built so can be
 compared with one after at equal flags.  The script first builds every
-tree's libraries (``--libs``, by default the six trace libraries), one
-process a tree, all started together (each tree's
+tree's libraries (``--libs``, by default every library: the six trace
+libraries and the three probes'), one process a tree, all started
+together (each tree's
 ``ops/cuda_kernel.build``: one nvcc a library, in parallel, into the
 tree's own ``euclider_tpu_torch/build/``), and prints their ``-Xptxas -v``
 lines (none for a library already built) and, per kernel, the count of
@@ -36,7 +37,11 @@ default):
 - ``probe``: the march-bisect probe P1 (``probe_march_kernel``), every
   stage on its crossing tile and (``<stage>_lane``) on the tile's longest
   lane alone (``longest_lane``), and the tree's empty kernel of one warp
-  (``march_probe.empty_cuda``, where the tree has one);
+  (``march_probe.empty_cuda``, where the tree has one); the Mosaic probes
+  P2-P5 (``probe_mosaic.cu``) on ``chip_smoke.py`` phase 9's tiles (P3 on
+  the live branch, P5 live, dead and ``gated_lane``: one lane alone, every
+  lane walking the same steps) and P6 (``probe_rev.cu``) on its tile and
+  (``rev_lane``) on the lane that walks the most steps (``rev_steps``);
 
 each the mean device time of a launch over ``--calls`` calls (5 by
 default) after 3 warm-up calls, from torch.profiler; and
@@ -89,7 +94,8 @@ GROUPS = ("fwd", "bwd", "seg", "probe", "e2e", "host")
 # SASS opcodes counted per kernel: local, shared and generic memory, shuffles
 SASS_OPS = ("LDL", "STL", "LDS", "STS", "SHFL", "LD", "ST")
 LIBS = ("trace_fwd", "trace_bwd", "trace_seg", "trace_fwd_shapes",
-        "trace_bwd_shapes", "trace_seg_shapes", "probe_march")
+        "trace_bwd_shapes", "trace_seg_shapes", "probe_march", "probe_mosaic",
+        "probe_rev")
 
 
 def _package(path: str, nofma: bool):
@@ -196,6 +202,58 @@ def longest_lane(MP, static, tables, org, d) -> int:
     steps = got.steps.reshape(-1).to(torch.int64)
     crossed = got.ent.reshape(-1) >= 0
     return int(torch.argmax(steps + crossed.to(torch.int64) * (1 << 20)))
+
+
+def seeded(shape, seed, device):
+    """chip_smoke.py's seeded normal tile."""
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        size=shape).astype(np.float32)).to(device)
+
+
+def rev_steps(P, x, w):
+    """The steps each element of P6's march walks (P.R_STEPS of size
+    P.R_H, done once x' > 1), from the plain forward -> int tensor shaped
+    like x."""
+    import torch
+    xx, v = x * 0.3, x * 0.2 + 0.1
+    done = torch.zeros_like(x, dtype=torch.bool)
+    steps = torch.zeros_like(x, dtype=torch.int64)
+    for _ in range(P.R_STEPS):
+        steps += (~done).to(torch.int64)
+        v1 = v + P.R_H * (0.3 * torch.sin(w * xx))
+        x1 = xx + P.R_H * v1
+        xx, v = torch.where(done, xx, x1), torch.where(done, v, v1)
+        done = done | (x1 > 1.0)
+    return steps
+
+
+def probe_calls(P, device) -> dict:
+    """{name: (kernel, call)} of the Mosaic probes P2-P6 through the
+    tree's probes module P, on chip_smoke.py phase 9's tiles."""
+    x0, g0 = seeded((8, 128), 0, device), seeded((8, 128), 1, device)
+    x2, g2 = seeded((8, 128), 2, device) + 1.0, seeded((8, 128), 3, device)
+    x3, g3 = seeded((8, 128), 3, device) * 0.3, seeded((8, 128), 4, device)
+    x5, g5 = seeded((8, 128), 5, device) * 0.3, seeded((8, 128), 6, device)
+    xr, gr = seeded((8, 128), 7, device) * 0.8, seeded((8, 128), 8, device)
+    lane = int(rev_steps(P, xr, 1.1).reshape(-1).argmax())
+    x1, g1 = (t.reshape(-1)[lane:lane + 1] for t in (xr, gr))
+    return {
+        "ckpt": ("probe_ckpt_kernel",
+                 lambda: P.ckpt_scratch_cuda(x0, 0.7, g0)),
+        "cond": ("probe_cond_kernel", lambda: P.cond_cuda(x2, g2)),
+        "nested": ("probe_nested_kernel",
+                   lambda: P.nested_march_cuda(x3, 0.9, g3)),
+        "gated": ("probe_gated_kernel",
+                  lambda: P.gated_march_cuda(x5, 0.8, g5)),
+        "gated_dead": ("probe_gated_kernel",
+                       lambda: P.gated_march_cuda(x5, 0.8, g5, 0 * x5)),
+        "gated_lane": ("probe_gated_kernel", lambda: P.gated_march_cuda(
+            x5.reshape(-1)[:1], 0.8, g5.reshape(-1)[:1])),
+        "rev": ("probe_rev_kernel", lambda: P.rev_march_cuda(xr, 1.1, gr)),
+        "rev_lane": ("probe_rev_kernel",
+                     lambda: P.rev_march_cuda(x1, 1.1, g1))}
 
 
 def _scene(et, name):
@@ -328,6 +386,9 @@ def time_worker(path: str, nofma: bool, groups=GROUPS, calls=5) -> dict:
         if empty is not None:
             out["probe"]["empty"] = device_ms(lambda: empty(device),
                                               "probe_empty_kernel")
+        from euclider_tpu_torch.ops import probes as P
+        for name, (key, fn) in probe_calls(P, device).items():
+            out["probe"][name] = device_ms(fn, key)
     if "e2e" in groups:
         from euclider_tpu_torch.train.inverse import (
             InverseParams, make_fused_value_and_grad)

@@ -1,8 +1,9 @@
 // Host stand-in for the cooperative groups that csrc/ uses (a thread-block
 // cluster's barrier, size and shared-memory mapping), so that g++ compiles
 // the device code around them (tools/kernel_harness.py): one block stands
-// in for the cluster.  The harness sums the lanes itself, in the cluster's
-// order (ops/march_probe.py tile_sum).
+// in for the cluster.  The harness takes a tile's sums and decisions over
+// the lanes itself: P1's in the cluster's order (ops/march_probe.py
+// tile_sum), P5's and P6's in the lanes' order.
 #pragma once
 namespace cooperative_groups {
 struct cluster_group {

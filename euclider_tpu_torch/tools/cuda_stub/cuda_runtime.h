@@ -43,6 +43,25 @@ template <class F>
 inline int cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
     return cudaErrorInvalidValue;
 }
+// the cluster launch of csrc/probe_cluster.cuh: declared, never launched
+struct cudaLaunchAttribute {
+    int id;
+    struct {
+        dim3 clusterDim;
+    } val;
+};
+enum { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchConfig_t {
+    dim3 gridDim, blockDim;
+    size_t dynamicSmemBytes;
+    cudaStream_t stream;
+    cudaLaunchAttribute* attrs;
+    unsigned numAttrs;
+};
+template <class F, class... A>
+inline int cudaLaunchKernelEx(const cudaLaunchConfig_t*, F, A...) {
+    return cudaErrorInvalidValue;
+}
 template <class F>
 inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
                                                         size_t) {

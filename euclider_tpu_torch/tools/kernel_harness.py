@@ -226,12 +226,24 @@ extern "C" int harness_probe_march(const int32_t* const* ints,
     const Scene s = make_scene(ints, floats, params, t_max, cam);
     load_side_rows(s, 0, 1);
     if (scene_build(params) != BUILD_WARP || s.march_steps > TAPE_STEPS ||
-        n <= 0 || n > MAX_LANES)
+        n <= 0 || n > CLUSTER_LANES)
         return 1;
     for (int i = 0; i < n; ++i)
         probe_lane(s, stage, mat, load4(org + 4 * i), load4(dir + 4 * i),
                    out + i, steps + i, ent + i, part + i);
     return 0;
+}
+""",
+    "probe_rev": """
+extern "C" void harness_probe_rev(const float* x, float w, const float* g,
+                                  int n, float* dx, float* dw) {
+    float acc = 0.0f;
+    for (int i = 0; i < n; ++i) {
+        float dwi;
+        element(x[i], w, g[i], dx + i, &dwi);
+        acc += dwi;
+    }
+    *dw = acc;
 }
 """,
 }
@@ -256,7 +268,8 @@ def build(asan: bool = False) -> dict:
             src = f.read()
         src = src[:src.index('extern "C"')] + entry
         h = hashlib.sha256((" ".join(flags) + src).encode())
-        for path in CK.HEADERS + (os.path.join(STUB, "cuda_runtime.h"),):
+        for path in CK.HEADERS + tuple(os.path.join(STUB, f) for f in (
+                "cuda_runtime.h", "cooperative_groups.h")):
             with open(path, "rb") as f:
                 h.update(f.read())
         tag = h.hexdigest()[:16]
@@ -305,7 +318,10 @@ def _entries(asan: bool):
     sums = ctypes.CDLL(libs["trace_bwd"]).harness_block_sums
     sums.argtypes = [p, i, i, p]
     sums.restype = None
-    return fwd, bwd, seg, mosaic, march, sums
+    rev = ctypes.CDLL(libs["probe_rev"]).harness_probe_rev
+    rev.argtypes = [p, ctypes.c_float, p, i, p, p]
+    rev.restype = None
+    return fwd, bwd, seg, mosaic, march, sums, rev
 
 
 def _scene(static, tables, cam, time, y0):
@@ -505,6 +521,31 @@ def compare_mosaic(asan=False) -> dict:
     return errs
 
 
+def rev(x, w, g, asan=False):
+    """probe_rev.cu's lanes on CPU tensors, dw summed in the lanes' order
+    -> (dx, dw)."""
+    x = x.detach().to(torch.float32).contiguous()
+    g = g.detach().to(torch.float32).contiguous()
+    dx = torch.zeros_like(x)
+    dw = torch.zeros((), dtype=torch.float32)
+    _entries(asan)[6](x.data_ptr(), float(w), g.data_ptr(), x.numel(),
+                      dx.data_ptr(), dw.data_ptr())
+    return dx, dw
+
+
+def compare_rev(asan=False) -> dict:
+    """probe_rev.cu against rev_march_plain on the probe's seeded tile
+    (chip_smoke.py phase 9's) -> {"dx": dx's largest difference over
+    max |ref|, "dw": dw's relative difference}."""
+    rng = np.random.default_rng
+    x = torch.from_numpy((rng(7).normal(size=(8, 128)) * 0.8).astype(
+        np.float32))
+    g = torch.from_numpy(rng(8).normal(size=(8, 128)).astype(np.float32))
+    (pdx, pdw), (dx, dw) = PR.rev_march_plain(x, 1.1, g), rev(x, 1.1, g, asan)
+    return {"dx": float((dx - pdx).abs().max() / pdx.abs().max()),
+            "dw": abs(float(dw) - float(pdw)) / abs(float(pdw))}
+
+
 def compare_march(tile, stage, asan=False) -> dict:
     """probe_march.cu's stage against march_probe_plain on the tool's or
     the crossing tile -> march_probe.compare's dict."""
@@ -526,8 +567,8 @@ def main(argv=None) -> int:
                    help="zero the cotangent on image seams too")
     p.add_argument("--probes", action="store_true",
                    help="the probes instead of a scene: probe_mosaic.cu's "
-                        "kernels on the mosaic tool's tiles, probe_march.cu's "
-                        "stages on both tiles")
+                        "kernels on the mosaic tool's tiles, probe_rev.cu's "
+                        "on its tile, probe_march.cu's stages on both tiles")
     p.add_argument("--chunk-trips", type=int, default=None,
                    help="run the segmented backward (K6 then K7) with chunks "
                         "of this many trips, against vjp_segmented")
@@ -543,6 +584,7 @@ def main(argv=None) -> int:
     W, H = (int(v) for v in args.size.lower().split("x"))
     if args.probes:
         print("mosaic", compare_mosaic(args.asan))
+        print("rev", compare_rev(args.asan))
         for tile in ("tool", "crossing"):
             for stage in MP.STAGES:
                 print("march", tile, stage,

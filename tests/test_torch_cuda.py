@@ -146,11 +146,24 @@ def warp32_scene(n=30):
                                                background=(0.1, 0.1, 0.2)))
 
 
+def config7_smooth():
+    """chip_smoke.py's config7_smooth: config7 (4D, warped space, portals)
+    with smooth surfaces on the marker, the backdrop and the floor; on its
+    uniform and checker surfaces the warp's gradient is zero."""
+    from euclider_tpu_torch.scene import ir
+    sc = ett.get_scene("config7_warp4d")
+    return replace(sc, name="config7_smooth", entities=tuple(
+        replace(e, surface=ir.SmoothSurface(uv_scale=0.8))
+        if e.name in ("portal_marker4d", "backdrop_hypersphere", "floor")
+        else e for e in sc.entities))
+
+
 def scene_on(name, device, **settings):
     sc = {"warp_gradient_scene": warp_gradient_scene,
           "expr_gradient_scene": expr_gradient_scene,
           "cylinder_test": cylinder_scene,
           "cylinder_smooth": lambda: cylinder_scene(True),
+          "config7_smooth": config7_smooth,
           "spheres48": spheres_scene,
           "warp32": warp32_scene,
           "config2_deep": deep_scene,
@@ -191,10 +204,9 @@ def test_kernel_matches_plain(cuda, name):
     torch.cuda.synchronize()
     assert cuda_kernel.LAUNCHES == before + 1
     assert got.shape == (H, W, 3) and bool(torch.isfinite(got).all())
-    # FMA contraction in the kernel moves a few edge pixels (tolerance of
-    # chip_smoke.py: 99.9% of pixels within 1e-4)
-    bad = ((got - ref).abs().amax(dim=-1) > 1e-4).float().mean()
-    assert float(bad) <= 1e-3
+    # every library is built without FMA contraction, so each operation
+    # rounds as the plain version's: the same frame to the bit
+    assert torch.equal(got, ref), float((got - ref).abs().max())
 
 
 @pytest.mark.cuda
@@ -273,22 +285,40 @@ def off_seams(g, static, tables, cam, time=0.0):
     return g * (m == 0)[..., None]
 
 
+# (H, W, y0, rows): the frame and its rows [y0, y0 + rows) that a case
+# differentiates, else the BH x BW frame: config7's across its warp region,
+# at a size where the warp's gradient outlives the seams' mask (at 48 x 64
+# every pixel it reaches is masked)
+VJP_SLABS = {"config7_warp4d": (180, 320, 72, 16),
+             "config7_smooth": (180, 320, 72, 16)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["grad_probe", "config2_mirror_glass",
                                   "warp_gradient_scene",
                                   "config5_warp_portal",
                                   "config3_csg_textured", "perlin_probe",
-                                  "cylinder_smooth"])
+                                  "cylinder_smooth", "config4_hypersphere",
+                                  "config7_warp4d", "config7_smooth"])
 def test_vjp_kernel_matches_plain(cuda, name):
+    """The 4D scenes too: config4 on the frame, config7 (and config7 with
+    smooth surfaces, whose warp parameters get a nonzero gradient) on a
+    slab whose rays march."""
     from euclider_tpu_torch.ops import cuda_bwd, vjp
     static, tables, cam = scene_on(name, cuda)
-    g = off_seams(cotangent((BH, BW, 3), 0, cuda), static, tables, cam)
+    fh, fw, y0, rows = VJP_SLABS.get(name, (BH, BW, 0, BH))
+    g = off_seams(cotangent((fh, fw, 3), 0, cuda), static, tables,
+                  cam)[y0:y0 + rows]
     before = cuda_bwd.LAUNCHES
-    got = cuda_bwd.vjp_cuda(static, tables, cam, BH, BW, g)
-    ref = vjp.vjp_blocked(static, tables, cam, BH, BW, g)
+    got = cuda_bwd.vjp_cuda(static, tables, cam, fh, fw, g, y0=y0,
+                            rows=rows)
+    ref = vjp.vjp_blocked(static, tables, cam, fh, fw, g, y0=y0, rows=rows)
     torch.cuda.synchronize()
     assert cuda_bwd.LAUNCHES == before + 1
     grads_close(ref, got)
+    if name == "config7_smooth":
+        assert float(ref[0].mat_warp_strength.abs().max()) > 0
+        assert float(got[0].mat_warp_strength.abs().max()) > 0
 
 
 @pytest.mark.cuda
@@ -408,12 +438,15 @@ def test_loss_fn_differentiates_the_scene_time(cuda):
 
 
 @pytest.mark.cuda
-def test_probe_rev_matches_plain(cuda):
+@pytest.mark.parametrize("n", [1024, 1000])
+def test_probe_rev_matches_plain(cuda, n):
     """csrc/probe_rev.cu against rev_march_plain on the probe's (8, 128)
-    tile: dx and dw within 1e-5 relative."""
+    tile and on its first 1000 elements (the cluster's last block part
+    empty): dx and dw within 1e-5 relative; a second launch gives the same
+    bits."""
     from euclider_tpu_torch.ops import probes
-    x = cotangent((8, 128), 7, cuda) * 0.8
-    g = cotangent((8, 128), 8, cuda)
+    x = (cotangent((8, 128), 7, cuda) * 0.8).reshape(-1)[:n]
+    g = cotangent((8, 128), 8, cuda).reshape(-1)[:n]
     before = probes.LAUNCHES
     dx, dw = probes.rev_march_vjp(x, 1.1, g)
     pdx, pdw = probes.rev_march_plain(x, 1.1, g)
@@ -421,6 +454,8 @@ def test_probe_rev_matches_plain(cuda):
     assert probes.LAUNCHES == before + 1
     assert float((dx - pdx).abs().max()) <= 1e-5 * float(pdx.abs().max())
     assert abs(float(dw) - float(pdw)) <= 1e-5 * abs(float(pdw))
+    dx2, dw2 = probes.rev_march_vjp(x, 1.1, g)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
 
 
 @pytest.mark.cuda
@@ -646,11 +681,16 @@ MOSAIC_CASES = {   # tools/mosaic_probe.py's seeds, scales and w
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["ckpt", "cond+1", "cond-1", "nested",
-                                  "gated", "gated_dead"])
+                                  "gated", "gated_dead", "gated_1000",
+                                  "gated_dead_1000"])
 def test_mosaic_probe_kernels_match_plain(cuda, case):
     """csrc/probe_mosaic.cu's kernels against the plain versions on the
     mosaic tool's tiles: within 1e-5 relative (P3 1e-6), one launch each;
-    P3 in both branches, P5 also on a dead tile."""
+    P3 in both branches, P5 also on a dead tile and, live and dead, on the
+    tile's first 1000 elements (its cluster's last block part empty); P5's
+    second launch gives the same bits."""
+    n = 1000 if case.endswith("_1000") else None
+    case = case.removesuffix("_1000")
     from euclider_tpu_torch.ops import probes as P
     if case.startswith("cond"):
         shift = 1.0 if case == "cond+1" else -1.0
@@ -664,6 +704,8 @@ def test_mosaic_probe_kernels_match_plain(cuda, case):
         sx, sg, scale, w = MOSAIC_CASES[case]
         x = cotangent((8, 128), sx, cuda) * scale
         g = cotangent((8, 128), sg, cuda)
+        if n is not None:
+            x, g = x.reshape(-1)[:n], g.reshape(-1)[:n]
         act = torch.zeros_like(x) if case == "gated_dead" else None
         name, fn, plain = {
             "ckpt": ("probe_ckpt", P.ckpt_scratch_vjp, P.ckpt_scratch_plain),
@@ -682,6 +724,48 @@ def test_mosaic_probe_kernels_match_plain(cuda, case):
     for a, b in zip(got, ref):
         assert float((a - b).abs().max()) <= rtol * max(
             float(b.abs().max()), 1e-30), (case, a, b)
+    if name == "probe_gated":
+        again = fn(x, w, g, *extra)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dead", [False, True])
+def test_gated_probe_dx_is_one_trip_doubled(cuda, dead):
+    """P5 runs one trip of its outer VJP and doubles it (every trip has
+    the same inputs): its dx is the plain version's, one trip of autograd
+    doubled, to the bit on the dead tile; on the live one to the bit but
+    where PyTorch's own backward kernels round otherwise (measured on the
+    H100: 9 of 1024 elements, up to two units in the last place, the same
+    for the first design's two trips summed), and no further."""
+    from euclider_tpu_torch.ops import probes as P
+    x = cotangent((8, 128), 5, cuda) * 0.3
+    g = cotangent((8, 128), 6, cuda)
+    act = torch.zeros_like(x) if dead else None
+    dx, _ = P.gated_march_cuda(x, 0.8, g, act)
+    pdx, _ = P.gated_march_plain(x, 0.8, g, act)
+    if dead:
+        assert torch.equal(dx, pdx), float((dx - pdx).abs().max())
+    else:
+        assert bool((torch.sign(dx) == torch.sign(pdx)).all())
+        ulps = (dx.view(torch.int32) - pdx.view(torch.int32)).abs()
+        assert int(ulps.max()) <= 2 and int((ulps > 0).sum()) <= 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", ["gated", "rev"])
+def test_cluster_probe_kernels_refuse_more_than_a_cluster(cuda, probe):
+    """P5 and P6 on 1025 elements, one more than a cluster holds: a
+    ValueError before any launch, no other launch shape."""
+    from euclider_tpu_torch.ops import probes as P
+    x = torch.zeros(P.MAX_LANES + 1, device=cuda)
+    before = (dict(P.MOSAIC_LAUNCHES), P.LAUNCHES)
+    with pytest.raises(ValueError, match="one cluster"):
+        if probe == "gated":
+            P.gated_march_cuda(x, 0.8, x)
+        else:
+            P.rev_march_cuda(x, 1.1, x)
+    assert (dict(P.MOSAIC_LAUNCHES), P.LAUNCHES) == before
 
 
 @pytest.mark.cuda
@@ -775,6 +859,20 @@ def test_probe_rev_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         probes.rev_march_cuda(torch.zeros(8, 128), 1.1, torch.zeros(8, 128))
     assert probes.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n", [0, 1025])
+def test_cluster_probe_wrappers_refuse_what_a_cluster_does_not_hold(n):
+    """P5's and P6's wrappers refuse an empty tile and one of more than
+    MAX_LANES elements before anything else, so before any launch."""
+    from euclider_tpu_torch.ops import probes as P
+    x = torch.zeros(n)
+    before = (dict(P.MOSAIC_LAUNCHES), P.LAUNCHES)
+    for call in (lambda: P.gated_march_cuda(x, 0.8, x),
+                 lambda: P.rev_march_cuda(x, 1.1, x)):
+        with pytest.raises(ValueError, match="one cluster"):
+            call()
+    assert (dict(P.MOSAIC_LAUNCHES), P.LAUNCHES) == before
 
 
 def test_backward_wrappers_refuse_cpu_tensors():

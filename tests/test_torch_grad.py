@@ -24,7 +24,8 @@ from euclider_tpu_torch.ops import trace
 from euclider_tpu_torch.ops.vjp import FLOAT_FIELDS, vjp_blocked
 
 H, W = 16, 24
-PROBES = ("grad_probe", "fresnel_probe", "config2_mirror_glass")
+PROBES = ("grad_probe", "fresnel_probe", "config2_mirror_glass",
+          "config4_hypersphere")
 
 
 def depth2(name):

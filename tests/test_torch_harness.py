@@ -7,8 +7,8 @@ ops/vjp.py::vjp_segmented, on scenes of each build (straight, BUILD_SHAPES,
 the march and the expression VM) and past the tape's 63 nodes, the march's 32 entities and a
 thread's 159 gradient entries; the block's sums of the threads' gradient
 vectors against float64; the probes' device code
-(csrc/probe_mosaic.cu, csrc/probe_march.cu) against ops/probes.py and
-ops/march_probe.py.
+(csrc/probe_mosaic.cu, csrc/probe_rev.cu, csrc/probe_march.cu) against
+ops/probes.py and ops/march_probe.py.
 Without contraction the device code rounds as the plain version's separate
 torch operations do, so the forward matches it to the last bit here.
 """
@@ -23,7 +23,8 @@ from euclider_tpu_torch.ops import march_probe as MP
 from euclider_tpu_torch.scene import ir
 from euclider_tpu_torch.scene.library import get_scene
 from euclider_tpu_torch.tools import kernel_harness as KH
-from test_torch_cuda import deep_scene, spheres_scene, warp32_scene
+from test_torch_cuda import (config7_smooth, deep_scene, spheres_scene,
+                             warp32_scene)
 
 
 @pytest.fixture(scope="module")
@@ -38,13 +39,29 @@ def harness():
                                         ("perlin_probe", 48, 64),
                                         ("config2_mirror_glass", 24, 32),
                                         ("config6_expr_space", 24, 32),
-                                        ("warp32", 16, 24)])
+                                        ("warp32", 16, 24),
+                                        ("config4_hypersphere", 24, 32),
+                                        ("config7_warp4d", 36, 64),
+                                        ("config7_smooth", 36, 64)])
 def test_device_code_matches_plain(harness, name, H, W):
     """Forward exact; every leaf's gradient (texels, camera and time
     included) within 1e-3 * max(max |ref|, 1) under a seeded cotangent.
     warp32 marches at the side table's 32-entity cap (its last entity,
-    the side mask's top bit, is crossed by marched rays)."""
-    out = harness.compare(warp32_scene() if name == "warp32" else name, H, W)
+    the side mask's top bit, is crossed by marched rays); config4 and
+    config7 are 4D, and config7's rays march at this size (with smooth
+    surfaces the warp's parameters get a gradient)."""
+    sc = {"warp32": warp32_scene, "config7_smooth": config7_smooth}.get(
+        name, lambda: get_scene(name))()
+    if name.startswith("config7"):
+        from euclider_tpu_torch.scene.compile import (
+            camera_to_torch, compile_camera, compile_scene, tables_to_torch)
+        from euclider_tpu_torch.tools.march_simt import steps_by_trip
+        static, t = compile_scene(sc)
+        steps = steps_by_trip(static, tables_to_torch(t, "cpu"),
+                              camera_to_torch(compile_camera(sc.camera),
+                                              "cpu"), H, W)
+        assert int((steps.sum(0) > 0).sum()) > 0, "no pixel marches"
+    out = harness.compare(sc, H, W)
     assert out["fwd_bad"] == 0 and out["fwd_max"] <= 1e-6, out
     assert out["bwd_worst"] <= 1.0, out
 
@@ -139,6 +156,14 @@ def test_mosaic_probe_device_code_matches_plain(harness):
     assert len(errs) == 6, errs
     for name, err in errs.items():
         assert err <= (1e-6 if name.startswith("probe_cond") else 1e-5), errs
+
+
+def test_rev_probe_device_code_matches_plain(harness):
+    """probe_rev.cu's lanes (its reverse sweep by step inversion) on the
+    probe's tile, dw summed in the lanes' order, against rev_march_plain:
+    dx and dw within 1e-5 relative."""
+    errs = harness.compare_rev()
+    assert errs["dx"] <= 1e-5 and errs["dw"] <= 1e-5, errs
 
 
 @pytest.mark.parametrize("tile", ["tool", "crossing"])
