@@ -1161,11 +1161,11 @@ MOSAIC_BYTES = {"probe_ckpt": 12, "probe_cond": 16, "probe_nested": 12,
 
 def mosaic_check(device, card):
     """P2-P5 on the card: the probes' path through the dispatchers on the
-    mosaic tool's tiles (P3 in both branches, P5 also dead, and on its
-    first 1000 elements, live and dead: a cluster whose last block is part
-    empty), each against its plain version; P5's two launches give the
-    same bits; then their times (P5's beside one lane alone) -> the
-    kernels' records."""
+    mosaic tool's tiles (P3 in both branches, P5 also dead; P2, P4 and P5
+    also on their first 1000 elements, P5 live and dead: a cluster whose
+    last block is part empty), each against its plain version; P2's, P4's
+    and P5's two launches give the same bits; then their times (P2's, P4's
+    and P5's beside one lane alone) -> the kernels' records."""
     import torch
     from euclider_tpu_torch.ops import probes as P
 
@@ -1191,6 +1191,14 @@ def mosaic_check(device, card):
                        lambda act=act: P.gated_march_vjp(x1k, 0.8, g1k, act),
                        lambda act=act: P.gated_march_plain(x1k, 0.8, g1k,
                                                            act))
+    xc, gc = x0.reshape(-1)[:1000], g0.reshape(-1)[:1000]
+    xn, gn = x3.reshape(-1)[:1000], g3.reshape(-1)[:1000]
+    cases["ckpt_1000"] = ("probe_ckpt",
+                          lambda: P.ckpt_scratch_vjp(xc, 0.7, gc),
+                          lambda: P.ckpt_scratch_plain(xc, 0.7, gc))
+    cases["nested_1000"] = ("probe_nested",
+                            lambda: P.nested_march_vjp(xn, 0.9, gn),
+                            lambda: P.nested_march_plain(xn, 0.9, gn))
     cond_in = {}
     for shift in (1.0, -1.0):
         x, g = tile(2, 1.0, shift), tile(3)
@@ -1217,20 +1225,42 @@ def mosaic_check(device, card):
         assert rel <= rtol, f"{name} ({case}) disagrees with its plain version"
         abs_err[name] = max(abs_err[name], *(float(d) for d, _ in diffs))
         rel_err[case] = rel
-    again = P.gated_march_cuda(x5, 0.8, g5)
-    same = all(torch.equal(a, b) for a, b in zip(again, got["gated"]))
-    # P5's dx against the plain version's (one trip of autograd, doubled)
-    dx_bits = {case: torch.equal(got[case][0], cases[case][2]()[0])
-               for case in ("gated", "gated_dead")}
-    say("probe", f"probe_gated: two launches the same bits {same}; dx the "
-        f"plain version's bits {dx_bits}")
-    assert same, "probe_gated's sum is not fixed"
     timed = {"probe_ckpt": ("ckpt", lambda: P.ckpt_scratch_cuda(x0, 0.7, g0)),
              "probe_cond": ("cond+1", lambda: P.cond_cuda(*cond_in[1.0])),
              "probe_nested": ("nested",
                               lambda: P.nested_march_cuda(x3, 0.9, g3)),
              "probe_gated": ("gated",
                              lambda: P.gated_march_cuda(x5, 0.8, g5))}
+    # P2, P4 and P5, one cluster each: a second launch gives the same bits
+    # (dw summed in a fixed order), dx against the plain version's (P4's
+    # and P5's one trip of autograd, doubled) in bits and units in the last
+    # place, and (lane_ms) one element alone: every lane walks the same
+    # steps
+    lanes = {"probe_ckpt": lambda: P.ckpt_scratch_cuda(x0[0, :1], 0.7,
+                                                       g0[0, :1]),
+             "probe_nested": lambda: P.nested_march_cuda(x3[0, :1], 0.9,
+                                                         g3[0, :1]),
+             "probe_gated": lambda: P.gated_march_cuda(x5[0, :1], 0.8,
+                                                       g5[0, :1])}
+    cluster = {}
+    for name in lanes:
+        case, kernel = timed[name]
+        again = kernel()
+        same = all(torch.equal(a, b) for a, b in zip(again, got[case]))
+        dx_bits, dx_ulps = {}, {}
+        for c in (case, f"{case}_dead"):
+            if c in cases:
+                dx, pdx = got[c][0], cases[c][2]()[0]
+                ulps = (dx.view(torch.int32) - pdx.view(torch.int32)).abs()
+                dx_bits[c] = torch.equal(dx, pdx)
+                dx_ulps[c] = {"max": int(ulps.max()),
+                              "elements": int((ulps > 0).sum())}
+        say("probe", f"{name}: two launches the same bits {same}; dx the "
+            f"plain version's bits {dx_bits}, units in the last place "
+            f"{dx_ulps}")
+        assert same, f"{name}'s sum is not fixed"
+        cluster[name] = {"fixed_bits": same, "dx_plain_bits": dx_bits,
+                         "dx_plain_ulps": dx_ulps}
     records = []
     for name, (case, kernel) in timed.items():
         ms = device_ms(kernel, [f"{name}_kernel"])[f"{name}_kernel"]
@@ -1243,12 +1273,10 @@ def mosaic_check(device, card):
                         key=lambda t: t[0])
         say("time", f"{name}: {ms:.6f} ms, by CUDA events {events:.6f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound:.3g} ms ({by}) ({card})")
-        extra = {}
-        if name == "probe_gated":   # every lane walks the same steps
-            extra = {"fixed_bits": same, "dx_plain_bits": dx_bits,
-                     "lane_ms": device_ms(lambda: P.gated_march_cuda(
-                         x5.reshape(-1)[:1], 0.8, g5.reshape(-1)[:1]),
-                         [f"{name}_kernel"])[f"{name}_kernel"]}
+        extra = cluster.get(name, {})
+        if name in lanes:
+            extra["lane_ms"] = device_ms(lanes[name], [f"{name}_kernel"])[
+                f"{name}_kernel"]
             say("time", f"{name} one lane alone: {extra['lane_ms']:.6f} ms "
                 f"({card})")
         records.append({

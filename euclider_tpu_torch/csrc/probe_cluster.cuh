@@ -1,7 +1,7 @@
 // probe_cluster.cuh - one thread-block cluster over a probe's tile, for
 // Hopper (sm_90a): the tile's sum in a fixed order, the tile's any(), and
-// the launch.  Included by probe_march.cu (P1), probe_mosaic.cu (P5) and
-// probe_rev.cu (P6).
+// the launch.  Included by probe_march.cu (P1), probe_mosaic.cu (P2, P4
+// and P5) and probe_rev.cu (P6).
 //
 // A probe's input is one (8, 128) tile, and its time is one lane's chain
 // of dependent steps: the work is far below the card, so the tile is
@@ -11,10 +11,16 @@
 // let every block read every block's partial in rank order, so every lane
 // gets the same bits, and none acts before the whole tile is known.  A
 // lane at or past n still reaches every barrier and adds 0 (or false).
+// cluster_sum reads the other blocks' partials after one barrier and
+// waits at a second before any block leaves; cluster_push_sum (P2, P4)
+// gives the same bits under one barrier after the lanes' work, each block
+// writing its partial into every block's shared memory before it (on the
+// H100 0.0006 ms less a launch, PERF.md §6).
 //
 // Off the card (tools/kernel_harness.py) the stand-in of
-// tools/cuda_stub/cooperative_groups.h only compiles these: the harness
-// runs the lanes' device functions and takes the tile's sums itself.
+// tools/cuda_stub/cooperative_groups.h only compiles these (without the
+// barrier's PTX, under __CUDA_ARCH__): the harness runs the lanes' device
+// functions and takes the tile's sums itself.
 
 #pragma once
 
@@ -52,6 +58,44 @@ __device__ __forceinline__ float cluster_sum(float v) {
     const int nb = (int)cluster.num_blocks();
     for (int r = 0; r < nb; ++r) sum += *cluster.map_shared_rank(&part, r);
     cluster.sync();   // no block leaves while another reads its partial
+    return sum;
+}
+
+// The cluster barrier's arrival at a kernel's start (relaxed: it orders no
+// memory).  cluster_push_sum waits on it before it writes into another
+// block's shared memory, which is safe only once every block has started.
+__device__ __forceinline__ void cluster_arrive() {
+#ifdef __CUDA_ARCH__
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+#endif
+}
+
+// cluster_sum's value, in its order, under one cluster barrier after the
+// lanes' work: each block pushes its partial into slot rank of every
+// block's shared memory before the barrier, and after it reads only its
+// own slots, in rank order.  The kernel calls cluster_arrive() first.
+__device__ __forceinline__ float cluster_push_sum(float v) {
+    __shared__ float red[CLUSTER_THREADS / 32];
+    __shared__ float slot[CLUSTER_BLOCKS];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+    __syncthreads();
+#ifdef __CUDA_ARCH__
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+#endif
+    cg::cluster_group cluster = cg::this_cluster();
+    const int nb = (int)cluster.num_blocks();
+    if ((int)threadIdx.x < nb) {   // thread r pushes to block r
+        float b = 0.0f;
+#pragma unroll
+        for (int k = 0; k < CLUSTER_THREADS / 32; ++k) b += red[k];
+        *cluster.map_shared_rank(&slot[cluster.block_rank()],
+                                 (int)threadIdx.x) = b;
+    }
+    cluster.sync();
+    float sum = 0.0f;
+    for (int r = 0; r < nb; ++r) sum += slot[r];
     return sum;
 }
 

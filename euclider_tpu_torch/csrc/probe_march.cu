@@ -39,14 +39,14 @@
 // whose blocks sum their partials through distributed shared memory, each
 // block reading all of them in rank order, so every lane adds the same
 // bits and none writes before the whole sum is known (probe_cluster.cuh's
-// cluster_sum and launch_cluster, shared with P5 and P6).  Measured on the
-// H100 (PERF.md §6) against the first design's one block of 256 threads
-// walking 4 lanes each: every stage 0.24-0.26x its time, within 1.0-1.2x
-// of the tile's longest lane run alone, the floor of a lane a thread.  Not
-// taken: one block of 1024 threads (0.52-0.63x: the launch bound's 64
-// registers, 32 warps on 4 schedulers), 32 blocks of a warp with the last
-// block adding the sum (1.1-1.3x the cluster's), the finish tape in shared
-// memory (no gain: its steps stay in L1).
+// cluster_sum and launch_cluster, shared with P2, P4, P5 and P6).
+// Measured on the H100 (PERF.md §6) against the first design's one block
+// of 256 threads walking 4 lanes each: every stage 0.24-0.26x its time,
+// within 1.0-1.2x of the tile's longest lane run alone, the floor of a
+// lane a thread.  Not taken: one block of 1024 threads (0.52-0.63x: the
+// launch bound's 64 registers, 32 warps on 4 schedulers), 32 blocks of a
+// warp with the last block adding the sum (1.1-1.3x the cluster's), the
+// finish tape in shared memory (no gain: its steps stay in L1).
 //
 // Built like trace_fwd.cu: nvcc -gencode arch=compute_90a,code=sm_90a
 // -std=c++17 -O3 -fmad=false, without --use_fast_math.

@@ -24,25 +24,28 @@
 // The scratch of the TPU kernels (the checkpoint stack in VMEM, the inner
 // backward's run_scoped buffer) is per-thread local arrays here.  What
 // bounds them: the tanhf/sinf work of 24 to 72 steps per element, far
-// below the card, so a launch's time is its lanes' chains of dependent
-// steps.  P2-P4: one block of 256 threads, each walking its elements in
-// turn; the tile-wide decisions are block-wide: P3's sum by a fixed
-// reduction tree (each thread sums its elements in order, warp shuffles,
-// then the warps in order; no atomics, so the sign of a sum near zero
-// cannot change from run to run), and dw is summed the same way.  P5: a
-// lane a thread in one thread-block cluster of up to 8 blocks of 128
-// (probe_cluster.cuh), its any() decided cluster-wide before any lane
-// marches and dw summed in the cluster's fixed order; its two trips have
-// the same inputs (the tool's loop takes jax.vjp of the same outer at the
-// same x, w, g twice), so it runs one and doubles it: in float 0 + t + t
-// is 2 t exactly, the same bits.  Every result is deterministic.  Measured
-// on the H100 (PERF.md §6): P5 0.24x its first design's time (one block of
-// 256 threads walking 4 lanes each and both trips; one trip alone gave
-// 0.51x), within 1.1x of one lane run alone.  Not taken: 32 blocks of a
-// warp whose last block adds the partials in order (2% faster on the live
-// tile, 3% slower on the dead one, and its partials and counter are
-// device-wide state in global memory that two streams' launches would
-// share), the chunk loops unrolled (13% slower).
+// below the card, so a launch's time is one lane's chain of dependent
+// steps and the launch's fixed cost.  P2, P4 and P5 spread the tile as
+// thinly as it goes: a lane a thread in one thread-block cluster of up to
+// 8 blocks of 128 (probe_cluster.cuh), dw summed in the cluster's fixed
+// order (P2 and P4 under one barrier after the lanes' work,
+// cluster_push_sum), P5's any() decided cluster-wide before any lane
+// marches.  P4's and P5's two trips have the same inputs (the tool's loop
+// takes jax.vjp of the same outer at the same x, w, g twice), so each
+// runs one and doubles it: in float 0 + t + t is 2 t exactly, the same
+// bits.  P3 does almost no work: one block of 256 threads, each walking
+// its elements in turn, its branch decided by a fixed reduction tree
+// (each thread sums its elements in order, warp shuffles, then the warps
+// in order; no atomics, so the sign of a sum near zero cannot change from
+// run to run).  Every result is deterministic.  Measured on the H100
+// (PERF.md §6) against the first design, one block of 256 threads walking
+// 4 elements each and both trips: P5 0.24x (one trip alone 0.51x), P2
+// 0.52x, P4 0.53x (one trip alone 0.85x), each within 1.1x of one element
+// run alone.  Not taken: for P5, 32 blocks of a warp whose last block adds
+// the partials in order (2% faster on the live tile, 3% slower on the dead
+// one, and its partials and counter are device-wide state in global
+// memory that two streams' launches would share), the chunk loops
+// unrolled (13% slower); for P2 and P4, cluster_sum (0.0006 ms slower).
 //
 // Built like trace_fwd.cu: nvcc -gencode arch=compute_90a,code=sm_90a
 // -std=c++17 -O3 -fmad=false, without --use_fast_math: every operation
@@ -58,7 +61,7 @@ constexpr int N_STEPS = 12;   // P4, P5: steps of the inner march
 constexpr int CB = 4;         // P4, P5: steps per chunk
 constexpr int NB = N_STEPS / CB;
 constexpr int TRIPS = 2;      // P4, P5: the outer loop's VJPs, accumulated
-constexpr int THREADS = 256;  // P2-P4: threads of their one block
+constexpr int THREADS = 256;  // P3: threads of its one block
 
 // x + 0.1 tanh(w x)
 __device__ __forceinline__ float step(float x, float w) {
@@ -155,17 +158,13 @@ __device__ void nested_trip(float x, float w, float g, float* dx,
     *dw = gw;
 }
 
+// P4's TRIPS trips: one, scaled (every trip has the same inputs)
 __device__ void nested_element(float x, float w, float g, float* dx,
                                float* dw) {
-    float ax = 0.0f, aw = 0.0f;
-    for (int j = 0; j < TRIPS; ++j) {
-        float tx, tw;
-        nested_trip(x, w, g, &tx, &tw);
-        ax = ax + tx;
-        aw = aw + tw;
-    }
-    *dx = ax;
-    *dw = aw;
+    float tx, tw;
+    nested_trip(x, w, g, &tx, &tw);
+    *dx = TRIPS * tx;
+    *dw = TRIPS * tw;
 }
 
 // P5: one trip of the outer VJP through the gated march (live: the tile's
@@ -214,7 +213,7 @@ __device__ void gated_element(float x, float w, float g, bool live,
     *dw = TRIPS * tw;
 }
 
-// --- the kernels: P2-P4 one block over the tile, P5 one cluster ------------
+// --- the kernels: P3 one block over the tile, P2, P4 and P5 one cluster ---
 
 // The block's sum of v in a fixed order (warp shuffles, then the warps in
 // order), the same value in every thread.
@@ -231,20 +230,6 @@ __device__ float block_sum(float v) {
 }
 
 __global__ void __launch_bounds__(THREADS)
-probe_ckpt_kernel(const float* __restrict__ x, float w,
-                  const float* __restrict__ g, int n, float* __restrict__ dx,
-                  float* __restrict__ dw) {
-    float acc = 0.0f;
-    for (int i = threadIdx.x; i < n; i += THREADS) {
-        float dwi;
-        ckpt_element(x[i], w, g[i], dx + i, &dwi);
-        acc += dwi;
-    }
-    acc = block_sum(acc);
-    if (threadIdx.x == 0) *dw = acc;
-}
-
-__global__ void __launch_bounds__(THREADS)
 probe_cond_kernel(const float* __restrict__ x, const float* __restrict__ g,
                   int n, float* __restrict__ y, float* __restrict__ dx) {
     float part = 0.0f;
@@ -254,22 +239,33 @@ probe_cond_kernel(const float* __restrict__ x, const float* __restrict__ g,
         cond_element(x[i], g[i], live, y + i, dx + i);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// P2, P4, P5: lane blockIdx.x * CLUSTER_THREADS + threadIdx.x of the tile;
+// the grid is one cluster.
+__global__ void __launch_bounds__(CLUSTER_THREADS)
+probe_ckpt_kernel(const float* __restrict__ x, float w,
+                  const float* __restrict__ g, int n, float* __restrict__ dx,
+                  float* __restrict__ dw) {
+    const int i = blockIdx.x * CLUSTER_THREADS + threadIdx.x;
+    cluster_arrive();
+    float dwi = 0.0f;
+    if (i < n) ckpt_element(x[i], w, g[i], dx + i, &dwi);
+    const float sum = cluster_push_sum(dwi);
+    if (i == 0) *dw = sum;
+}
+
+__global__ void __launch_bounds__(CLUSTER_THREADS)
 probe_nested_kernel(const float* __restrict__ x, float w,
                     const float* __restrict__ g, int n,
                     float* __restrict__ dx, float* __restrict__ dw) {
-    float acc = 0.0f;
-    for (int i = threadIdx.x; i < n; i += THREADS) {
-        float dwi;
-        nested_element(x[i], w, g[i], dx + i, &dwi);
-        acc += dwi;
-    }
-    acc = block_sum(acc);
-    if (threadIdx.x == 0) *dw = acc;
+    const int i = blockIdx.x * CLUSTER_THREADS + threadIdx.x;
+    cluster_arrive();
+    float dwi = 0.0f;
+    if (i < n) nested_element(x[i], w, g[i], dx + i, &dwi);
+    const float sum = cluster_push_sum(dwi);
+    if (i == 0) *dw = sum;
 }
 
-// Lane blockIdx.x * CLUSTER_THREADS + threadIdx.x of the tile; the grid is
-// one cluster.  No lane marches before the tile's any() is known.
+// No lane marches before the tile's any() is known.
 __global__ void __launch_bounds__(CLUSTER_THREADS)
 probe_gated_kernel(const float* __restrict__ x, float w,
                    const float* __restrict__ g,
@@ -285,18 +281,17 @@ probe_gated_kernel(const float* __restrict__ x, float w,
 
 }  // namespace
 
-// The entry points: one launch on the caller's stream (P2-P4 one block,
-// P5 one cluster of at most CLUSTER_LANES lanes) -> 0 or a cudaError.
+// The entry points: one launch on the caller's stream (P3 one block; P2,
+// P4 and P5 one cluster of at most CLUSTER_LANES lanes) -> 0 or a
+// cudaError.
 
 extern "C" int euclider_probe_ckpt(const float* x, float w, const float* g,
                                    int n, float* dx, float* dw, int device,
                                    void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    if (n <= 0) return (int)cudaErrorInvalidValue;
-    probe_ckpt_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(x, w, g, n, dx,
-                                                               dw);
-    return (int)cudaGetLastError();
+    return (int)launch_cluster(probe_ckpt_kernel, n, (cudaStream_t)stream, x,
+                               w, g, n, dx, dw);
 }
 
 extern "C" int euclider_probe_cond(const float* x, const float* g, int n,
@@ -314,10 +309,8 @@ extern "C" int euclider_probe_nested(const float* x, float w, const float* g,
                                      void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    if (n <= 0) return (int)cudaErrorInvalidValue;
-    probe_nested_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(x, w, g, n,
-                                                                 dx, dw);
-    return (int)cudaGetLastError();
+    return (int)launch_cluster(probe_nested_kernel, n, (cudaStream_t)stream,
+                               x, w, g, n, dx, dw);
 }
 
 extern "C" int euclider_probe_gated(const float* x, float w, const float* g,

@@ -42,10 +42,11 @@ inverting them (``x = x1 - h v1``, ``v = v1 - h a(x)``) from checkpoints
 taken every ``R_CB`` steps.  ``rev_march_vjp`` runs the kernel on CUDA
 tensors and the plain version on CPU tensors.
 
-P5's and P6's kernels run a lane a thread in one thread-block cluster
-(``csrc/probe_cluster.cuh``), so each takes at most ``MAX_LANES`` elements,
-one (8, 128) tile; their wrappers refuse more with ``ValueError`` before
-any launch.  P2-P4 take any number in one block.
+The kernels of P2, P4, P5 and P6 run a lane a thread in one thread-block
+cluster (``csrc/probe_cluster.cuh``), so each takes at most ``MAX_LANES``
+elements, one (8, 128) tile, as the tool's kernels do; their wrappers
+refuse more (or none) with ``ValueError`` before any launch.  P3 takes any
+number in one block.
 """
 from __future__ import annotations
 
@@ -60,7 +61,7 @@ R_CB = 8
 R_H = 0.11
 
 LAUNCHES = 0         # launches of probe_rev made by rev_march_vjp
-MAX_LANES = 1024     # P5, P6: a cluster of 8 blocks of 128 lanes
+MAX_LANES = 1024     # P2, P4-P6: a cluster of 8 blocks of 128 lanes
 
 # P2-P5 (tools/mosaic_probe.py)
 K = 6                # P2: checkpoints
@@ -272,6 +273,8 @@ def _launch(name, *args, device):
 
 
 def _vjp_cuda(name, x, w, g, *extra):
+    """P2's, P4's or P5's kernel, one cluster over x -> (dx, dw)."""
+    _lanes(name, x)
     x, g, *extra = _on_card(name, x, g, *extra)
     dx = torch.empty_like(x)
     dw = torch.empty((), dtype=torch.float32, device=x.device)
@@ -282,7 +285,8 @@ def _vjp_cuda(name, x, w, g, *extra):
 
 
 def ckpt_scratch_cuda(x, w, g):
-    """P2 through csrc/probe_mosaic.cu -> (dx, dw); CUDA tensors only."""
+    """P2 through csrc/probe_mosaic.cu -> (dx, dw); CUDA tensors of at most
+    MAX_LANES elements only."""
     return _vjp_cuda("probe_ckpt", x, w, g)
 
 
@@ -296,7 +300,8 @@ def cond_cuda(x, g):
 
 
 def nested_march_cuda(x, w, g):
-    """P4 through csrc/probe_mosaic.cu -> (dx, dw); CUDA tensors only."""
+    """P4 through csrc/probe_mosaic.cu -> (dx, dw); CUDA tensors of at most
+    MAX_LANES elements only."""
     return _vjp_cuda("probe_nested", x, w, g)
 
 
@@ -305,7 +310,6 @@ def gated_march_cuda(x, w, g, act=None):
     MAX_LANES elements only."""
     if act is None:
         act = (x > -1e9).to(torch.float32)
-    _lanes("probe_gated", x)
     return _vjp_cuda("probe_gated", x, w, g, act)
 
 

@@ -42,6 +42,11 @@ default):
   the live branch, P5 live, dead and ``gated_lane``: one lane alone, every
   lane walking the same steps) and P6 (``probe_rev.cu``) on its tile and
   (``rev_lane``) on the lane that walks the most steps (``rev_steps``);
+  P2 and P4 also on the tile's first 1000 elements (``ckpt_1000``,
+  ``nested_1000``) and on one element alone (``ckpt_lane``,
+  ``nested_lane``: every lane walks the same steps); beside each Mosaic probe's time, a
+  hash of its outputs' bits (``probe_bits``, one ``bits`` line a call at
+  the end), so that trees can be held to the same bits;
 
 each the mean device time of a launch over ``--calls`` calls (5 by
 default) after 3 warm-up calls, from torch.profiler; and
@@ -242,9 +247,17 @@ def probe_calls(P, device) -> dict:
     return {
         "ckpt": ("probe_ckpt_kernel",
                  lambda: P.ckpt_scratch_cuda(x0, 0.7, g0)),
+        "ckpt_1000": ("probe_ckpt_kernel", lambda: P.ckpt_scratch_cuda(
+            x0.reshape(-1)[:1000], 0.7, g0.reshape(-1)[:1000])),
+        "ckpt_lane": ("probe_ckpt_kernel", lambda: P.ckpt_scratch_cuda(
+            x0.reshape(-1)[:1], 0.7, g0.reshape(-1)[:1])),
         "cond": ("probe_cond_kernel", lambda: P.cond_cuda(x2, g2)),
         "nested": ("probe_nested_kernel",
                    lambda: P.nested_march_cuda(x3, 0.9, g3)),
+        "nested_1000": ("probe_nested_kernel", lambda: P.nested_march_cuda(
+            x3.reshape(-1)[:1000], 0.9, g3.reshape(-1)[:1000])),
+        "nested_lane": ("probe_nested_kernel", lambda: P.nested_march_cuda(
+            x3.reshape(-1)[:1], 0.9, g3.reshape(-1)[:1])),
         "gated": ("probe_gated_kernel",
                   lambda: P.gated_march_cuda(x5, 0.8, g5)),
         "gated_dead": ("probe_gated_kernel",
@@ -254,6 +267,14 @@ def probe_calls(P, device) -> dict:
         "rev": ("probe_rev_kernel", lambda: P.rev_march_cuda(xr, 1.1, gr)),
         "rev_lane": ("probe_rev_kernel",
                      lambda: P.rev_march_cuda(x1, 1.1, g1))}
+
+
+def bits(tensors) -> list:
+    """A hash of each tensor's bytes, so that two trees' outputs can be
+    compared to the bit across processes."""
+    import hashlib
+    return [hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes())
+            .hexdigest()[:12] for t in tensors]
 
 
 def _scene(et, name):
@@ -343,7 +364,7 @@ def time_worker(path: str, nofma: bool, groups=GROUPS, calls=5) -> dict:
         return statistics.median(ms)
 
     out = {"fwd": {}, "bwd": {}, "bwd_config": {}, "seg": {}, "probe": {},
-           "e2e": {}, "e2e_host": {}, "host": {}}
+           "probe_bits": {}, "e2e": {}, "e2e_host": {}, "host": {}}
     for name in FWD_SCENES if "fwd" in groups else ():
         static, tables, cam = load(name)
         out["fwd"][name] = device_ms(
@@ -389,6 +410,7 @@ def time_worker(path: str, nofma: bool, groups=GROUPS, calls=5) -> dict:
         from euclider_tpu_torch.ops import probes as P
         for name, (key, fn) in probe_calls(P, device).items():
             out["probe"][name] = device_ms(fn, key)
+            out["probe_bits"][name] = bits(fn())
     if "e2e" in groups:
         from euclider_tpu_torch.train.inverse import (
             InverseParams, make_fused_value_and_grad)
@@ -512,6 +534,10 @@ def main(argv=None) -> int:
         print(json.dumps(runs[-1]), flush=True)
     for line in time_lines(runs):
         print("time", line, flush=True)
+    for name in dict.fromkeys(k for r in runs for k in r["probe_bits"]):
+        print("bits", name, " ".join(
+            f"{r['tree']}={','.join(r['probe_bits'].get(name, ['-']))}"
+            for r in runs), flush=True)
     print(json.dumps({"card": card, "trees": trees, "builds": builds,
                       "runs": runs}), flush=True)
     return 0

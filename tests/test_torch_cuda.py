@@ -680,15 +680,17 @@ MOSAIC_CASES = {   # tools/mosaic_probe.py's seeds, scales and w
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["ckpt", "cond+1", "cond-1", "nested",
-                                  "gated", "gated_dead", "gated_1000",
+@pytest.mark.parametrize("case", ["ckpt", "ckpt_1000", "cond+1", "cond-1",
+                                  "nested", "nested_1000", "gated",
+                                  "gated_dead", "gated_1000",
                                   "gated_dead_1000"])
 def test_mosaic_probe_kernels_match_plain(cuda, case):
     """csrc/probe_mosaic.cu's kernels against the plain versions on the
     mosaic tool's tiles: within 1e-5 relative (P3 1e-6), one launch each;
-    P3 in both branches, P5 also on a dead tile and, live and dead, on the
-    tile's first 1000 elements (its cluster's last block part empty); P5's
-    second launch gives the same bits."""
+    P3 in both branches, P5 also on a dead tile; P2, P4 and P5 (P5 live and
+    dead) also on the tile's first 1000 elements (their cluster's last
+    block part empty); P2's, P4's and P5's second launch gives the same
+    bits (dw summed in the cluster's fixed order)."""
     n = 1000 if case.endswith("_1000") else None
     case = case.removesuffix("_1000")
     from euclider_tpu_torch.ops import probes as P
@@ -724,47 +726,62 @@ def test_mosaic_probe_kernels_match_plain(cuda, case):
     for a, b in zip(got, ref):
         assert float((a - b).abs().max()) <= rtol * max(
             float(b.abs().max()), 1e-30), (case, a, b)
-    if name == "probe_gated":
+    if name != "probe_cond":
         again = fn(x, w, g, *extra)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+# units in the last place by which a probe's dx may differ from the plain
+# version's on the live tile, and on how many of its 1024 elements:
+# measured on the H100, the same for the first designs' two trips summed
+# (P4 62 elements, up to 3 units; P5 9 elements, up to 2)
+DX_ULPS = {"nested": (3, 62), "gated": (2, 16)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dead", [False, True])
-def test_gated_probe_dx_is_one_trip_doubled(cuda, dead):
-    """P5 runs one trip of its outer VJP and doubles it (every trip has
-    the same inputs): its dx is the plain version's, one trip of autograd
-    doubled, to the bit on the dead tile; on the live one to the bit but
-    where PyTorch's own backward kernels round otherwise (measured on the
-    H100: 9 of 1024 elements, up to two units in the last place, the same
-    for the first design's two trips summed), and no further."""
+@pytest.mark.parametrize("case", ["nested", "gated", "gated_dead"])
+def test_probe_dx_is_one_trip_doubled(cuda, case):
+    """P4 and P5 run one trip of their outer VJP and double it (every trip
+    has the same inputs): the dx of each is the plain version's, one trip
+    of autograd doubled, to the bit on P5's dead tile; on the live tiles to
+    the bit but where PyTorch's own backward kernels round otherwise, by
+    at most the units in the last place measured (DX_ULPS), and no
+    further."""
     from euclider_tpu_torch.ops import probes as P
-    x = cotangent((8, 128), 5, cuda) * 0.3
-    g = cotangent((8, 128), 6, cuda)
-    act = torch.zeros_like(x) if dead else None
-    dx, _ = P.gated_march_cuda(x, 0.8, g, act)
-    pdx, _ = P.gated_march_plain(x, 0.8, g, act)
-    if dead:
+    sx, sg, scale, w = MOSAIC_CASES[case]
+    x = cotangent((8, 128), sx, cuda) * scale
+    g = cotangent((8, 128), sg, cuda)
+    if case == "nested":
+        dx, _ = P.nested_march_cuda(x, w, g)
+        pdx, _ = P.nested_march_plain(x, w, g)
+    else:
+        act = torch.zeros_like(x) if case == "gated_dead" else None
+        dx, _ = P.gated_march_cuda(x, w, g, act)
+        pdx, _ = P.gated_march_plain(x, w, g, act)
+    if case == "gated_dead":
         assert torch.equal(dx, pdx), float((dx - pdx).abs().max())
     else:
         assert bool((torch.sign(dx) == torch.sign(pdx)).all())
         ulps = (dx.view(torch.int32) - pdx.view(torch.int32)).abs()
-        assert int(ulps.max()) <= 2 and int((ulps > 0).sum()) <= 16
+        most, count = DX_ULPS[case]
+        assert int(ulps.max()) <= most and int((ulps > 0).sum()) <= count, \
+            (case, int(ulps.max()), int((ulps > 0).sum()))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("probe", ["gated", "rev"])
+@pytest.mark.parametrize("probe", ["ckpt", "nested", "gated", "rev"])
 def test_cluster_probe_kernels_refuse_more_than_a_cluster(cuda, probe):
-    """P5 and P6 on 1025 elements, one more than a cluster holds: a
-    ValueError before any launch, no other launch shape."""
+    """P2, P4, P5 and P6 on 1025 elements, one more than a cluster holds:
+    a ValueError before any launch, no other launch shape."""
     from euclider_tpu_torch.ops import probes as P
     x = torch.zeros(P.MAX_LANES + 1, device=cuda)
     before = (dict(P.MOSAIC_LAUNCHES), P.LAUNCHES)
+    call = {"ckpt": lambda: P.ckpt_scratch_cuda(x, 0.7, x),
+            "nested": lambda: P.nested_march_cuda(x, 0.9, x),
+            "gated": lambda: P.gated_march_cuda(x, 0.8, x),
+            "rev": lambda: P.rev_march_cuda(x, 1.1, x)}[probe]
     with pytest.raises(ValueError, match="one cluster"):
-        if probe == "gated":
-            P.gated_march_cuda(x, 0.8, x)
-        else:
-            P.rev_march_cuda(x, 1.1, x)
+        call()
     assert (dict(P.MOSAIC_LAUNCHES), P.LAUNCHES) == before
 
 
@@ -873,6 +890,24 @@ def test_cluster_probe_wrappers_refuse_what_a_cluster_does_not_hold(n):
         with pytest.raises(ValueError, match="one cluster"):
             call()
     assert (dict(P.MOSAIC_LAUNCHES), P.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("n", [0, 1025])
+@pytest.mark.parametrize("probe", ["ckpt", "nested"])
+def test_mosaic_cluster_wrappers_refuse_what_a_cluster_does_not_hold(probe,
+                                                                     n):
+    """P2's and P4's wrappers, one cluster each like P5's, refuse an empty
+    tile and one of more than MAX_LANES elements before they look at the
+    device, so before any launch and with no other launch shape."""
+    from euclider_tpu_torch.ops import probes as P
+    x = torch.zeros(n)
+    before = dict(P.MOSAIC_LAUNCHES)
+    with pytest.raises(ValueError, match="one cluster"):
+        if probe == "ckpt":
+            P.ckpt_scratch_cuda(x, 0.7, x)
+        else:
+            P.nested_march_cuda(x, 0.9, x)
+    assert dict(P.MOSAIC_LAUNCHES) == before
 
 
 def test_backward_wrappers_refuse_cpu_tensors():
