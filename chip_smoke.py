@@ -66,8 +66,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                (csrc/probe_march.cu, ops/march_probe.py) on the tool's and
                the crossing tile, and the Mosaic probes P2-P5
                (csrc/probe_mosaic.cu, ops/probes.py) on the mosaic tool's
-               tiles (P3 in both branches, P5 also dead, and live and dead
-               on 1000 elements), through the
+               tiles (P3 in both branches, also on 1000 elements; P5
+               also dead, and live and dead on 1000 elements), through the
                dispatchers: P1 (a thread-block cluster) every lane whose
                march agrees within
                1e-5 * max(max |ref|, 1) of the plain version, at most 1% of
@@ -76,13 +76,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                crossing on 25-75% of lanes with sum(d shape_vec) != 0,
                the tile's sum the same bits in two launches and on every
                lane, in march_probe.tile_sum's fixed order; P2-P5
-               within 1e-5 relative (P3 1e-6), P5 (a thread-block cluster)
-               the same bits in two launches; then the entry points python
+               within 1e-5 relative (P3 1e-6), each the same bits in two
+               launches (P3, one block, in both branches); then the entry
+               points python
                -m euclider_tpu_torch.tools.mosaic_probe and .march_bisect
                STAGE (every stage) as subprocesses: exit 0 and a launch of
                every kernel they cover; the probes' times and bounds,
-               P1's, P5's and P6's beside their tile's longest lane run
-               alone, P1's beside an empty kernel's.
+               P1's-P6's beside their tile's longest lane run alone, P1's
+               and P3's beside an empty kernel's.
  10. seg     - the segmented backward (K6, K7 in csrc/trace_seg.cu) and the
                lifted caps at 1280x720: config2 (the straight builds),
                config5 and config5 with smooth surfaces (the builds that
@@ -101,6 +102,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                device times on config2, config2_deep and config5 forced
                onto backward='segmented' (K6's and K7's march builds), K6
                beside trace_fwd's time on the same scene.
+ 11. viewer  - the viewer slice at 1280x720 on config1 and config5: a
+               scripted Simulation.run (--backend cuda) of 20 frames with
+               keys and mouse moves, trace_fwd launched once a frame and
+               nothing synchronising the device on the way, the flushed
+               last frame render_image_cuda's at the final camera to the
+               bit, frames before and after a move different; its steady
+               ms a frame and fps beside one render_image_cuda and one
+               synchronous render + .cpu(); render_orbit of 4 frames; the
+               CLI as subprocesses: --animate 3, --view --view-frames 3
+               (stdin not a tty), --time --profile-dir (the trace holds a
+               trace_fwd launch), --backend numpy and --backend oracle at
+               a small size, each exit 0.
 The second-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -346,11 +359,12 @@ def ground_truth(name, device, goldens):
 # --- phase 5 -----------------------------------------------------------------
 
 def run_together(cmds, timeout=600):
-    """The commands as subprocesses from the repository's root, all
-    started together (each spends seconds reaching the card) -> [(exit
-    code, stdout, stderr)] in order.  Every process is waited for, and
-    killed if waiting for any fails."""
-    procs = [subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
+    """The commands as subprocesses from the repository's root, stdin
+    empty, all started together (each spends seconds reaching the card)
+    -> [(exit code, stdout, stderr)] in order.  Every process is waited
+    for, and killed if waiting for any fails."""
+    procs = [subprocess.Popen(c, cwd=ROOT, stdin=subprocess.DEVNULL,
+                              stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for c in cmds]
     out = []
@@ -1159,13 +1173,14 @@ MOSAIC_BYTES = {"probe_ckpt": 12, "probe_cond": 16, "probe_nested": 12,
                 "probe_gated": 16}
 
 
-def mosaic_check(device, card):
+def mosaic_check(device, card, empty_ms):
     """P2-P5 on the card: the probes' path through the dispatchers on the
-    mosaic tool's tiles (P3 in both branches, P5 also dead; P2, P4 and P5
-    also on their first 1000 elements, P5 live and dead: a cluster whose
-    last block is part empty), each against its plain version; P2's, P4's
-    and P5's two launches give the same bits; then their times (P2's, P4's
-    and P5's beside one lane alone) -> the kernels' records."""
+    mosaic tool's tiles (P3 in both branches, P5 also dead; P2-P5 also on
+    their first 1000 elements, P3 in both branches, P5 live and dead: a
+    cluster or a block whose last warps are part empty), each against its
+    plain version; two launches of each give the same bits (P3 in both
+    branches); then their times (beside one lane alone, P3 also beside
+    ``empty_ms``, an empty kernel's) -> the kernels' records."""
     import torch
     from euclider_tpu_torch.ops import probes as P
 
@@ -1203,9 +1218,13 @@ def mosaic_check(device, card):
     for shift in (1.0, -1.0):
         x, g = tile(2, 1.0, shift), tile(3)
         cond_in[shift] = (x, g)
-        cases[f"cond{shift:+.0f}"] = ("probe_cond",
-                                      lambda x=x, g=g: P.cond_vjp(x, g),
-                                      lambda x=x, g=g: P.cond_plain(x, g))
+        for case, (xs, gs) in ((f"cond{shift:+.0f}", (x, g)),
+                               (f"cond{shift:+.0f}_1000",
+                                (x.reshape(-1)[:1000],
+                                 g.reshape(-1)[:1000]))):
+            cases[case] = ("probe_cond",
+                           lambda x=xs, g=gs: P.cond_vjp(x, g),
+                           lambda x=xs, g=gs: P.cond_plain(x, g))
     for k in P.MOSAIC_LAUNCHES:
         P.MOSAIC_LAUNCHES[k] = 0
     got = {case: call() for case, (_, call, _) in cases.items()}
@@ -1231,22 +1250,27 @@ def mosaic_check(device, card):
                               lambda: P.nested_march_cuda(x3, 0.9, g3)),
              "probe_gated": ("gated",
                              lambda: P.gated_march_cuda(x5, 0.8, g5))}
-    # P2, P4 and P5, one cluster each: a second launch gives the same bits
-    # (dw summed in a fixed order), dx against the plain version's (P4's
-    # and P5's one trip of autograd, doubled) in bits and units in the last
-    # place, and (lane_ms) one element alone: every lane walks the same
-    # steps
+    # P2, P4 and P5, one cluster each, and P3, one block: a second launch
+    # gives the same bits (dw and P3's branch summed in a fixed order; P3
+    # in both branches), dx against the plain version's (P4's and P5's one
+    # trip of autograd, doubled) in bits and units in the last place, and
+    # (lane_ms) one element alone: every lane walks the same steps
     lanes = {"probe_ckpt": lambda: P.ckpt_scratch_cuda(x0[0, :1], 0.7,
                                                        g0[0, :1]),
+             "probe_cond": lambda: P.cond_cuda(cond_in[1.0][0][0, :1],
+                                               cond_in[1.0][1][0, :1]),
              "probe_nested": lambda: P.nested_march_cuda(x3[0, :1], 0.9,
                                                          g3[0, :1]),
              "probe_gated": lambda: P.gated_march_cuda(x5[0, :1], 0.8,
                                                        g5[0, :1])}
-    cluster = {}
+    fixed = {}
     for name in lanes:
         case, kernel = timed[name]
         again = kernel()
         same = all(torch.equal(a, b) for a, b in zip(again, got[case]))
+        if name == "probe_cond":
+            same = same and all(torch.equal(a, b) for a, b in zip(
+                P.cond_cuda(*cond_in[-1.0]), got["cond-1"]))
         dx_bits, dx_ulps = {}, {}
         for c in (case, f"{case}_dead"):
             if c in cases:
@@ -1259,8 +1283,8 @@ def mosaic_check(device, card):
             f"plain version's bits {dx_bits}, units in the last place "
             f"{dx_ulps}")
         assert same, f"{name}'s sum is not fixed"
-        cluster[name] = {"fixed_bits": same, "dx_plain_bits": dx_bits,
-                         "dx_plain_ulps": dx_ulps}
+        fixed[name] = {"fixed_bits": same, "dx_plain_bits": dx_bits,
+                       "dx_plain_ulps": dx_ulps}
     records = []
     for name, (case, kernel) in timed.items():
         ms = device_ms(kernel, [f"{name}_kernel"])[f"{name}_kernel"]
@@ -1273,12 +1297,18 @@ def mosaic_check(device, card):
                         key=lambda t: t[0])
         say("time", f"{name}: {ms:.6f} ms, by CUDA events {events:.6f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound:.3g} ms ({by}) ({card})")
-        extra = cluster.get(name, {})
+        extra = fixed.get(name, {})
         if name in lanes:
             extra["lane_ms"] = device_ms(lanes[name], [f"{name}_kernel"])[
                 f"{name}_kernel"]
             say("time", f"{name} one lane alone: {extra['lane_ms']:.6f} ms "
                 f"({card})")
+        if name == "probe_cond":
+            extra["empty_ms"] = empty_ms
+            extra["ms_1000"] = device_ms(
+                cases["cond+1_1000"][1], [f"{name}_kernel"])[f"{name}_kernel"]
+            say("time", f"{name} on 1000 elements {extra['ms_1000']:.6f} ms; "
+                f"an empty kernel {empty_ms:.6f} ms ({card})")
         records.append({
             "name": name, "route": "cuda",
             "source": "euclider_tpu_torch/csrc/probe_mosaic.cu",
@@ -1571,6 +1601,196 @@ def seg_phase(device, card, times):
                                  vs_tape_smooth=tape["config5_smooth"])}}
 
 
+# --- phase 11 ----------------------------------------------------------------
+
+VIEWER_SCENES = ("config1_sphere_room", "config5_warp_portal")
+VIEWER_FRAMES = 20
+VIEWER_STEADY = 5         # frames past the loop's start: its steady state
+ORBIT_FRAMES = 4
+# a scripted session: keys at some frames (script(sim, i) runs before
+# step(i)), a mouse move every fourth
+VIEWER_KEYS = {2: "ww", 6: "l", 9: "ik", 12: "a", 15: "jj", 18: "s"}
+
+
+def viewer_script(sim, i):
+    if i in VIEWER_KEYS:
+        sim.handle_keys(VIEWER_KEYS[i])
+    if i % 4 == 3:
+        sim.mouse_look(2, -1)
+
+
+def viewer_frames(name, device, card, fwd_ms):
+    """One scripted Simulation.run of VIEWER_FRAMES frames through the
+    kernel at 1280x720: trace_fwd launched once a frame, nothing
+    synchronising the device on the way (torch's sync debug mode), the
+    flushed frame the bits of render_image_cuda at the final camera, the
+    frames before and after the first move different; then its steady
+    ms a frame beside one render_image_cuda and one synchronous render
+    plus .cpu() (CUDA events and the host's clock), the frame's copy into
+    pinned host memory alone and a step's host work alone."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from euclider_tpu_torch.ops import cuda_kernel
+    from euclider_tpu_torch.scene.compile import camera_to_torch
+    from euclider_tpu_torch.viewer.simulation import Simulation
+
+    kept = {}
+    sim = Simulation(build_scene(name), H, W, backend="cuda", device=device,
+                     on_frame=lambda img, i: kept.update({i: img.copy()})
+                     if i in (1, 4) else None)
+    torch.cuda.synchronize()
+    cuda_kernel.LAUNCHES = 0
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            last = sim.run(VIEWER_FRAMES, viewer_script)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    launches = cuda_kernel.LAUNCHES
+    syncs = [str(w.message) for w in syncs
+             if "called a synchronizing" in str(w.message)]
+    say("viewer", f"{name}: Simulation.run({VIEWER_FRAMES}) launched "
+        f"trace_fwd {launches} times; synchronising calls on the way: "
+        f"{len(syncs)} {syncs[:2]}")
+    assert launches == VIEWER_FRAMES, "a viewer frame skipped the kernel"
+    assert not syncs, "the viewer's frame loop synchronised the device"
+    static, tables = sim.static, sim.tables
+    cam = camera_to_torch(sim.cam, device)
+    ref = cuda_kernel.render_image_cuda(static, tables, cam, H, W)
+    ref = ref.cpu().numpy()
+    same = last.shape == (H, W, 3) and np.array_equal(last, ref)
+    moved = float(np.abs(kept[4] - kept[1]).max())
+    say("viewer", f"{name}: the flushed frame is render_image_cuda's at the "
+        f"final camera to the bit: {same}; frames 0 and 3 (before and after "
+        f"the first move) differ by up to {moved:.4f}")
+    assert same, "the viewer's last frame is not the kernel's render"
+    assert moved > 1e-3, "the camera's move did not change the frame"
+
+    steady = sim.frame_times[VIEWER_STEADY:]
+    frame_ms = statistics.median(steady) * 1e3
+    # a step's host work alone: each step after a synchronise, so the
+    # frame it returns is already on the host
+    idle = []
+    for i in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.step(i)
+        idle.append((time.perf_counter() - t0) * 1e3)
+    sim.flush()
+    step_host_ms = statistics.median(idle)
+
+    def render():
+        return cuda_kernel.render_image_cuda(static, tables, cam, H, W)
+
+    def render_and_copy():
+        return render().cpu()
+
+    frame = render()
+    pinned = torch.empty(frame.shape, dtype=frame.dtype, pin_memory=True)
+    render_ms = events_ms(render, device)
+    copy_ms = events_ms(lambda: pinned.copy_(frame, non_blocking=True),
+                        device)
+    sync_ms = events_ms(render_and_copy, device)
+    host = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        render_and_copy()
+        host.append((time.perf_counter() - t0) * 1e3)
+    sync_host_ms = statistics.median(host)
+    out = {"frames": VIEWER_FRAMES, "launches": launches,
+           "frame_ms": frame_ms, "frame_ms_min": min(steady) * 1e3,
+           "frame_ms_max": max(steady) * 1e3, "fps": sim.fps,
+           "steady_fps": 1e3 / frame_ms, "render_ms": render_ms,
+           "copy_ms": copy_ms, "step_host_ms": step_host_ms,
+           "trace_fwd_ms": fwd_ms, "sync_render_copy_ms": sync_ms,
+           "sync_render_copy_host_ms": sync_host_ms,
+           "frame_bytes": H * W * 3 * 4, "bits_equal": same,
+           "moved_max_abs": moved}
+    say("time", f"viewer {name}: {frame_ms:.4f} ms a frame (median of "
+        f"frames {VIEWER_STEADY}-{VIEWER_FRAMES - 1}, host clock; "
+        f"{out['frame_ms_min']:.4f}-{out['frame_ms_max']:.4f}), "
+        f"{out['steady_fps']:.1f} fps steady, {sim.fps:.1f} fps over the "
+        f"run; a step's host work alone {step_host_ms:.4f} ms; one "
+        f"render_image_cuda {render_ms:.4f} ms (CUDA events), "
+        f"trace_fwd {fwd_ms:.4f} ms; the frame's copy into pinned host "
+        f"memory {copy_ms:.4f} ms; a synchronous render + .cpu() "
+        f"{sync_ms:.4f} ms (CUDA events), {sync_host_ms:.4f} ms (host "
+        f"clock) ({card})")
+    return out
+
+
+def viewer_cli(tmp):
+    """The CLI's new paths as subprocesses, run together: --animate,
+    --view (stdin not a tty), --time with --profile-dir (the trace must
+    hold a trace_fwd launch), --backend numpy and --backend oracle at a
+    small size; each must exit 0."""
+    base = [sys.executable, "-m", "euclider_tpu_torch", "--scene",
+            VIEWER_SCENES[0]]
+    full = ["--size", f"{W}x{H}"]
+    prof = os.path.join(tmp, "prof")
+    runs = {
+        "animate": base + full + ["--backend", "cuda", "--animate", "3",
+                                  "--out", os.path.join(tmp, "anim.png")],
+        "view": base + full + ["--backend", "cuda", "--view",
+                               "--view-frames", "3"],
+        "time": base + full + ["--backend", "cuda", "--time",
+                               "--time-frames", "20", "--profile-dir", prof,
+                               "--out", os.path.join(tmp, "timed.png")],
+        "numpy": base + ["--size", "32x24", "--backend", "numpy", "--out",
+                         os.path.join(tmp, "numpy.png")],
+        "oracle": base + ["--size", "64x48", "--backend", "oracle", "--out",
+                          os.path.join(tmp, "oracle.png")]}
+    done = run_together(list(runs.values()))
+    for (what, cmd), (rc, out, err) in zip(runs.items(), done):
+        tail = out.strip().splitlines()[-1] if out.strip() else ""
+        say("viewer", f"CLI {' '.join(cmd[3:])}: exit {rc}; {tail[-160:]}")
+        assert rc == 0, f"CLI {what} failed:\n{out[-2000:]}{err[-2000:]}"
+    anim = sorted(f for f in os.listdir(tmp) if f.startswith("anim_"))
+    assert anim == [f"anim_{i:04d}.png" for i in range(3)], anim
+    time_out = done[list(runs).index("time")][1]
+    rec = json.loads([ln for ln in time_out.splitlines()
+                      if ln.startswith("{")][-1])
+    assert rec["frames"] == 20 and rec["mrays_per_s"] > 0, rec
+    traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    assert len(traces) == 1, traces
+    with open(os.path.join(prof, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "trace_fwd" in e.get("name", "")]
+    say("viewer", f"CLI --time --profile-dir: {traces[0]} holds "
+        f"{len(kernels)} trace_fwd launches; RenderMeter {rec}")
+    assert kernels, "the profile trace holds no trace_fwd launch"
+    return {"time_record": rec, "trace_fwd_in_trace": len(kernels)}
+
+
+def viewer_check(device, card, times):
+    """Phase 11: the viewer slice at 1280x720 -> {scene: the frame loop's
+    record}, its launches of trace_fwd and the CLI's record."""
+    import tempfile
+
+    from euclider_tpu_torch.ops import cuda_kernel
+    from euclider_tpu_torch.viewer.simulation import render_orbit
+
+    out = {name: viewer_frames(name, device, card,
+                               times[name]["fwd_device_ms"])
+           for name in VIEWER_SCENES}
+    with tempfile.TemporaryDirectory() as tmp:
+        before = cuda_kernel.LAUNCHES
+        paths = render_orbit(build_scene(VIEWER_SCENES[0]), H, W,
+                             ORBIT_FRAMES, os.path.join(tmp, "orbit.png"),
+                             backend="cuda", device=device)
+        orbit = cuda_kernel.LAUNCHES - before
+        assert len(paths) == ORBIT_FRAMES and orbit == ORBIT_FRAMES
+        assert all(os.path.getsize(p) > 1000 for p in paths)
+        say("viewer", f"render_orbit wrote {len(paths)} PNGs, trace_fwd "
+            f"launched {orbit} times")
+        cli = viewer_cli(tmp)
+    return out, {name: rec["launches"] for name, rec in out.items()}, cli
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1613,8 +1833,10 @@ def main() -> int:
     probe = probe_check(device, card)
     seg = seg_phase(device, card, times)
     march = march_probe_check(device, card)
-    mosaic = mosaic_check(device, card)
+    mosaic = mosaic_check(device, card, march["empty_ms"])
     probe_tools()
+    viewer, viewer_launches, viewer_cli_rec = viewer_check(device, card,
+                                                           times)
 
     gp, c2 = times["grad_probe"], times[SCENES[1]]
     record = [{
@@ -1628,10 +1850,13 @@ def main() -> int:
                   "H100: the march's side tests read a per-block table in "
                   "shared memory, and the builds that march launch warps of "
                   "8 x 4 pixels",
-        "launches": fwd_launches + train_launches["trace_fwd"],
+        "launches": (fwd_launches + train_launches["trace_fwd"]
+                     + sum(viewer_launches.values())),
         "launches_by_scene": {"render_path": fwd_by_scene,
                               "training_path":
-                              train_launches["trace_fwd_by_scene"]},
+                              train_launches["trace_fwd_by_scene"],
+                              "viewer_path": viewer_launches},
+        "viewer": viewer, "viewer_cli": viewer_cli_rec,
         "ptxas": ptxas("trace_fwd", "trace_fwd_shapes"),
         "max_abs_err": max(e[0] for e in errs.values()),
         "ms": c2["fwd_device_ms"], "plain_ms": c2["plain_frame_ms"],

@@ -20,12 +20,18 @@ parameters and the scene ``time``.
     cam = et.camera_to_torch(et.compile_camera(sc.camera), "cuda")
     img = et.render_image(static, tables, cam, 720, 1280)   # [720, 1280, 3]
     img = et.render_image_diff(static, tables, cam, 720, 1280)  # autograd
+
+The viewer (``viewer/simulation.py``: the frame loop, double-buffered to
+the host; ``viewer/terminal.py``: the terminal display), the camera's pose
+updates (``models/camera.py``) and the meters (``utils/profiling.py``)
+drive the same render.
 """
 from .scene import ir
 from .scene.compile import (CameraParams, SceneStatic, SceneTables,
                             camera_to_torch, compile_camera, compile_scene,
                             tables_to_torch)
 from .ops.cuda_bwd import render_image_diff
+from .ops.trace import render_rays
 from .scene.library import ACCEPTANCE, get_scene
 from .train.inverse import (InverseParams, make_fused_value_and_grad,
                             make_loss_fn, make_train_step)

@@ -33,19 +33,24 @@
 // marches.  P4's and P5's two trips have the same inputs (the tool's loop
 // takes jax.vjp of the same outer at the same x, w, g twice), so each
 // runs one and doubles it: in float 0 + t + t is 2 t exactly, the same
-// bits.  P3 does almost no work: one block of 256 threads, each walking
-// its elements in turn, its branch decided by a fixed reduction tree
-// (each thread sums its elements in order, warp shuffles, then the warps
-// in order; no atomics, so the sign of a sum near zero cannot change from
-// run to run).  Every result is deterministic.  Measured on the H100
-// (PERF.md §6) against the first design, one block of 256 threads walking
-// 4 elements each and both trips: P5 0.24x (one trip alone 0.51x), P2
-// 0.52x, P4 0.53x (one trip alone 0.85x), each within 1.1x of one element
-// run alone.  Not taken: for P5, 32 blocks of a warp whose last block adds
-// the partials in order (2% faster on the live tile, 3% slower on the dead
-// one, and its partials and counter are device-wide state in global
-// memory that two streams' launches would share), the chunk loops
-// unrolled (13% slower); for P2 and P4, cluster_sum (0.0006 ms slower).
+// bits.  P3 does almost no work: a lane a thread in one block of up to
+// 1024 threads (a cluster's launch costs more than the whole chain), x and
+// g held in registers across the tile's sum, so the tile is read once; its
+// branch is decided by a fixed butterfly sum (block_sum; no atomics, so
+// the sign of a sum near zero cannot change from run to run), and sincosf
+// takes sin and cos in one range reduction, without the 32 B stack frame
+// of sinf's and cosf's.  Every result is deterministic.  Measured on the
+// H100 (PERF.md §6) against the first design, one block of 256 threads
+// walking 4 elements each (P3 reading x twice) and both trips: P5 0.24x
+// (one trip alone 0.51x), P2 0.52x, P4 0.53x (one trip alone 0.85x), P3
+// 0.60x, each within 1.15x of one element run alone.  Not taken: for P5,
+// 32 blocks of a warp whose last block adds the partials in order (2%
+// faster on the live tile, 3% slower on the dead one, and its partials and
+// counter are device-wide state in global memory that two streams'
+// launches would share), the chunk loops unrolled (13% slower); for P2 and
+// P4, cluster_sum (0.0006 ms slower); for P3, 256 threads of 4 elements
+// in registers (1.13x, a 32 B stack), one cluster of 8 x 128 with
+// cluster_push_sum (1.4x), sincosf before the sum (1.07-1.27x).
 //
 // Built like trace_fwd.cu: nvcc -gencode arch=compute_90a,code=sm_90a
 // -std=c++17 -O3 -fmad=false, without --use_fast_math: every operation
@@ -61,7 +66,7 @@ constexpr int N_STEPS = 12;   // P4, P5: steps of the inner march
 constexpr int CB = 4;         // P4, P5: steps per chunk
 constexpr int NB = N_STEPS / CB;
 constexpr int TRIPS = 2;      // P4, P5: the outer loop's VJPs, accumulated
-constexpr int THREADS = 256;  // P3: threads of its one block
+constexpr int COND_LANES = 1024;  // P3: a lane a thread in its one block
 
 // x + 0.1 tanh(w x)
 __device__ __forceinline__ float step(float x, float w) {
@@ -127,8 +132,10 @@ __device__ void ckpt_element(float x, float w, float g, float* dx,
 __device__ __forceinline__ void cond_element(float x, float g, bool live,
                                              float* y, float* dx) {
     if (live) {
-        *y = x * 2.0f + sinf(x);
-        *dx = g * 2.0f + g * cosf(x);
+        float s, c;
+        sincosf(x, &s, &c);
+        *y = x * 2.0f + s;
+        *dx = g * 2.0f + g * c;
     } else {
         *y = x * 0.5f;
         *dx = g * 0.5f;
@@ -215,28 +222,34 @@ __device__ void gated_element(float x, float w, float g, bool live,
 
 // --- the kernels: P3 one block over the tile, P2, P4 and P5 one cluster ---
 
-// The block's sum of v in a fixed order (warp shuffles, then the warps in
-// order), the same value in every thread.
-__device__ float block_sum(float v) {
-    __shared__ float red[THREADS / 32];
+// The block's sum of v in a fixed order, the same bits in every thread: a
+// butterfly over each warp's lanes, then one over the warps' partials
+// from shared memory (float addition commutes, so the two partners of a
+// pair add the same bits); a warp past the block adds 0.
+__device__ __forceinline__ float block_sum(float v) {
+    __shared__ float red[COND_LANES / 32];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) red[threadIdx.x >> 5] = v;
     __syncthreads();
-    float s = 0.0f;
+    v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.0f;
 #pragma unroll
-    for (int k = 0; k < THREADS / 32; ++k) s += red[k];
-    return s;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// P3: element threadIdx.x; x and g stay in registers across the sum, so
+// the tile is read once.
+__global__ void __launch_bounds__(COND_LANES)
 probe_cond_kernel(const float* __restrict__ x, const float* __restrict__ g,
                   int n, float* __restrict__ y, float* __restrict__ dx) {
-    float part = 0.0f;
-    for (int i = threadIdx.x; i < n; i += THREADS) part += x[i];
-    const bool live = block_sum(part) > 0.0f;
-    for (int i = threadIdx.x; i < n; i += THREADS)
-        cond_element(x[i], g[i], live, y + i, dx + i);
+    const int i = threadIdx.x;
+    const bool in = i < n;
+    const float xi = in ? x[i] : 0.0f;
+    const float gi = in ? g[i] : 0.0f;
+    const bool live = block_sum(xi) > 0.0f;
+    if (in) cond_element(xi, gi, live, y + i, dx + i);
 }
 
 // P2, P4, P5: lane blockIdx.x * CLUSTER_THREADS + threadIdx.x of the tile;
@@ -299,8 +312,9 @@ extern "C" int euclider_probe_cond(const float* x, const float* g, int n,
                                    void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    if (n <= 0) return (int)cudaErrorInvalidValue;
-    probe_cond_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(x, g, n, y, dx);
+    if (n <= 0 || n > COND_LANES) return (int)cudaErrorInvalidValue;
+    const int threads = (n + 31) / 32 * 32;
+    probe_cond_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(x, g, n, y, dx);
     return (int)cudaGetLastError();
 }
 

@@ -43,10 +43,10 @@ taken every ``R_CB`` steps.  ``rev_march_vjp`` runs the kernel on CUDA
 tensors and the plain version on CPU tensors.
 
 The kernels of P2, P4, P5 and P6 run a lane a thread in one thread-block
-cluster (``csrc/probe_cluster.cuh``), so each takes at most ``MAX_LANES``
+cluster (``csrc/probe_cluster.cuh``), and P3's a lane a thread in one
+block of up to 1024 threads, so each takes at most ``MAX_LANES``
 elements, one (8, 128) tile, as the tool's kernels do; their wrappers
-refuse more (or none) with ``ValueError`` before any launch.  P3 takes any
-number in one block.
+refuse more (or none) with ``ValueError`` before any launch.
 """
 from __future__ import annotations
 
@@ -61,7 +61,8 @@ R_CB = 8
 R_H = 0.11
 
 LAUNCHES = 0         # launches of probe_rev made by rev_march_vjp
-MAX_LANES = 1024     # P2, P4-P6: a cluster of 8 blocks of 128 lanes
+MAX_LANES = 1024     # P2, P4-P6: a cluster of 8 blocks of 128 lanes;
+                     # P3: one block of 1024
 
 # P2-P5 (tools/mosaic_probe.py)
 K = 6                # P2: checkpoints
@@ -109,11 +110,12 @@ def _entry():
     return fn
 
 
-def _lanes(name, x):
-    """Refuse a tile that one cluster does not hold, before any launch."""
+def _lanes(name, x, holder="one cluster"):
+    """Refuse a tile that one cluster (P3: one block) does not hold, before
+    any launch."""
     if not 1 <= x.numel() <= MAX_LANES:
         raise ValueError(f"{x.numel()} elements; {name} takes 1 to "
-                         f"{MAX_LANES} (one cluster)")
+                         f"{MAX_LANES} ({holder})")
 
 
 def rev_march_cuda(x, w, g):
@@ -291,7 +293,9 @@ def ckpt_scratch_cuda(x, w, g):
 
 
 def cond_cuda(x, g):
-    """P3 through csrc/probe_mosaic.cu -> (y, dx); CUDA tensors only."""
+    """P3 through csrc/probe_mosaic.cu -> (y, dx); CUDA tensors of at most
+    MAX_LANES elements only (a lane a thread in one block)."""
+    _lanes("probe_cond", x, "one block")
     x, g = _on_card("probe_cond", x, g)
     y, dx = torch.empty_like(x), torch.empty_like(x)
     _launch("probe_cond", x.data_ptr(), g.data_ptr(), x.numel(),

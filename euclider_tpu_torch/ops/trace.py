@@ -455,3 +455,19 @@ def render_image(static, tables, cam, H: int, W: int, time=0.0, y0: int = 0,
     org, d = camera_rays(cam, xi, yi, W, H)
     r, g, b = trace_batch(static, tables, org, d, differentiable, time)
     return torch.stack([r, g, b], dim=-1)
+
+
+def render_rays(static, tables, cam, xi, yi, W: int, H: int,
+                differentiable: bool = False, time=0.0):
+    """Trace an arbitrary batch of pixel coordinates (sub-tile / sparse)
+    -> (r, g, b), each shaped like ``xi``, on the tables' device.
+
+    The counterpart of ``euclider_tpu/ops/trace.py::render_rays``, which
+    runs outside the Pallas kernel: ``camera_rays`` + ``trace_batch`` of
+    this plain version, on whatever device the tables are (no kernel takes
+    a sparse batch of pixels).  No viewer or CLI path calls it."""
+    dev = tables.surf_color.device
+    xi = torch.as_tensor(xi, dtype=torch.float32, device=dev)
+    yi = torch.as_tensor(yi, dtype=torch.float32, device=dev)
+    org, d = camera_rays(cam, xi, yi, W, H)
+    return trace_batch(static, tables, org, d, differentiable, time)

@@ -39,8 +39,9 @@ default):
   lane alone (``longest_lane``), and the tree's empty kernel of one warp
   (``march_probe.empty_cuda``, where the tree has one); the Mosaic probes
   P2-P5 (``probe_mosaic.cu``) on ``chip_smoke.py`` phase 9's tiles (P3 on
-  the live branch, P5 live, dead and ``gated_lane``: one lane alone, every
-  lane walking the same steps) and P6 (``probe_rev.cu``) on its tile and
+  both branches, ``cond`` and ``cond_dead``, on the first 1000 elements
+  and on one element alone, ``cond_lane``; P5 live, dead and
+  ``gated_lane``: one lane alone, every lane walking the same steps) and P6 (``probe_rev.cu``) on its tile and
   (``rev_lane``) on the lane that walks the most steps (``rev_steps``);
   P2 and P4 also on the tile's first 1000 elements (``ckpt_1000``,
   ``nested_1000``) and on one element alone (``ckpt_lane``,
@@ -239,6 +240,7 @@ def probe_calls(P, device) -> dict:
     tree's probes module P, on chip_smoke.py phase 9's tiles."""
     x0, g0 = seeded((8, 128), 0, device), seeded((8, 128), 1, device)
     x2, g2 = seeded((8, 128), 2, device) + 1.0, seeded((8, 128), 3, device)
+    xd = x2 - 2.0        # P3's dead branch: chip_smoke.py's shift of -1
     x3, g3 = seeded((8, 128), 3, device) * 0.3, seeded((8, 128), 4, device)
     x5, g5 = seeded((8, 128), 5, device) * 0.3, seeded((8, 128), 6, device)
     xr, gr = seeded((8, 128), 7, device) * 0.8, seeded((8, 128), 8, device)
@@ -252,6 +254,11 @@ def probe_calls(P, device) -> dict:
         "ckpt_lane": ("probe_ckpt_kernel", lambda: P.ckpt_scratch_cuda(
             x0.reshape(-1)[:1], 0.7, g0.reshape(-1)[:1])),
         "cond": ("probe_cond_kernel", lambda: P.cond_cuda(x2, g2)),
+        "cond_dead": ("probe_cond_kernel", lambda: P.cond_cuda(xd, g2)),
+        "cond_1000": ("probe_cond_kernel", lambda: P.cond_cuda(
+            x2.reshape(-1)[:1000], g2.reshape(-1)[:1000])),
+        "cond_lane": ("probe_cond_kernel", lambda: P.cond_cuda(
+            x2.reshape(-1)[:1], g2.reshape(-1)[:1])),
         "nested": ("probe_nested_kernel",
                    lambda: P.nested_march_cuda(x3, 0.9, g3)),
         "nested_1000": ("probe_nested_kernel", lambda: P.nested_march_cuda(

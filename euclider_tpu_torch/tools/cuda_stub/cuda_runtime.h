@@ -74,6 +74,7 @@ inline void __syncthreads() {}
 inline void __syncwarp(unsigned = 0xffffffffu) {}
 inline int __syncthreads_or(int p) { return p; }
 inline float __shfl_down_sync(unsigned, float v, int) { return v; }
+inline float __shfl_xor_sync(unsigned, float v, int) { return v; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }

@@ -1,7 +1,8 @@
 """The CUDA kernels (csrc/trace_fwd.cu, csrc/trace_bwd.cu, csrc/trace_seg.cu,
 csrc/probe_rev.cu, csrc/probe_mosaic.cu, csrc/probe_march.cu) against their
 plain torch versions (ops/trace.py, ops/vjp.py, ops/probes.py,
-ops/march_probe.py).
+ops/march_probe.py), and the viewer's frame loop (viewer/simulation.py)
+through the forward kernel.
 
 The card tests carry the ``cuda`` marker and skip without a CUDA device.
 This file imports neither jax nor the JAX package, so on the card (which has
@@ -681,26 +682,33 @@ MOSAIC_CASES = {   # tools/mosaic_probe.py's seeds, scales and w
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["ckpt", "ckpt_1000", "cond+1", "cond-1",
-                                  "nested", "nested_1000", "gated",
-                                  "gated_dead", "gated_1000",
+                                  "cond+1_1000", "cond-1_1000", "cond+1_1",
+                                  "cond-1_1", "nested", "nested_1000",
+                                  "gated", "gated_dead", "gated_1000",
                                   "gated_dead_1000"])
 def test_mosaic_probe_kernels_match_plain(cuda, case):
     """csrc/probe_mosaic.cu's kernels against the plain versions on the
     mosaic tool's tiles: within 1e-5 relative (P3 1e-6), one launch each;
-    P3 in both branches, P5 also on a dead tile; P2, P4 and P5 (P5 live and
+    P3 in both branches, also on the tile's first 1000 elements and on one
+    element alone, P5 also on a dead tile; P2, P4 and P5 (P5 live and
     dead) also on the tile's first 1000 elements (their cluster's last
-    block part empty); P2's, P4's and P5's second launch gives the same
-    bits (dw summed in the cluster's fixed order)."""
-    n = 1000 if case.endswith("_1000") else None
-    case = case.removesuffix("_1000")
+    block part empty); every probe's second launch gives the same bits
+    (P3's branch and P2's, P4's and P5's dw summed in a fixed order)."""
+    head, _, tail = case.rpartition("_")
+    n = int(tail) if head and tail.isdigit() else None
+    case = head if n is not None else case
     from euclider_tpu_torch.ops import probes as P
     if case.startswith("cond"):
         shift = 1.0 if case == "cond+1" else -1.0
         x = cotangent((8, 128), 2, cuda) + shift
         g = cotangent((8, 128), 3, cuda)
-        name, ref = "probe_cond", P.cond_plain(x, g)
+        if n is not None:
+            x, g = x.reshape(-1)[:n], g.reshape(-1)[:n]
+        name, w, extra = "probe_cond", None, ()
+        fn = lambda x, w, g: P.cond_vjp(x, g)  # noqa: E731
+        ref = P.cond_plain(x, g)
         before = P.MOSAIC_LAUNCHES[name]
-        got = P.cond_vjp(x, g)
+        got = fn(x, w, g)
         rtol = 1e-6
     else:
         sx, sg, scale, w = MOSAIC_CASES[case]
@@ -726,9 +734,8 @@ def test_mosaic_probe_kernels_match_plain(cuda, case):
     for a, b in zip(got, ref):
         assert float((a - b).abs().max()) <= rtol * max(
             float(b.abs().max()), 1e-30), (case, a, b)
-    if name != "probe_cond":
-        again = fn(x, w, g, *extra)
-        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    again = fn(x, w, g, *extra)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 # units in the last place by which a probe's dx may differ from the plain
@@ -893,21 +900,57 @@ def test_cluster_probe_wrappers_refuse_what_a_cluster_does_not_hold(n):
 
 
 @pytest.mark.parametrize("n", [0, 1025])
-@pytest.mark.parametrize("probe", ["ckpt", "nested"])
+@pytest.mark.parametrize("probe", ["ckpt", "nested", "cond"])
 def test_mosaic_cluster_wrappers_refuse_what_a_cluster_does_not_hold(probe,
                                                                      n):
-    """P2's and P4's wrappers, one cluster each like P5's, refuse an empty
-    tile and one of more than MAX_LANES elements before they look at the
-    device, so before any launch and with no other launch shape."""
+    """P2's and P4's wrappers, one cluster each like P5's, and P3's, one
+    block of up to MAX_LANES threads, refuse an empty tile and one of more
+    than MAX_LANES elements before they look at the device, so before any
+    launch and with no other launch shape."""
     from euclider_tpu_torch.ops import probes as P
     x = torch.zeros(n)
     before = dict(P.MOSAIC_LAUNCHES)
-    with pytest.raises(ValueError, match="one cluster"):
-        if probe == "ckpt":
-            P.ckpt_scratch_cuda(x, 0.7, x)
-        else:
-            P.nested_march_cuda(x, 0.9, x)
+    call = {"ckpt": lambda: P.ckpt_scratch_cuda(x, 0.7, x),
+            "nested": lambda: P.nested_march_cuda(x, 0.9, x),
+            "cond": lambda: P.cond_cuda(x, x)}[probe]
+    with pytest.raises(ValueError,
+                       match="one block" if probe == "cond" else "one cluster"):
+        call()
     assert dict(P.MOSAIC_LAUNCHES) == before
+
+
+@pytest.mark.cuda
+def test_viewer_frame_loop_is_the_kernel(cuda):
+    """viewer/simulation.py on the card, config1 at 64x128: a scripted run
+    of 6 frames launches trace_fwd once a frame without synchronising the
+    device (torch's sync debug mode), step(i) returns frame i - 1, and the
+    flushed frame is render_image_cuda's at the final camera to the bit."""
+    import warnings
+
+    import numpy as np
+    from euclider_tpu_torch.viewer.simulation import Simulation
+    sim = Simulation(ett.get_scene("config1_sphere_room"), 64, 128,
+                     backend="cuda", device=cuda)
+    first = sim.step(0).copy()
+    assert np.array_equal(sim.step(1), first)
+
+    def script(s, i):
+        s.handle_keys("wl" if i % 2 else "i")
+    before = cuda_kernel.LAUNCHES
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            last = sim.run(6, script)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert cuda_kernel.LAUNCHES == before + 6
+    assert not [w for w in caught
+                if "called a synchronizing" in str(w.message)]
+    ref = cuda_kernel.render_image_cuda(
+        sim.static, sim.tables, ett.camera_to_torch(sim.cam, cuda), 64, 128)
+    assert np.array_equal(last, ref.cpu().numpy())
+    assert np.abs(last - first).max() > 1e-3
 
 
 def test_backward_wrappers_refuse_cpu_tensors():

@@ -36,6 +36,11 @@ def test_package_imports_no_jax():
             "import euclider_tpu_torch.train.inverse\n"
             "import euclider_tpu_torch.train.fit\n"
             "import euclider_tpu_torch.utils.validate\n"
+            "import euclider_tpu_torch.utils.profiling\n"
+            "import euclider_tpu_torch.models.camera\n"
+            "import euclider_tpu_torch.viewer.simulation\n"
+            "import euclider_tpu_torch.viewer.terminal\n"
+            "import euclider_tpu_torch.oracle.cpu_oracle\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'jaxlib', 'euclider_tpu')]\n"
             "assert not bad, bad\n")
