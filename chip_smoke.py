@@ -114,6 +114,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                (stdin not a tty), --time --profile-dir (the trace holds a
                trace_fwd launch), --backend numpy and --backend oracle at
                a small size, each exit 0.
+ 12. dist    - multi-device rendering and training (parallel/,
+               train/inverse.py's mesh) at world size 1 over NCCL (one
+               card; NCCL takes no two ranks on one device), 1280x720:
+               render_image_sharded, gather_frame and host_gather_image on
+               config1, config2, config5 and config6 render_image_cuda's
+               bits; the sharded cuda-fused value and grad on grad_probe
+               and config5 train_step_cuda's bits, the sharded cuda one
+               render_image_diff + autograd's; trace_fwd and trace_bwd
+               launched on this path; the sharding tax (the sharded render
+               + gather and fused step beside the unsharded ones on config1
+               and grad_probe, CUDA events, median of 5, two turns each).
+               Then under python -m torch.distributed.run --standalone
+               --nproc_per_node 1, together: the trainer on grad_probe (the
+               example's 120 fused steps, its criterion of recovery,
+               trace_bwd once a step, a checkpoint that restores to the
+               bits of the same fit in this process) and
+               tools/dist_check.py on its five cases at 1280x720 (the frame
+               and the fused value and grad this process's unsharded bits,
+               replicate, three Adam steps, a checkpoint round trip).
 The second-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1791,6 +1810,237 @@ def viewer_check(device, card, times):
     return out, {name: rec["launches"] for name, rec in out.items()}, cli
 
 
+# --- phase 12 ----------------------------------------------------------------
+
+DIST_RENDER = ("config1_sphere_room", "config2_mirror_glass",
+               "config5_warp_portal", "config6_expr_space")
+DIST_TRAIN = ("grad_probe", "config5_warp_portal")
+DIST_TAX = ("config1_sphere_room", "grad_probe")
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def same_bits(a, b):
+    """Whether two trees of tensors hold the same leaves to the bit."""
+    import torch
+    from euclider_tpu_torch.utils.tree import leaves
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def unfused_reference(static, params, target):
+    """render_image_diff, the MSE and autograd of every leaf, unsharded ->
+    (loss, InverseParams of the gradients)."""
+    import torch
+    from euclider_tpu_torch.ops.cuda_bwd import render_image_diff
+    from euclider_tpu_torch.utils.tree import leaves, unflatten
+    xs = [t.detach().clone().requires_grad_(True) for t in leaves(params)]
+    p = unflatten(params, xs)
+    loss = torch.mean((render_image_diff(static, p.tables, p.cam, H, W)
+                       - target) ** 2)
+    gs = torch.autograd.grad(loss, xs, allow_unused=True)
+    return loss.detach(), unflatten(params, [
+        torch.zeros_like(x) if g is None else g for x, g in zip(xs, gs)])
+
+
+def dist_sharded(device):
+    """Phase 12 in this process, a process group of one rank over NCCL: the
+    sharded render, gather and fused and unfused value and grad against
+    their unsharded counterparts, to the bit -> (record, launches on the
+    sharded path)."""
+    import torch
+    import torch.distributed as dist
+    from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel
+    from euclider_tpu_torch.parallel import distributed as D
+    from euclider_tpu_torch.parallel.mesh import (gather_frame, make_mesh,
+                                                  render_image_sharded)
+    from euclider_tpu_torch.train.inverse import (InverseParams,
+                                                  make_fused_value_and_grad,
+                                                  shard_target)
+    assert D.initialize("cuda", f"tcp://127.0.0.1:{free_port()}", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl" and D.process_info() == (0, 1)
+        mesh = make_mesh()
+        scenes = {n: load(n, device) for n in DIST_RENDER + DIST_TRAIN}
+        target = seeded((H, W, 3), 12, device, "uniform")
+        # the unsharded counterparts first: their launches do not count
+        frames = {n: cuda_kernel.render_image_cuda(*scenes[n], H, W)
+                  for n in DIST_RENDER}
+        fused_ref = {n: cuda_bwd.train_step_cuda(*scenes[n], target, H, W)
+                     for n in DIST_TRAIN}
+        unfused_ref = {n: unfused_reference(
+            scenes[n][0], InverseParams(*scenes[n][1:]), target)
+            for n in DIST_TRAIN}
+        torch.cuda.synchronize()
+        cuda_kernel.LAUNCHES = cuda_bwd.LAUNCHES = 0
+        slabs = {n: render_image_sharded(*scenes[n], H, W, mesh)
+                 for n in DIST_RENDER}
+        gathered = {n: gather_frame(s, mesh) for n, s in slabs.items()}
+        hosts = {n: D.host_gather_image(s, mesh) for n, s in slabs.items()}
+        tgt = shard_target(target, mesh)
+        fused = {n: make_fused_value_and_grad(
+            scenes[n][0], H, W, "cuda-fused", mesh)(
+                InverseParams(*scenes[n][1:]), tgt) for n in DIST_TRAIN}
+        unfused = {n: make_fused_value_and_grad(
+            scenes[n][0], H, W, "cuda", mesh)(
+                InverseParams(*scenes[n][1:]), tgt) for n in DIST_TRAIN}
+        torch.cuda.synchronize()
+        launches = {"trace_fwd": cuda_kernel.LAUNCHES,
+                    "trace_bwd": cuda_bwd.LAUNCHES}
+        rec = {"render": {}, "fused": {}, "unfused": {},
+               "launches": launches}
+        for n in DIST_RENDER:
+            ref = frames[n]
+            rec["render"][n] = bits = (
+                torch.equal(slabs[n], ref) and torch.equal(gathered[n], ref)
+                and bool((hosts[n] == ref.cpu().numpy()).all()))
+            say("dist", f"{n}: render_image_sharded, gather_frame and "
+                f"host_gather_image at world size 1 over NCCL are "
+                f"render_image_cuda's bits: {bits}")
+        for n in DIST_TRAIN:
+            loss, gt, gc, _ = fused_ref[n]
+            rec["fused"][n] = bits = same_bits(fused[n], (loss, (gt, gc)))
+            say("dist", f"{n}: sharded cuda-fused loss "
+                f"{float(fused[n][0]):.6f} and gradients are "
+                f"train_step_cuda's bits: {bits}")
+            rec["unfused"][n] = bits = same_bits(unfused[n], unfused_ref[n])
+            say("dist", f"{n}: sharded cuda loss {float(unfused[n][0]):.6f} "
+                f"and gradients are render_image_diff + autograd's bits: "
+                f"{bits}")
+        say("dist", f"launches on the sharded path: {launches}")
+        assert all(all(v.values()) for k, v in rec.items()
+                   if k != "launches"), "sharded and unsharded differ"
+        assert launches["trace_fwd"] >= len(DIST_RENDER) + len(DIST_TRAIN)
+        assert launches["trace_bwd"] >= 2 * len(DIST_TRAIN)
+        rec["tax"] = sharding_tax(scenes, target, mesh, device)
+    finally:
+        dist.destroy_process_group()
+    return rec, launches
+
+
+def sharding_tax(scenes, target, mesh, device):
+    """ms of the sharded render + gather and fused step at world size 1
+    beside the unsharded ones (CUDA events, median of 5 after warm-up), in
+    turns unsharded, sharded, sharded, unsharded."""
+    from euclider_tpu_torch.ops.cuda_kernel import render_image_cuda
+    from euclider_tpu_torch.parallel.mesh import (gather_frame,
+                                                  render_image_sharded)
+    from euclider_tpu_torch.train.inverse import (InverseParams,
+                                                  make_fused_value_and_grad)
+    out = {}
+    for n in DIST_TAX:
+        static, tables, cam = scenes[n]
+        params = InverseParams(tables, cam)
+        calls = {
+            "render": lambda: render_image_cuda(static, tables, cam, H, W),
+            "render_sharded": lambda: gather_frame(render_image_sharded(
+                static, tables, cam, H, W, mesh), mesh),
+            "fused_step": lambda vg=make_fused_value_and_grad(
+                static, H, W, "cuda-fused"): vg(params, target),
+            "fused_step_sharded": lambda vg=make_fused_value_and_grad(
+                static, H, W, "cuda-fused", mesh): vg(params, target)}
+        got = {k: [] for k in calls}
+        for k in ("render", "render_sharded", "render_sharded", "render",
+                  "fused_step", "fused_step_sharded", "fused_step_sharded",
+                  "fused_step"):
+            got[k].append(events_ms(calls[k], device))
+        out[n] = got
+        say("dist", f"{n} sharding tax at world size 1, ms (two turns): "
+            + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f}"
+                        for k, v in got.items()))
+    return out
+
+
+def dist_processes(device, fit_params, tmp):
+    """Phase 12's torchrun runs, one rank each, together: the trainer on
+    grad_probe (120 fused steps, its checkpoint) and dist_check on every
+    case at 1280x720, each checked against this process's unsharded
+    calls (``fit_params``: the trainer's parameters in this process)."""
+    import numpy as np
+    import torch
+    from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel
+    from euclider_tpu_torch.tools.dist_check import CASES, named, problem
+    from euclider_tpu_torch.train.inverse import InverseParams
+    from euclider_tpu_torch.utils import checkpointing
+
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m"]
+    ckpt = os.path.join(tmp, "fit")
+    (rc, out, err), (rc2, out2, err2) = run_together([
+        run + ["euclider_tpu_torch.train.fit", "--scene", "grad_probe",
+               "--steps", str(EXAMPLE_STEPS), "--checkpoint", ckpt],
+        run + ["euclider_tpu_torch.tools.dist_check", "--device", "cuda",
+               "--size", f"{W}x{H}", "--out", tmp]], timeout=600)
+    assert rc == 0, f"the torchrun trainer failed:\n{out}{err}"
+    assert rc2 == 0, f"dist_check failed:\n{out2}{err2}"
+    lines = out.splitlines()
+    say("dist", "torchrun trainer: " + " | ".join(
+        l for l in lines if not l.startswith("step ")))
+    launches = next(l for l in lines if l.startswith("kernel launches"))
+    restored = checkpointing.restore(ckpt, fit_params)
+    trainer = {
+        "recovered": "(recovered:" in out, "one_rank": "1 rank(s)" in out,
+        "launches": launches.split(": ", 1)[1],
+        "checkpoint_restores": "parameters' bits: True" in out,
+        "checkpoint_is_in_process_fit": same_bits(restored, fit_params)}
+    say("dist", f"torchrun trainer {trainer}")
+    assert all(v for k, v in trainer.items() if k != "launches"), trainer
+    assert trainer["launches"] == str({"trace_fwd": 0, "trace_bwd":
+                                       EXAMPLE_STEPS, "trace_seg": 0})
+    res = dict(np.load(os.path.join(tmp, "rank0.npz")))
+    check = {}
+    f0, b0 = cuda_kernel.LAUNCHES, cuda_bwd.LAUNCHES
+    for case in CASES:
+        static, params, target, h, w = problem(case, device, (H, W))
+        frame = cuda_kernel.render_image_cuda(static, *params, h, w)
+        loss, gt, gc, _ = cuda_bwd.train_step_cuda(
+            static, *params, torch.from_numpy(target).to(device), h, w)
+        ok = {
+            "frame": np.array_equal(res[f"{case}/frame"],
+                                    frame.cpu().numpy()),
+            "fused": float(res[f"{case}/cuda-fused/loss"]) == float(loss)
+            and all(np.array_equal(res[f"{case}/cuda-fused/grad/{k}"],
+                                   v.cpu().numpy())
+                    for k, v in named(InverseParams(gt, gc)).items()),
+            **{k: bool(res[f"{case}/{k}"]) for k in (
+                "replicated", "checkpoint_bits", "uneven_raised")},
+            "steps_finite": bool(np.isfinite(
+                res[f"{case}/steps/loss"]).all())}
+        check[case] = ok
+        say("dist", f"dist_check {case} at {W}x{H}: {ok}")
+    cuda_kernel.LAUNCHES, cuda_bwd.LAUNCHES = f0, b0   # comparisons
+    assert all(all(v.values()) for v in check.values()), check
+    t = check["animated"] and (
+        float(res["animated/loss_t0"]) != float(res["animated/loss_t09"])
+        and float(res["animated/time_grad"]) != 0.0)
+    assert t, "the animated scene did not move with time"
+    return {"trainer": trainer, "dist_check": check}
+
+
+def dist_check(device, card):
+    """Phase 12 -> its record and its launches in this process."""
+    import contextlib
+    import io
+    import tempfile
+
+    from euclider_tpu_torch.train import fit
+    rec, launches = dist_sharded(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(io.StringIO()):   # its 120 steps
+            fit_params = fit.main(["--scene", "grad_probe", "--steps",
+                                   str(EXAMPLE_STEPS), "--checkpoint",
+                                   os.path.join(tmp, "in_process")])["params"]
+        rec.update(dist_processes(device, fit_params, tmp))
+    rec["card"] = card
+    return rec, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1837,6 +2087,7 @@ def main() -> int:
     probe_tools()
     viewer, viewer_launches, viewer_cli_rec = viewer_check(device, card,
                                                            times)
+    dist_rec, dist_launches = dist_check(device, card)
 
     gp, c2 = times["grad_probe"], times[SCENES[1]]
     record = [{
@@ -1851,12 +2102,14 @@ def main() -> int:
                   "shared memory, and the builds that march launch warps of "
                   "8 x 4 pixels",
         "launches": (fwd_launches + train_launches["trace_fwd"]
-                     + sum(viewer_launches.values())),
+                     + sum(viewer_launches.values())
+                     + dist_launches["trace_fwd"]),
         "launches_by_scene": {"render_path": fwd_by_scene,
                               "training_path":
                               train_launches["trace_fwd_by_scene"],
-                              "viewer_path": viewer_launches},
-        "viewer": viewer, "viewer_cli": viewer_cli_rec,
+                              "viewer_path": viewer_launches,
+                              "dist_path": dist_launches["trace_fwd"]},
+        "viewer": viewer, "viewer_cli": viewer_cli_rec, "dist": dist_rec,
         "ptxas": ptxas("trace_fwd", "trace_fwd_shapes"),
         "max_abs_err": max(e[0] for e in errs.values()),
         "ms": c2["fwd_device_ms"], "plain_ms": c2["plain_frame_ms"],
@@ -1886,9 +2139,10 @@ def main() -> int:
                   "H100: the gradient vector in the block's shared memory "
                   "where it fits, chosen by size (bwd_config), the march's "
                   "checkpoints recorded in the forward sweep",
-        "launches": train_launches["trace_bwd"],
+        "launches": train_launches["trace_bwd"] + dist_launches["trace_bwd"],
         "launches_by_scene": {"training_path":
-                              train_launches["trace_bwd_by_scene"]},
+                              train_launches["trace_bwd_by_scene"],
+                              "dist_path": dist_launches["trace_bwd"]},
         "max_abs_err": max(b["vjp_err"] for b in bwd.values()),
         "ms": gp["bwd_device_ms"], "plain_ms": bwd["grad_probe"]["plain_ms"],
         "bound_ms": gp["bwd_bound_ms"], "bound_by": gp["bwd_bound_by"],

@@ -24,12 +24,17 @@ parameters and the scene ``time``.
 The viewer (``viewer/simulation.py``: the frame loop, double-buffered to
 the host; ``viewer/terminal.py``: the terminal display), the camera's pose
 updates (``models/camera.py``) and the meters (``utils/profiling.py``)
-drive the same render.
+drive the same render.  ``parallel/`` shards the frame's rows over the
+ranks of a ``torch.distributed`` group (one process a device) for the
+render and the training step (``train/inverse.py``'s ``mesh``);
+``utils/checkpointing.py`` saves and restores parameters.  The plain
+render computes in the tables' dtype: ``cast_tables``/``cast_camera`` and
+``tables_to_torch(..., dtype=torch.float64)`` give the float64 path.
 """
 from .scene import ir
 from .scene.compile import (CameraParams, SceneStatic, SceneTables,
-                            camera_to_torch, compile_camera, compile_scene,
-                            tables_to_torch)
+                            camera_to_torch, cast_camera, cast_tables,
+                            compile_camera, compile_scene, tables_to_torch)
 from .ops.cuda_bwd import render_image_diff
 from .ops.trace import render_rays
 from .scene.library import ACCEPTANCE, get_scene

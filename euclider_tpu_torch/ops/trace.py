@@ -99,8 +99,9 @@ def make_accel(static, tables, mat_ids, time=0.0):
             wc = V.where(sel, Vec(row[0], row[1], row[2], row[3]), wc)
             ws = torch.where(sel, tables.mat_warp_strength[m], ws)
     expr_mats = [m for m, k in enumerate(static.mat_kinds) if k == "expr"]
-    lib = E.torch_lib(safe=True, device=dev) if expr_mats else None
-    # the time as a float32 tensor, as the kernels read it (cam_row[17])
+    lib = E.torch_lib(safe=True, device=dev, dtype=dt) if expr_mats else None
+    # the time as a tensor of the tables' dtype (the kernels read float32,
+    # cam_row[17])
     tm = torch.as_tensor(time, dtype=dt, device=dev)
 
     def accel(x: Vec) -> Vec:
@@ -442,15 +443,15 @@ def render_image(static, tables, cam, H: int, W: int, time=0.0, y0: int = 0,
                  rows: int | None = None,
                  differentiable: bool = False) -> torch.Tensor:
     """Render rows [y0, y0 + rows) of the H x W frame -> [rows or H, W, 3]
-    float32 on the tables' device.  The camera's NDC mapping stays the full
+    in the tables' dtype on their device.  The camera's NDC mapping stays the full
     frame's, so slabs tile the frame exactly.  ``time`` is the scene time
     of time-dependent (expression) materials, a float or a float32 tensor
     that autograd differentiates.  Pass ``differentiable=True`` when taking
     gradients (``trace_batch``)."""
-    dev = tables.surf_color.device
+    dev, dt = tables.surf_color.device, tables.surf_color.dtype
     R = H if rows is None else rows
-    yi = (torch.arange(R, dtype=torch.float32, device=dev) + float(y0))
-    xi = torch.arange(W, dtype=torch.float32, device=dev)
+    yi = (torch.arange(R, dtype=dt, device=dev) + float(y0))
+    xi = torch.arange(W, dtype=dt, device=dev)
     yi, xi = yi[:, None].expand(R, W), xi[None, :].expand(R, W)
     org, d = camera_rays(cam, xi, yi, W, H)
     r, g, b = trace_batch(static, tables, org, d, differentiable, time)
@@ -460,14 +461,15 @@ def render_image(static, tables, cam, H: int, W: int, time=0.0, y0: int = 0,
 def render_rays(static, tables, cam, xi, yi, W: int, H: int,
                 differentiable: bool = False, time=0.0):
     """Trace an arbitrary batch of pixel coordinates (sub-tile / sparse)
-    -> (r, g, b), each shaped like ``xi``, on the tables' device.
+    -> (r, g, b), each shaped like ``xi``, in the tables' dtype on their
+    device.
 
     The counterpart of ``euclider_tpu/ops/trace.py::render_rays``, which
     runs outside the Pallas kernel: ``camera_rays`` + ``trace_batch`` of
     this plain version, on whatever device the tables are (no kernel takes
     a sparse batch of pixels).  No viewer or CLI path calls it."""
-    dev = tables.surf_color.device
-    xi = torch.as_tensor(xi, dtype=torch.float32, device=dev)
-    yi = torch.as_tensor(yi, dtype=torch.float32, device=dev)
+    dev, dt = tables.surf_color.device, tables.surf_color.dtype
+    xi = torch.as_tensor(xi, dtype=dt, device=dev)
+    yi = torch.as_tensor(yi, dtype=dt, device=dev)
     org, d = camera_rays(cam, xi, yi, W, H)
     return trace_batch(static, tables, org, d, differentiable, time)

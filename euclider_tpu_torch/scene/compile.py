@@ -120,9 +120,10 @@ class CameraParams(NamedTuple):
 def cast_tables(tables: SceneTables, dtype) -> SceneTables:
     """Cast every float table to ``dtype`` (np.float32 / np.float64).
 
-    The lax render path derives its compute dtype from these arrays — the
-    CustomFloat f32/f64 genericity axis of the reference (SURVEY.md L0).
-    The CUDA kernel is f32-only."""
+    The plain render derives its compute dtype from these arrays (through
+    ``tables_to_torch(..., dtype=torch.float64)``) — the CustomFloat
+    f32/f64 genericity axis of the reference (SURVEY.md L0).  The CUDA
+    kernels are f32-only."""
     def cast(f):
         if isinstance(f, tuple):
             return tuple(np.asarray(x, dtype) for x in f)
@@ -360,23 +361,25 @@ def compile_scene(scene: ir.Scene) -> Tuple[SceneStatic, SceneTables]:
     return static, tables
 
 
-def _to_f32(a, device) -> torch.Tensor:
+def _to_torch(a, device, dtype) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
-        return a.detach().to(device=device, dtype=torch.float32)
-    return torch.tensor(np.asarray(a, np.float32), device=device)
+        return a.detach().to(device=device, dtype=dtype)
+    return torch.tensor(np.asarray(a), device=device, dtype=dtype)
 
 
-def tables_to_torch(tables, device) -> SceneTables:
+def tables_to_torch(tables, device, dtype=torch.float32) -> SceneTables:
     """SceneTables (numpy, from this package or euclider_tpu) -> the same
-    NamedTuple holding float32 tensors on ``device``."""
+    NamedTuple holding ``dtype`` tensors on ``device``.  The plain render
+    computes in the tables' dtype (float64 is the JAX package's x64 path);
+    the CUDA kernels take float32 only."""
     device = torch.device(device)
-    fields = {k: _to_f32(v, device) for k, v in tables._asdict().items()
-              if k != "textures"}
+    fields = {k: _to_torch(v, device, dtype)
+              for k, v in tables._asdict().items() if k != "textures"}
     return SceneTables(**fields, textures=tuple(
-        _to_f32(t, device) for t in tables.textures))
+        _to_torch(t, device, dtype) for t in tables.textures))
 
 
-def camera_to_torch(cam, device) -> CameraParams:
-    """CameraParams (numpy) -> float32 tensors on ``device``."""
+def camera_to_torch(cam, device, dtype=torch.float32) -> CameraParams:
+    """CameraParams (numpy) -> ``dtype`` tensors on ``device``."""
     device = torch.device(device)
-    return CameraParams(*(_to_f32(v, device) for v in cam))
+    return CameraParams(*(_to_torch(v, device, dtype) for v in cam))

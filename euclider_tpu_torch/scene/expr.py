@@ -280,14 +280,15 @@ def eval_ast(node: Ast, env: Dict[str, Any], lib):
     raise ExprError(f"bad AST node {node!r}")
 
 
-def torch_lib(safe: bool = False, device=None):
+def torch_lib(safe: bool = False, device=None, dtype=None):
     """Function library for batched torch evaluation: the port of
     ``jax_lib`` (the plain version's field, ``ops/trace.py::make_accel``).
 
     The arc family comes from ``ops/mathx.py`` (the polynomial, as lax and
     the CUDA kernels use), not ``torch.atan2``/``torch.asin``.  A function
-    applied to a Python float (a constant argument) computes in float32 on
-    ``device``, as jax does with a weak-typed float.  ``safe=True``
+    applied to a Python float (a constant argument) computes in ``dtype``
+    (float32 by default) on ``device``, as jax does with a weak-typed float
+    (float64 under its x64 flag).  ``safe=True``
     domain-guards sqrt, log, asin, acos and div with the double-where
     pattern of ``jax_lib(safe=True)``: the out-of-domain input is replaced
     before the primitive runs, so neither the value nor its gradient is
@@ -300,7 +301,7 @@ def torch_lib(safe: bool = False, device=None):
 
     def t(x):
         return (x if isinstance(x, torch.Tensor)
-                else torch.tensor(float(x), dtype=torch.float32,
+                else torch.tensor(float(x), dtype=dtype or torch.float32,
                                   device=device))
 
     def f1(fn):

@@ -966,3 +966,54 @@ def test_backward_wrappers_refuse_cpu_tensors():
         cuda_bwd.train_step_cuda(static, tables, cam, torch.zeros(8, 16, 3),
                                  8, 16)
     assert cuda_bwd.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_sharded_path_at_world_size_one_over_nccl(cuda):
+    """parallel/ and train/inverse.py's mesh on a process group of one rank
+    over NCCL: the sharded render and gather, and the sharded fused and
+    unfused value and grad, are their unsharded counterparts' bits."""
+    import socket
+
+    import torch.distributed as dist
+
+    from euclider_tpu_torch.ops import cuda_bwd
+    from euclider_tpu_torch.parallel import distributed as D
+    from euclider_tpu_torch.parallel.mesh import (gather_frame, make_mesh,
+                                                  render_image_sharded)
+    from euclider_tpu_torch.train.inverse import (InverseParams,
+                                                  make_fused_value_and_grad,
+                                                  shard_target)
+    from euclider_tpu_torch.utils.tree import leaves, unflatten
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert D.initialize("cuda", f"tcp://127.0.0.1:{port}", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh()
+        static, tables, cam = scene_on("grad_probe", cuda)
+        params = InverseParams(tables, cam)
+        target = cotangent((BH, BW, 3), 1, cuda).sigmoid()
+        ref = cuda_kernel.render_image_cuda(static, tables, cam, BH, BW)
+        slab = render_image_sharded(static, tables, cam, BH, BW, mesh)
+        assert torch.equal(slab, ref) and torch.equal(
+            gather_frame(slab, mesh), ref)
+        loss, gt, gc, _ = cuda_bwd.train_step_cuda(static, tables, cam,
+                                                   target, BH, BW)
+        got = make_fused_value_and_grad(static, BH, BW, "cuda-fused", mesh)(
+            params, shard_target(target, mesh))
+        assert all(torch.equal(a, b) for a, b in
+                   zip(leaves(got), leaves((loss, (gt, gc)))))
+        xs = [t.clone().requires_grad_(True) for t in leaves(params)]
+        p = unflatten(params, xs)
+        ref_loss = torch.mean((cuda_bwd.render_image_diff(
+            static, p.tables, p.cam, BH, BW) - target) ** 2)
+        ref_g = torch.autograd.grad(ref_loss, xs, allow_unused=True)
+        got = make_fused_value_and_grad(static, BH, BW, "cuda", mesh)(
+            params, shard_target(target, mesh))
+        assert torch.equal(got[0], ref_loss.detach())
+        assert all(torch.equal(a, torch.zeros_like(x) if b is None else b)
+                   for a, x, b in zip(leaves(got[1]), xs, ref_g))
+    finally:
+        dist.destroy_process_group()
