@@ -133,6 +133,29 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                tools/dist_check.py on its five cases at 1280x720 (the frame
                and the fused value and grad this process's unsharded bits,
                replicate, three Adam steps, a checkpoint round trip).
+ 13. limits  - the scenes past the kernels' old fixed limits
+               (tools/limit_scenes.py): config2_d24 and config2_d24_deep
+               (a stack of more than 16 slots; the tape and the segmented
+               backward), csg48 (48 shape nodes in one entity),
+               config6_long (328 VM instructions), config5_crowd (45
+               marching entities) and config5_fine (marches of more than
+               512 steps), each in the build of the capacities it needs,
+               built at first use in a thread from phase 2 on.  The plain
+               side of each scene runs in a process of its own
+               (--limit-reference), in two batches of processes started
+               together: its frame, its slab's count past the old limit,
+               its slab's vjp_blocked.  Then for each, in this process:
+               the 1280x720 frame through euclider_tpu_torch.render_image
+               (K1) by phase 3's rule; the 64-row slab's gradients through
+               the kernels route() picks, by phase 6's rule, and the fused
+               step against the unfused one; trace_fwd and the backward
+               kernel launched on this path; one fused training step of
+               config5_fine at 1280x720 (trace_bwd once); config5_fine
+               with smooth surfaces at 1024 and 2048 march steps on a
+               16-row slab by phase 6's rule, its warp parameters'
+               gradients nonzero (the march backward's drift from its
+               checkpoints); each build's ptxas lines, each kernel's
+               device time and bound.
 The second-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -143,6 +166,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -177,6 +201,26 @@ SLAB_ROWS = 64
 # phase 10: scenes past the tape's 63 nodes, and past 32 entities and 159
 # gradient entries, with the slab of each that phase 10 differentiates
 DEEP_SLABS = {"config2_deep": 328, "spheres48": 328}
+# phase 13: the scenes past the kernels' old fixed limits
+# (tools/limit_scenes.py), and the first row of the 64-row slab of each that
+# it differentiates: across the glass sphere's chains of internal
+# reflections, the arch, the expression region, the ring and the warp region
+LIMIT_SLABS = dict.fromkeys(("config2_d24", "config2_d24_deep", "csg48",
+                             "config6_long", "config5_crowd",
+                             "config5_fine"), 300)
+# config5_fine with smooth surfaces (on its own the warp's gradient is
+# zero almost everywhere) at other march lengths, on 16 rows from row 300:
+# the march backward's drift from its checkpoints
+DRIFT = {"config5_fine_smooth_1024": 1024, "config5_fine_smooth_2048": 2048}
+DRIFT_ROWS = 16
+LIMIT_REFERENCE = "--limit-reference"   # a reference process of phase 13
+# the reference processes in two batches, each under about 45 GiB of the
+# card at its peak (config5_fine's plain backward alone takes 24 GiB), the
+# longest (config5_fine, the 2048 steps' slab, config2_d24_deep) spread
+LIMIT_BATCHES = (("config5_fine", "config5_fine_smooth_2048", "config2_d24",
+                  "csg48", "config6_long"),
+                 ("config2_d24_deep", "config5_crowd",
+                  "config5_fine_smooth_1024"))
 SEG_RTOL = 1e-5                      # segmented against the tape kernel
 H, W = 720, 1280
 TOL, MAX_BAD = 1e-4, 1e-3            # kernel vs plain on the card
@@ -305,6 +349,17 @@ def build_scene(name):
                 reflectivity=0.3 if i % 2 else 0.0),
             name=f"ball{i}") for i in range(44))
         return replace(sc, name=name, entities=sc.entities + balls)
+    if name in DRIFT:
+        # config5_fine with smooth surfaces at another march length
+        sc = build_scene("config5_fine")
+        return replace(sc, name=name, entities=tuple(
+            replace(e, surface=ir.SmoothSurface(uv_scale=0.8))
+            if e.name in ("portal_marker", "backdrop_sphere", "floor")
+            else e for e in sc.entities), settings=replace(
+                sc.settings, march_steps=DRIFT[name]))
+    from euclider_tpu_torch.tools import limit_scenes
+    if name in limit_scenes.BUILDERS:
+        return limit_scenes.get_scene(name)
     if name in SMOOTH:
         sc = et.get_scene(SMOOTH[name])
         return replace(sc, entities=tuple(
@@ -764,49 +819,27 @@ def events_ms(fn, device, warm=3):
     return time_render(fn, device, 5)
 
 
-def node_count(static, tables, cam, y0=0, rows=H):
-    """Ray-tree nodes the forward shades at each pixel of rows [y0, y0 +
-    rows) (the primary node included), counted by driving the plain
-    version's loop -> [rows, W]."""
-    import torch
-    from euclider_tpu_torch.ops import trace
-    dev = tables.surf_color.device
-    yi = torch.arange(y0, y0 + rows, dtype=torch.float32,
-                      device=dev)[:, None].expand(rows, W)
-    xi = torch.arange(W, dtype=torch.float32,
-                      device=dev)[None, :].expand(rows, W)
-    org, d = trace.camera_rays(cam, xi, yi, W, H)
-    ar, ag, ab, slots, sp = trace.bounce_init(static, tables, org, d)
-    nodes = torch.ones((rows, W), dtype=torch.int32, device=dev)
-    if slots is not None:
-        body = trace.make_bounce_body(static, tables)
-        carry = (sp, ar, ag, ab, slots)
-        for _ in range(static.max_nodes - 1):
-            live = carry[0] > 0
-            if not bool(live.any()):
-                break
-            nodes += live.to(torch.int32)
-            carry = body(carry)
-    return nodes
-
-
-def march_count(static, tables, cam, y0=0, rows=H):
-    """node_count, plus the march's work that the plain render's data needs
-    and the entity each node hits: -> (nodes [rows, W], live march steps
-    summed over the frame, marched nodes, hits [n_ent]: nodes that hit
-    each entity).  Counted by wrapping the plain version's march step, its
-    node shading and its propagation for the length of the count."""
+def counted_render(static, tables, cam, y0=0, rows=H):
+    """The plain render of rows [y0, y0 + rows) and its work, counted by
+    wrapping the plain version's node shading, propagation and march step
+    for the length of the render, on the device (no synchronising call a
+    step) -> (image, ray-tree nodes shaded at each pixel [rows, W], the
+    primary node included; live march steps summed over the slab; marched
+    nodes; [nodes that hit each entity])."""
     import torch
     from euclider_tpu_torch.ops import march, trace
-    counts = {"steps": 0, "marches": 0}
-    hits = torch.zeros(len(static.entities), dtype=torch.int64,
-                       device=tables.surf_color.device)
+    dev = tables.surf_color.device
+    nodes = torch.zeros((rows, W), dtype=torch.int32, device=dev)
+    counts = {k: torch.zeros((), dtype=torch.int64, device=dev)
+              for k in ("steps", "marches")}
+    hits = torch.zeros(len(static.entities), dtype=torch.int64, device=dev)
     make_body = march.make_march_body
     shade_node, propagate = trace._shade_node, trace.propagate
     active = [None]
 
     def shading(*args, **kw):
         active[0] = args[7]          # _shade_node's `active`
+        nodes.add_(active[0].to(torch.int32))
         return shade_node(*args, **kw)
 
     def propagating(*args, **kw):
@@ -820,7 +853,7 @@ def march_count(static, tables, cam, y0=0, rows=H):
         first = [True]
 
         def step(carry):
-            live = int((~carry[2]).sum())
+            live = (~carry[2]).sum()
             counts["steps"] += live
             if first[0]:
                 counts["marches"] += live
@@ -832,11 +865,18 @@ def march_count(static, tables, cam, y0=0, rows=H):
     march.make_march_body = counting
     trace._shade_node, trace.propagate = shading, propagating
     try:
-        nodes = node_count(static, tables, cam, y0, rows)
+        img = trace.render_image(static, tables, cam, H, W, y0=y0, rows=rows)
     finally:
         march.make_march_body = make_body
         trace._shade_node, trace.propagate = shade_node, propagate
-    return nodes, counts["steps"], counts["marches"], hits.tolist()
+    return (img, nodes, int(counts["steps"]), int(counts["marches"]),
+            hits.tolist())
+
+
+def march_count(static, tables, cam, y0=0, rows=H):
+    """counted_render's work without its image -> (nodes [rows, W], live
+    march steps, marched nodes, hits [n_ent])."""
+    return counted_render(static, tables, cam, y0, rows)[1:]
 
 
 # FP32 operations of the kernels' code (trace_common.cuh), counted as one
@@ -889,8 +929,9 @@ def field_ops(static):
 
 
 def bound(static, nodes, backward, steps=0, marches=0, hits=(),
-          tex_bytes=0):
-    """Least time for the frame: the larger of the bytes (12 B/pixel: the
+          tex_bytes=0, pixels=H * W):
+    """Least time for the frame (or a slab of ``pixels``, the counts being
+    the slab's): the larger of the bytes (12 B/pixel: the
     image out, or the cotangent or target in; the textures read once) over
     HBM bandwidth and a lower bound on the FP32 operations over the FP32
     peak.  The operations count the camera ray, every straight node's
@@ -908,7 +949,7 @@ def bound(static, nodes, backward, steps=0, marches=0, hits=(),
                for leaf in G.leaves(e.shape))
     side = sum(side_ops(e.shape) for e in static.entities)
     step = MARCH_STEP_OPS - ATTRACTOR_OPS + field_ops(static)
-    ops = (H * W * CAMERA_OPS + nodes * MISS_OPS + (nodes - marches) * test
+    ops = (pixels * CAMERA_OPS + nodes * MISS_OPS + (nodes - marches) * test
            + steps * (step + side) + marches * BISECT_OPS)
     perlin = static.surf_perlin or (None,) * len(static.surf_kinds)
     for e, n in zip(static.entities, hits):
@@ -922,7 +963,7 @@ def bound(static, nodes, backward, steps=0, marches=0, hits=(),
     if backward:
         ops *= 2
     t_ops = ops / PEAK_FP32 * 1e3
-    t_bytes = (H * W * 12 + tex_bytes) / PEAK_BYTES * 1e3
+    t_bytes = (pixels * 12 + tex_bytes) / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
                                  else "bytes"), ops
 
@@ -1374,9 +1415,10 @@ SEG_KEYS = ["trace_seg_fwd_kernel", "trace_seg_bwd_kernel",
             "sum_partials_kernel"]
 
 
-def carry_traffic(static, tables, cam):
-    """Words of boundary carry the segmented kernels move over the frame on
-    this data, worked out from trace_seg.cu: K6 stores for every pixel and
+def carry_traffic(static, tables, cam, y0=0, rows=H):
+    """Words of boundary carry the segmented kernels move over rows [y0,
+    y0 + rows) of the frame on this data, worked out from trace_seg.cu: K6
+    stores for every pixel and
     chunk that starts with a nonempty stack the stack pointer and the 11
     words of each slot live at the chunk's start (counted by driving the
     plain version's loop), the 3 colour sums and the count of stored
@@ -1386,8 +1428,10 @@ def carry_traffic(static, tables, cam):
     from euclider_tpu_torch.ops import cuda_bwd, trace, vjp
     sizes = vjp.chunk_sizes(static.max_nodes)
     dev = tables.surf_color.device
-    yi = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
-    xi = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
+    yi = torch.arange(y0, y0 + rows, dtype=torch.float32,
+                      device=dev)[:, None].expand(rows, W)
+    xi = torch.arange(W, dtype=torch.float32,
+                      device=dev)[None, :].expand(rows, W)
     org, d = trace.camera_rays(cam, xi, yi, W, H)
     ar, ag, ab, slots, sp = trace.bounce_init(static, tables, org, d)
     live = chunks = 0
@@ -1401,8 +1445,8 @@ def carry_traffic(static, tables, cam):
                 if not bool((carry[0] > 0).any()):
                     break
                 carry = body(carry)
-    stored = chunks + cuda_bwd.SLOT_WORDS * live + 4 * H * W
-    return stored, stored + 3 * H * W
+    stored = chunks + cuda_bwd.SLOT_WORDS * live + 4 * rows * W
+    return stored, stored + 3 * rows * W
 
 
 def seg_vs_tape(name, device):
@@ -1618,6 +1662,319 @@ def seg_phase(device, card, times):
                                  trace_fwd_ms=c5["fwd_device_ms"],
                                  vs_tape=tape[WARP[0]],
                                  vs_tape_smooth=tape["config5_smooth"])}}
+
+
+# --- phase 13 ----------------------------------------------------------------
+
+def limit_kernels(static):
+    """The kernels a scene's render and backward take (route)."""
+    from euclider_tpu_torch.ops import cuda_bwd
+    return ("trace_fwd", "trace_bwd" if cuda_bwd.route(static) == "tape"
+            else "trace_seg")
+
+
+def start_limit_builds():
+    """Start building, in a thread, the libraries of phase 13's scenes past
+    the default builds, so that nvcc runs beside phases 3-12 -> a function
+    that waits for the builds and returns their names (raising what the
+    build raised)."""
+    import euclider_tpu_torch as et
+    from euclider_tpu_torch.ops import cuda_kernel
+    names = sorted({cuda_kernel.library(k, static)
+                    for static in (et.compile_scene(build_scene(n))[0]
+                                   for n in (*LIMIT_SLABS, *DRIFT))
+                    for k in limit_kernels(static)} - set(cuda_kernel.SOURCES))
+    out = {}
+
+    def run():
+        try:
+            out["libs"] = cuda_kernel.build(names)
+        except BaseException as e:   # re-raised by wait()
+            out["error"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in out:
+            raise out["error"]
+        return names
+
+    return wait
+
+
+def limit_slab(name):
+    """(y0, rows): the slab phase 13 differentiates of the scene."""
+    return (LIMIT_SLABS.get(name, 300),
+            SLAB_ROWS if name in LIMIT_SLABS else DRIFT_ROWS)
+
+
+def limit_reference(name, out):
+    """A reference process of phase 13 (``chip_smoke.py --limit-reference
+    NAME OUT``): the plain version's side of one scene, which is
+    launch-bound, run beside the other scenes' in processes of their own;
+    saved to OUT (torch.save): the frame and its work (counted_render),
+    not for a DRIFT scene; on the slab, the count past the old limit, the
+    slab's work, the cotangent (seeded, zero where the kernel's and the
+    plain forward differ and at seams: backward_check's), vjp_blocked's
+    gradient leaves under it and their time; the segmented kernels'
+    carry traffic where route takes them."""
+    import torch
+    from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel, vjp
+    from euclider_tpu_torch.tools import limit_scenes as LS
+    from euclider_tpu_torch.utils.validate import seams
+
+    device = torch.device("cuda", 0)
+    static, tables, cam = load(name, device)
+    y0, rows = limit_slab(name)
+    rec = {}
+    if name in LIMIT_SLABS:
+        t0 = time.perf_counter()
+        img, nodes, *work = counted_render(static, tables, cam)
+        torch.cuda.synchronize()
+        rec.update(frame=img.cpu(), frame_work=[int(nodes.sum()), *work],
+                   frame_ms=(time.perf_counter() - t0) * 1e3)
+        rec["count"] = LS.passed(name, static, tables, cam, H, W, y0, rows)
+    else:
+        steps = LS.march_lengths(static, tables, cam, H, W, y0, rows)
+        rec["count"] = {
+            "limit": "march checkpoints", "old": DRIFT[name] // 2,
+            "count": int((steps > DRIFT[name] // 2).sum()),
+            "what": f"marches longer than {DRIFT[name] // 2} steps",
+            "longest": int(steps.max()), "marches": int(steps.numel())}
+    plain, nodes, *work = counted_render(static, tables, cam, y0, rows)
+    rec["slab_work"] = [int(nodes.sum()), *work]
+    k1 = cuda_kernel.render_image_cuda(static, tables, cam, H, W, y0=y0,
+                                       rows=rows)
+    flips = (k1 - plain).abs().amax(-1) > TOL
+    keep = ~(flips | seams(plain, SMOOTH_TAU))
+    g = seeded((rows, W, 3), 0, device) * keep[..., None]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    ref = vjp.vjp_blocked(static, tables, cam, H, W, g, y0=y0, rows=rows)
+    torch.cuda.synchronize()
+    rec.update(g=g.cpu(), flips=int(flips.sum()),
+               masked=float((~keep).float().mean()),
+               ref=[(k, t.cpu()) for k, t in leaves(*ref[:2])],
+               ref_time=float(ref[2]),
+               plain_ms=(time.perf_counter() - t0) * 1e3,
+               plain_peak_gib=torch.cuda.max_memory_allocated(device)
+               / 2 ** 30)
+    if cuda_bwd.route(static) == "segmented":
+        rec["carry"] = carry_traffic(static, tables, cam, y0, rows)
+    torch.save(rec, out)
+
+
+def limit_references():
+    """The reference processes of phase 13, one a scene, each batch of
+    LIMIT_BATCHES started together -> {name: record}."""
+    import torch
+    tmp = os.path.join(ROOT, "euclider_tpu_torch", "build", "limit_refs")
+    os.makedirs(tmp, exist_ok=True)
+    refs = {}
+    for names in LIMIT_BATCHES:
+        outs = {n: os.path.join(tmp, f"{n}.pt") for n in names}
+        done = run_together([[sys.executable, os.path.abspath(__file__),
+                              LIMIT_REFERENCE, n, outs[n]] for n in names],
+                            timeout=900)
+        for n, (rc, out, err) in zip(names, done):
+            assert rc == 0, f"{n}: the reference process failed:\n{out}{err}"
+            refs[n] = torch.load(outs[n])
+    return refs
+
+
+def limit_scene(name, ref, device, card):
+    """Phase 13 for one scene, against its reference process's record:
+    the count past its old limit; the 1280x720 frame through
+    euclider_tpu_torch.render_image (K1) by phase 3's rule (not for a DRIFT
+    scene); the slab's vjp_cuda by phase 6's rule, through the kernels
+    route() picks, and train_step_cuda against trace_fwd + MSE + vjp_cuda
+    (backward_check's rules); the launches of this path; then the
+    kernels' device times and bounds -> its record."""
+    import torch
+    import euclider_tpu_torch as et
+    from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel
+    from euclider_tpu_torch.tools import limit_scenes as LS
+
+    static, tables, cam = load(name, device)
+    y0, rows = limit_slab(name)
+    fwd_k, bwd_k = limit_kernels(static)
+    libs = {k: cuda_kernel.library(k, static) for k in (fwd_k, bwd_k)}
+    count = ref["count"]
+    more = {k: v for k, v in count.items()
+            if k not in ("limit", "old", "count", "what")}
+    say("limits", f"{name}: {count['what']}: {count['count']} (old limit "
+        f"{count['old']}) on rows {y0}-{y0 + rows - 1} of {W}x{H}; {more}; "
+        f"capacities {dict(cuda_kernel.capacities(static))}, libraries "
+        f"{libs}, backward {cuda_bwd.route(static)}")
+    passed = LS.is_passed(count) if name in LIMIT_SLABS else count["count"] > 0
+    assert passed, f"{name}: the slab does not pass the old limit"
+    rec = {"libraries": libs, "capacities": dict(cuda_kernel.capacities(
+        static)), "route": cuda_bwd.route(static), "passed": count,
+        "plain_ms": ref["plain_ms"], "plain_peak_gib": ref["plain_peak_gib"]}
+    cuda_kernel.LAUNCHES = cuda_bwd.LAUNCHES = cuda_bwd.SEG_LAUNCHES = 0
+    if name in LIMIT_SLABS:
+        got = et.render_image(static, tables, cam, H, W)
+        torch.cuda.synchronize()
+        assert got.shape == (H, W, 3) and bool(torch.isfinite(got).all())
+        err = (got - ref["frame"].to(device)).abs().amax(dim=-1)
+        rec.update(max_abs_err=float(err.max()),
+                   bad_frac=float((err > TOL).float().mean()),
+                   plain_frame_ms=ref["frame_ms"])
+        say("limits", f"{name}: render_image {W}x{H} (K1) vs plain: "
+            f"max_abs_err={rec['max_abs_err']:.3e} bad_frac(>{TOL:g})="
+            f"{rec['bad_frac']:.6f} (limit {MAX_BAD:g})")
+        assert rec["bad_frac"] <= MAX_BAD, \
+            f"{name}: the kernel disagrees with the plain version"
+    g = ref["g"].to(device)
+    got = cuda_bwd.vjp_cuda(static, tables, cam, H, W, g, y0=y0, rows=rows)
+    worst = (0.0, "", 0.0)
+    for (k, a), (_, b) in zip(ref["ref"], leaves(*got[:2])):
+        a = a.to(device)
+        e = float((a.double() - b.double()).abs().max())
+        tol = GRAD_RTOL * max(float(a.abs().max()), 1.0)
+        worst = max(worst, (e / tol, k, e))
+        if k.startswith("mat_warp") and static.has_warp:
+            say("limits", f"{name}: {k} max|ref| {float(a.abs().max()):.4g}"
+                f" err {e:.4g} = {e / tol:.4f} of its tolerance")
+            rec[f"{k}_err_over_tol"] = e / tol
+            if name in DRIFT:
+                assert float(a.abs().max()) > 0, f"{name}: {k} is zero"
+    t_ratio = abs(float(got[2]) - ref["ref_time"]) / (
+        GRAD_RTOL * max(abs(ref["ref_time"]), 1.0))
+    rec.update(vjp_err_over_tol=worst[0], vjp_leaf=worst[1],
+               vjp_err=worst[2], time_err_over_tol=t_ratio,
+               masked_frac=ref["masked"])
+    say("limits", f"{name}: vjp_cuda vs vjp_blocked on rows {y0}-"
+        f"{y0 + rows - 1}, cotangent zero on {ref['masked']:.4f} of pixels "
+        f"({ref['flips']} branch flips + seams): worst leaf {worst[1]} err "
+        f"{worst[2]:.4g} = {worst[0]:.4f} of its tolerance; time "
+        f"{t_ratio:.4f}; plain backward {ref['plain_ms']:.1f} ms, peak "
+        f"{ref['plain_peak_gib']:.2f} GiB (beside the other scenes' "
+        "reference processes)")
+    assert worst[0] <= 1.0 and t_ratio <= 1.0, \
+        f"{name}: vjp_cuda disagrees with the plain backward"
+    target = seeded((rows, W, 3), 1, device, "uniform")
+    loss, gt, gc, _ = cuda_bwd.train_step_cuda(
+        static, tables, cam, target, H, W, y0=y0, rows=rows,
+        norm=1.0 / (rows * W * 3))
+    k1 = cuda_kernel.render_image_cuda(static, tables, cam, H, W, y0=y0,
+                                       rows=rows)
+    ref_loss = torch.mean((k1 - target) ** 2)
+    ref2 = cuda_bwd.vjp_cuda(static, tables, cam, H, W,
+                             2.0 * (k1 - target) / k1.numel(), y0=y0,
+                             rows=rows)
+    torch.cuda.synchronize()
+    lrel = abs(float(loss) - float(ref_loss)) / float(ref_loss)
+    ratio2, leaf2, _ = grads_err(ref2[:2], (gt, gc))
+    rec.update(fused_loss_rel=lrel, fused_err_over_tol=ratio2)
+    say("limits", f"{name}: train_step_cuda vs trace_fwd + MSE + vjp_cuda: "
+        f"loss rel {lrel:.2e} (limit {LOSS_RTOL:g}); worst leaf {leaf2} = "
+        f"{ratio2:.3f} of its tolerance")
+    assert lrel <= LOSS_RTOL and ratio2 <= 1.0, \
+        f"{name}: the fused step disagrees"
+    rec["launches"] = {"trace_fwd": cuda_kernel.LAUNCHES,
+                       "trace_bwd": cuda_bwd.LAUNCHES,
+                       "trace_seg": cuda_bwd.SEG_LAUNCHES}
+    say("limits", f"{name}: launches on this path {rec['launches']}")
+    assert rec["launches"][fwd_k] >= 1 and rec["launches"][bwd_k] >= 3, \
+        f"{name}: a kernel of its path was not launched"
+    assert rec["launches"][{"trace_bwd": "trace_seg",
+                            "trace_seg": "trace_bwd"}[bwd_k]] == 0
+
+    # device times and bounds, after the path's launches were read
+    keys = ["trace_bwd_kernel"] if bwd_k == "trace_bwd" else SEG_KEYS
+    dev = device_ms(lambda: cuda_bwd.vjp_cuda(static, tables, cam, H, W, g,
+                                              y0=y0, rows=rows), keys)
+    rec["bwd_device_ms"] = sum(v or 0.0 for v in dev.values())
+    rec["bwd_device_ms_by_kernel"] = dev
+    nodes, steps, marches, hits = ref["slab_work"]
+    rec["bwd_bound_ms"], rec["bwd_bound_by"], ops = bound(
+        static, nodes, True, steps, marches, hits, pixels=rows * W)
+    if bwd_k == "trace_seg":
+        # K6 and K7: each the larger of its operations (the forward's half
+        # of the backward's count, and all of it) and its carry's bytes
+        stored, loaded = ref["carry"]
+        k6 = max(ops / 2 / PEAK_FP32, 4 * stored / PEAK_BYTES) * 1e3
+        k7 = max(ops / PEAK_FP32, 4 * loaded / PEAK_BYTES) * 1e3
+        rec["bwd_bound_ms"] = k6 + k7
+    if name in LIMIT_SLABS:
+        rec["fwd_device_ms"] = device_ms(
+            lambda: cuda_kernel.render_image_cuda(static, tables, cam, H, W),
+            ["trace_fwd_kernel"])["trace_fwd_kernel"]
+        nodes, steps, marches, hits = ref["frame_work"]
+        rec["fwd_bound_ms"], rec["fwd_bound_by"], _ = bound(
+            static, nodes, False, steps, marches, hits)
+        say("time", f"{name} trace_fwd ({libs[fwd_k]}) {W}x{H}: "
+            f"{rec['fwd_device_ms']:.4f} ms, bound {rec['fwd_bound_ms']:.4f}"
+            f" ms ({rec['fwd_bound_by']}), plain {rec['plain_frame_ms']:.1f}"
+            f" ms ({card})")
+    say("time", f"{name} {bwd_k} ({libs[bwd_k]}) vjp of rows {y0}-"
+        f"{y0 + rows - 1}: {rec['bwd_device_ms']:.4f} ms {dev}, bound "
+        f"{rec['bwd_bound_ms']:.4f} ms, plain {ref['plain_ms']:.1f} ms "
+        f"({card})")
+    return rec
+
+
+def fine_training(device, card):
+    """One fused training step of config5_fine at 1280x720 through
+    train/inverse.py (make_fused_value_and_grad 'cuda-fused'): a finite
+    loss and gradients, trace_bwd launched once -> its record."""
+    import torch
+    from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel
+    from euclider_tpu_torch.train.inverse import (InverseParams,
+                                                  make_fused_value_and_grad)
+    static, tables, cam = load("config5_fine", device)
+    target = seeded((H, W, 3), 9, device, "uniform")
+    step = make_fused_value_and_grad(static, H, W, "cuda-fused")
+    params = InverseParams(tables, cam)
+    cuda_kernel.LAUNCHES = cuda_bwd.LAUNCHES = cuda_bwd.SEG_LAUNCHES = 0
+    loss, grads = step(params, target)
+    torch.cuda.synchronize()
+    launches = {"trace_fwd": cuda_kernel.LAUNCHES,
+                "trace_bwd": cuda_bwd.LAUNCHES,
+                "trace_seg": cuda_bwd.SEG_LAUNCHES}
+    finite = all(bool(torch.isfinite(t).all())
+                 for _, t in leaves(grads.tables, grads.cam))
+    ms = events_ms(lambda: step(params, target), device)
+    say("limits", f"config5_fine: one fused training step at {W}x{H}: loss "
+        f"{float(loss):.6f}, gradients finite {finite}, launches "
+        f"{launches}; {ms:.3f} ms a step ({card})")
+    assert launches == {"trace_fwd": 0, "trace_bwd": 1, "trace_seg": 0}
+    assert finite and float(loss) == float(loss)
+    return {"loss": float(loss), "launches": launches, "step_ms": ms}
+
+
+def limits_phase(device, card, wait_builds):
+    """Phase 13 -> {scene: record}, the training step's, the wide builds'
+    ptxas lines and the launches of the phase's path."""
+    from euclider_tpu_torch.ops import cuda_kernel
+    t0 = time.perf_counter()
+    libs = wait_builds()
+    say("limits", f"wider builds {libs} ready "
+        f"{time.perf_counter() - t0:.1f} s after the phase began")
+    for lib in libs:
+        for line in cuda_kernel.PTXAS.get(lib, []):
+            say("build", f"{lib}: {line}")
+    names = (*LIMIT_SLABS, *DRIFT)
+    assert sorted(names) == sorted(sum(LIMIT_BATCHES, ()))
+    t1 = time.perf_counter()
+    refs = limit_references()
+    say("limits", f"the plain references of {len(names)} scenes, one "
+        f"process each in {len(LIMIT_BATCHES)} batches: "
+        f"{time.perf_counter() - t1:.1f} s")
+    out = {name: limit_scene(name, refs[name], device, card)
+           for name in names}
+    training = fine_training(device, card)
+    launches = {k: sum(r["launches"][k] for r in out.values())
+                + training["launches"][k]
+                for k in ("trace_fwd", "trace_bwd", "trace_seg")}
+    say("limits", f"launches on the limits path {launches}; phase 13 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"scenes": out, "training": training, "launches": launches,
+            "ptxas": ptxas(*libs)}
 
 
 # --- phase 11 ----------------------------------------------------------------
@@ -2048,6 +2405,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == [LIMIT_REFERENCE]:
+        limit_reference(*sys.argv[2:4])
+        return 0
     import numpy as np
     from euclider_tpu_torch.ops import cuda_kernel
 
@@ -2067,6 +2427,7 @@ def main() -> int:
     for name, lines in cuda_kernel.PTXAS.items():
         for line in lines:
             say("build", f"{name}: {line}")
+    wait_limit_builds = start_limit_builds()
 
     errs = {name: kernel_vs_plain(name, device)
             for name in SCENES + PROBES + WARP + EXPR + SHAPES}
@@ -2088,6 +2449,8 @@ def main() -> int:
     viewer, viewer_launches, viewer_cli_rec = viewer_check(device, card,
                                                            times)
     dist_rec, dist_launches = dist_check(device, card)
+    limits = limits_phase(device, card, wait_limit_builds)
+    lim = limits["scenes"]
 
     gp, c2 = times["grad_probe"], times[SCENES[1]]
     record = [{
@@ -2103,12 +2466,21 @@ def main() -> int:
                   "8 x 4 pixels",
         "launches": (fwd_launches + train_launches["trace_fwd"]
                      + sum(viewer_launches.values())
-                     + dist_launches["trace_fwd"]),
+                     + dist_launches["trace_fwd"]
+                     + limits["launches"]["trace_fwd"]),
         "launches_by_scene": {"render_path": fwd_by_scene,
                               "training_path":
                               train_launches["trace_fwd_by_scene"],
                               "viewer_path": viewer_launches,
-                              "dist_path": dist_launches["trace_fwd"]},
+                              "dist_path": dist_launches["trace_fwd"],
+                              "limits_path": {
+                                  n: r["launches"]["trace_fwd"]
+                                  for n, r in lim.items()}},
+        "limits": {n: {k: r.get(k) for k in (
+            "libraries", "capacities", "passed", "max_abs_err", "bad_frac",
+            "fwd_device_ms", "fwd_bound_ms", "fwd_bound_by",
+            "plain_frame_ms")} for n, r in lim.items() if n in LIMIT_SLABS},
+        "limits_ptxas": limits["ptxas"],
         "viewer": viewer, "viewer_cli": viewer_cli_rec, "dist": dist_rec,
         "ptxas": ptxas("trace_fwd", "trace_fwd_shapes"),
         "max_abs_err": max(e[0] for e in errs.values()),
@@ -2139,10 +2511,16 @@ def main() -> int:
                   "H100: the gradient vector in the block's shared memory "
                   "where it fits, chosen by size (bwd_config), the march's "
                   "checkpoints recorded in the forward sweep",
-        "launches": train_launches["trace_bwd"] + dist_launches["trace_bwd"],
+        "launches": (train_launches["trace_bwd"] + dist_launches["trace_bwd"]
+                     + limits["launches"]["trace_bwd"]),
         "launches_by_scene": {"training_path":
                               train_launches["trace_bwd_by_scene"],
-                              "dist_path": dist_launches["trace_bwd"]},
+                              "dist_path": dist_launches["trace_bwd"],
+                              "limits_path": {
+                                  n: r["launches"]["trace_bwd"]
+                                  for n, r in lim.items()}},
+        "limits": {n: r for n, r in lim.items() if r["route"] == "tape"},
+        "limits_training": limits["training"],
         "max_abs_err": max(b["vjp_err"] for b in bwd.values()),
         "ms": gp["bwd_device_ms"], "plain_ms": bwd["grad_probe"]["plain_ms"],
         "bound_ms": gp["bwd_bound_ms"], "bound_by": gp["bwd_bound_by"],
@@ -2166,6 +2544,10 @@ def main() -> int:
                                  "fixed_bits", "steps_per_element")}},
         seg, march,
         *mosaic]
+    seg["launches"] += limits["launches"]["trace_seg"]
+    seg["launches_by_scene"]["limits_path"] = {
+        n: r["launches"]["trace_seg"] for n, r in lim.items()}
+    seg["limits"] = {n: r for n, r in lim.items() if r["route"] != "tape"}
     for rec in record:
         keys = SEG_KEYS if rec["name"] == "trace_seg" else [
             rec["name"] + "_kernel"]

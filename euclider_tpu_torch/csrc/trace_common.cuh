@@ -16,15 +16,16 @@
 // them (union, intersection, difference, symdiff, complement); uniform,
 // checker, smooth, perlin and texture surfaces; vacuum, dielectric,
 // attractor ('warp') and expression ('expr') materials, whose rays march
-// (ops/march.py); portals.  The Python wrappers refuse only scenes beyond
-// the kernels' fixed limits (stack depth, entities in the builds that
-// march, nodes per entity, VM length, texture size) before launching.
+// (ops/march.py); portals.  The Python wrappers refuse only a texture
+// beyond the kernels' texel coordinates before launching; a scene past a
+// capacity of the default build takes a wider build (below).
 //
 // A CSG entity's shape tree is one post-order range of nodes
 // [ent_first, ent_root]; membership is one pass over it with one bit per
-// node (no recursion).  A leaf's crossing is a boundary of the composite
-// where membership flips between t - PROBE and t + PROBE, probed with
-// uncontracted arithmetic as the plain version computes the probe points.
+// node (no recursion), in the words of a Bits.  A leaf's crossing is a
+// boundary of the composite where membership flips between t - PROBE and
+// t + PROBE, probed with uncontracted arithmetic as the plain version
+// computes the probe points.
 // The perlin lattice hash is native uint32 wraparound; the lattice and
 // texel coordinates, whose floorf decides a discrete cell, are uncontracted
 // too.  A texture is sampled by gathering its four texels from global
@@ -52,9 +53,9 @@
 // kernel that marches therefore stages a side table (per entity: the root's
 // kind, centre or normal row and scalar) into the block's shared memory
 // once (stage_sides), and side() and bisect() read it: the same values in
-// the same arithmetic, so every result keeps its bits.  The table is why
-// the builds that march take at most MAX_MARCH_ENTITIES entities (with
-// the side mask's bit each).
+// the same arithmetic, so every result keeps its bits.  A build of more
+// than SIDE_TABLE_MAX entities reads each row from the scene's arrays
+// instead (side_row), so that no block's shared memory limits a scene.
 //
 // Six builds of every kernel (the template parameter kB, a set of BUILD_*
 // bits): straight space, + the march with the attractor field and the
@@ -72,6 +73,17 @@
 // config3's pixels moved past 1e-4 and perlin_probe's camera gradient past
 // its tolerance, and deep mirror-glass trees moved pixels of config2,
 // grad_probe and fresnel_probe (PERF.md §6), hence -fmad=false everywhere.
+//
+// Five capacities size a thread's arrays: the DFS stack's slots, the shape
+// nodes of one entity (membership's bits), the VM instructions of one
+// material (its values), the entities of a marching scene (the side
+// masks' bits and the side table) and the march checkpoints of the
+// backward (MarchTape).  Each is a compile-time parameter of the build,
+// today's value unless the library is built with -DTRACE_MAX_* (the
+// macros below): a scene past one takes, at first use, a build whose
+// capacity is the next power of two that holds it
+// (ops/cuda_kernel.py::capacities), so the default builds stay exactly as
+// they were and only a wider scene pays for its wider arrays.
 
 #pragma once
 
@@ -80,10 +92,28 @@
 
 namespace trace {
 
-constexpr int MAX_SLOTS = 16;     // DFS stack capacity (max_depth + 1 <= 16)
-constexpr int MAX_EXPR = 128;     // VM instructions of one material's field
-constexpr int MAX_NODES = 32;     // shape nodes of one entity: a bit each
-constexpr int MAX_MARCH_ENTITIES = 32;  // the march's side mask: a bit each
+#ifndef TRACE_MAX_SLOTS
+#define TRACE_MAX_SLOTS 16
+#endif
+#ifndef TRACE_MAX_EXPR
+#define TRACE_MAX_EXPR 128
+#endif
+#ifndef TRACE_MAX_NODES
+#define TRACE_MAX_NODES 32
+#endif
+#ifndef TRACE_MAX_MARCH_ENTITIES
+#define TRACE_MAX_MARCH_ENTITIES 32
+#endif
+#ifndef TRACE_MAX_MARCH_CK
+#define TRACE_MAX_MARCH_CK 32
+#endif
+constexpr int MAX_SLOTS = TRACE_MAX_SLOTS;  // DFS stack: max_depth + 1 slots
+constexpr int MAX_EXPR = TRACE_MAX_EXPR;    // VM instructions of a material
+constexpr int MAX_NODES = TRACE_MAX_NODES;  // shape nodes of one entity
+// a marching scene's entities: a side bit each
+constexpr int MAX_MARCH_ENTITIES = TRACE_MAX_MARCH_ENTITIES;
+// the most entities whose side table a block stages in shared memory (32 KB)
+constexpr int SIDE_TABLE_MAX = 1024;
 constexpr float PROBE = 2e-4f;    // CSG membership probe offset
 constexpr float EPS_T = 1e-4f;    // minimum accepted hit distance
 constexpr float PUSH = 1e-3f;     // offset of a secondary ray's origin
@@ -375,6 +405,58 @@ __device__ __forceinline__ void tangent_frame(V4 n, int dim, V4* t1, V4* t2) {
     *t2 = normalize(madd(t, -dot(*t1, t), *t1));
 }
 
+// One bit for each of kW * 32 items: bit k in word k / 32 (get: 0 or 1).
+// One word is a plain uint32_t (no division, no array), and the default
+// builds' expressions on it are the old single-word code's.
+template <int kW>
+struct Bits {
+    uint32_t w[kW];
+    __device__ __forceinline__ void clear() {
+        for (int i = 0; i < kW; ++i) w[i] = 0u;
+    }
+    __device__ __forceinline__ uint32_t get(int k) const {
+        return w[k >> 5] >> (k & 31) & 1u;
+    }
+    __device__ __forceinline__ void put(int k, bool v) {
+        w[k >> 5] |= (uint32_t)v << (k & 31);
+    }
+    __device__ __forceinline__ bool differs(const Bits& o) const {
+        for (int i = 0; i < kW; ++i)
+            if (w[i] != o.w[i]) return true;
+        return false;
+    }
+    __device__ __forceinline__ bool any() const {
+        for (int i = 0; i < kW; ++i)
+            if (w[i]) return true;
+        return false;
+    }
+    __device__ __forceinline__ Bits operator^(const Bits& o) const {
+        Bits r;
+        for (int i = 0; i < kW; ++i) r.w[i] = w[i] ^ o.w[i];
+        return r;
+    }
+};
+template <>
+struct Bits<1> {
+    uint32_t w;
+    __device__ __forceinline__ void clear() { w = 0u; }
+    __device__ __forceinline__ uint32_t get(int k) const {
+        return w >> k & 1u;
+    }
+    __device__ __forceinline__ void put(int k, bool v) {
+        w |= (uint32_t)v << k;
+    }
+    __device__ __forceinline__ bool differs(const Bits& o) const {
+        return w != o.w;
+    }
+    __device__ __forceinline__ bool any() const { return w != 0u; }
+    __device__ __forceinline__ Bits operator^(const Bits& o) const {
+        return Bits{w ^ o.w};
+    }
+};
+using NodeBits = Bits<(MAX_NODES + 31) / 32>;
+using SideMask = Bits<(MAX_MARCH_ENTITIES + 31) / 32>;
+
 // --- membership (geometry.py::member), uncontracted as the plain version's
 // separate operations round (cylinders and composites exist only in the
 // BUILD_SHAPES builds) ------------------------------------------------------
@@ -405,15 +487,16 @@ __device__ __forceinline__ bool leaf_member(const Scene& s, int node, V4 p) {
 }
 
 // Is p inside entity e's shape?  A composite is one pass over its
-// post-order node range with one bit per node: every child precedes its
-// parent, so a composite combines bits already set.
+// post-order node range with one bit per node (MAX_NODES of them): every
+// child precedes its parent, so a composite combines bits already set.
 template <bool kShapes>
 __device__ __forceinline__ bool member(const Scene& s, int e, V4 p) {
     const int root = s.ent_root[e];
     if constexpr (kShapes) {
         const int first = s.ent_first[e];
         if (first != root) {
-            uint32_t bits = 0;
+            NodeBits bits;
+            bits.clear();
             for (int i = first; i <= root; ++i) {
                 const int kind = s.node_kind[i];
                 bool in;
@@ -422,30 +505,30 @@ __device__ __forceinline__ bool member(const Scene& s, int e, V4 p) {
                 } else {
                     const int32_t* ch = s.child_idx + s.node_cstart[i];
                     const int nc = s.node_ccount[i];
-                    in = bits >> (ch[0] - first) & 1u;
+                    in = bits.get(ch[0] - first);
                     switch (kind) {
                         case NODE_UNION:
                             for (int j = 1; j < nc; ++j)
-                                in = in || (bits >> (ch[j] - first) & 1u);
+                                in = in || bits.get(ch[j] - first);
                             break;
                         case NODE_INTERSECTION:
                             for (int j = 1; j < nc; ++j)
-                                in = in && (bits >> (ch[j] - first) & 1u);
+                                in = in && bits.get(ch[j] - first);
                             break;
                         case NODE_DIFFERENCE:
-                            in = in && !(bits >> (ch[1] - first) & 1u);
+                            in = in && !bits.get(ch[1] - first);
                             break;
                         case NODE_SYMDIFF:
                             for (int j = 1; j < nc; ++j)
-                                in = in != ((bits >> (ch[j] - first) & 1u) != 0);
+                                in = in != (bits.get(ch[j] - first) != 0);
                             break;
                         default:  // NODE_COMPLEMENT
                             in = !in;
                     }
                 }
-                bits |= (uint32_t)in << (i - first);
+                bits.put(i - first, in);
             }
-            return bits >> (root - first) & 1u;
+            return bits.get(root - first);
         }
     }
     return leaf_member<kShapes>(s, root, p);
@@ -464,38 +547,50 @@ __device__ __forceinline__ int material_at(const Scene& s, V4 p) {
 constexpr int BISECT_ITERS = 10;
 
 // The march's side table: what side() reads of each entity, staged into
-// the block's shared memory once a launch (stage_sides).
+// the block's shared memory once a launch (stage_sides), in the builds of
+// at most SIDE_TABLE_MAX entities.
 struct SideRow {
     V4 c;       // the root's centre or normal row (a leaf; else zero)
     float sc;   // its scalar
     int kind;   // the root's node kind
     int pad[2];
 };
-__shared__ SideRow side_rows[MAX_MARCH_ENTITIES];
+constexpr bool SIDE_TABLE = MAX_MARCH_ENTITIES <= SIDE_TABLE_MAX;
+__shared__ SideRow side_rows[SIDE_TABLE ? MAX_MARCH_ENTITIES : 1];
+
+// Entity e's row of the side table, from the scene's arrays.
+__device__ __forceinline__ SideRow side_row(const Scene& s, int e) {
+    const int node = s.ent_root[e];
+    SideRow r{{0.0f, 0.0f, 0.0f, 0.0f}, 0.0f, s.node_kind[node], {0, 0}};
+    if (r.kind <= NODE_CYLINDER) {
+        const int row = s.node_row[node];
+        r.c = load4(s.shape_vec + 4 * row);
+        r.sc = s.shape_sc[row];
+    }
+    return r;
+}
 
 // Entities t, t + nt, ... of the scene into the side table.
 __device__ __forceinline__ void load_side_rows(const Scene& s, int t,
                                                int nt) {
-    for (int e = t; e < s.n_ent; e += nt) {
-        const int node = s.ent_root[e];
-        SideRow r{{0.0f, 0.0f, 0.0f, 0.0f}, 0.0f, s.node_kind[node], {0, 0}};
-        if (r.kind <= NODE_CYLINDER) {
-            const int row = s.node_row[node];
-            r.c = load4(s.shape_vec + 4 * row);
-            r.sc = s.shape_sc[row];
-        }
-        side_rows[e] = r;
-    }
+    if constexpr (SIDE_TABLE)
+        for (int e = t; e < s.n_ent; e += nt) side_rows[e] = side_row(s, e);
 }
 
 // The block's threads stage the side table (the builds that march).
 template <int kB>
 __device__ __forceinline__ void stage_sides(const Scene& s) {
-    if constexpr (has_march(kB)) {
+    if constexpr (has_march(kB) && SIDE_TABLE) {
         load_side_rows(s, threadIdx.y * blockDim.x + threadIdx.x,
                        blockDim.x * blockDim.y);
         __syncthreads();
     }
+}
+
+// Entity e's side table row: staged, or read from the scene's arrays.
+__device__ __forceinline__ SideRow side_table(const Scene& s, int e) {
+    if constexpr (SIDE_TABLE) return side_rows[e];
+    return side_row(s, e);
 }
 
 // geometry.py::side of entity ent, whose table row is r: membership, or
@@ -515,16 +610,19 @@ __device__ __forceinline__ bool side_of(const Scene& s, int ent,
 
 template <bool kShapes>
 __device__ __forceinline__ bool side(const Scene& s, int ent, V4 p) {
-    return side_of<kShapes>(s, ent, side_rows[ent], p);
+    if constexpr (SIDE_TABLE)
+        return side_of<kShapes>(s, ent, side_rows[ent], p);
+    return side_of<kShapes>(s, ent, side_row(s, ent), p);
 }
 
 // bit e set: p lies on the inner side of entity e (the builds that
 // march take n_ent <= MAX_MARCH_ENTITIES)
 template <bool kShapes>
-__device__ __forceinline__ uint32_t sides(const Scene& s, V4 p) {
-    uint32_t m = 0;
+__device__ __forceinline__ SideMask sides(const Scene& s, V4 p) {
+    SideMask m;
+    m.clear();
     for (int e = 0; e < s.n_ent; ++e)
-        if (side<kShapes>(s, e, p)) m |= 1u << e;
+        if (side<kShapes>(s, e, p)) m.put(e, true);
     return m;
 }
 
@@ -694,7 +792,7 @@ template <bool kExpr>
 __device__ __forceinline__ V4 accel(const Field<kExpr>& f, V4 x) {
     if constexpr (kExpr) {
         if (f.code) {
-            float val[MAX_EXPR];
+            float val[MAX_EXPR];   // one value an instruction
             return vm_eval(f, x, val);
         }
     }
@@ -714,7 +812,8 @@ __device__ __forceinline__ void march_step(const Field<kExpr>& f, V4 x, V4 v,
 // MARCH_CB steps and around the last step.  The tape backward's forward
 // sweep records it (march with kRec); otherwise march_replay re-marches.
 constexpr int MARCH_CB = 16;      // march steps per checkpoint (K4)
-constexpr int MAX_MARCH_CK = 32;  // checkpoints: march_steps <= 512
+constexpr int MAX_MARCH_CK = TRACE_MAX_MARCH_CK;  // checkpoints: march_steps
+                                  // <= MARCH_CB * MAX_MARCH_CK
 struct MarchTape {
     V4 ckx[MAX_MARCH_CK], ckv[MAX_MARCH_CK];  // state at each chunk's start
     V4 xb, xe, ve;   // state before the last step (sx0), after it (sx1, sv)
@@ -732,7 +831,7 @@ struct MarchHit {
 // Bisection of entity e's crossing on the segment [x0, x1] -> lambda.
 template <bool kShapes>
 __device__ __forceinline__ float bisect(const Scene& s, int e, V4 x0, V4 x1) {
-    const SideRow r = side_rows[e];
+    const SideRow r = side_table(s, e);
     const bool s0 = side_of<kShapes>(s, e, r, x0);
     float lo = 0.0f, hi = 1.0f;
     for (int k = 0; k < BISECT_ITERS; ++k) {
@@ -756,7 +855,8 @@ __device__ __forceinline__ MarchHit march(const Scene& s, V4 org, V4 d0,
                                           int mat,
                                           MarchTape* rec = nullptr) {
     const Field<kExpr> f = field<kExpr>(s, mat);
-    uint32_t sd = sides<kShapes>(s, org), crossed = 0;
+    SideMask sd = sides<kShapes>(s, org), crossed;
+    crossed.clear();
     V4 x = org, v = d0, sx0 = org, sx1 = org, sv = d0;
     V4 xb = org;   // kRec: the state before the last step walked
     float dist = 0.0f;
@@ -770,10 +870,10 @@ __device__ __forceinline__ MarchHit march(const Scene& s, V4 org, V4 d0,
         }
         V4 x1, v1;
         march_step<kExpr>(f, x, v, &x1, &v1);
-        const uint32_t nsd = sides<kShapes>(s, x1);
+        const SideMask nsd = sides<kShapes>(s, x1);
         const bool beyond = dist > s.t_max;
         dist = dist + f.h;
-        if (nsd != sd) {
+        if (nsd.differs(sd)) {
             crossed = nsd ^ sd;
             sx0 = x;
             sx1 = x1;
@@ -787,14 +887,15 @@ __device__ __forceinline__ MarchHit march(const Scene& s, V4 org, V4 d0,
     }
     if constexpr (kRec) {
         if (rec) {
-            rec->xb = crossed ? sx0 : xb;
-            rec->xe = crossed ? sx1 : x;
-            rec->ve = crossed ? sv : v;
+            const bool crossing = crossed.any();
+            rec->xb = crossing ? sx0 : xb;
+            rec->xe = crossing ? sx1 : x;
+            rec->ve = crossing ? sv : v;
         }
     }
     MarchHit m{-1, 0, (int)rintf(dist / fmaxf(f.h, 1e-12f)), 2.0f, org, sv};
     for (int e = 0; e < s.n_ent; ++e) {
-        if (!(crossed >> e & 1u)) continue;
+        if (!crossed.get(e)) continue;
         const float lam = bisect<kShapes>(s, e, sx0, sx1);
         if (lam < m.lam) {
             m.lam = lam;

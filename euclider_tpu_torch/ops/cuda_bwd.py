@@ -22,8 +22,12 @@ gradient comes from the kernels too, summed with atomics in its own buffer.
 forward kernel, then ``vjp_cuda``.
 
 The wrappers take CUDA tensors only and never fall back: on any other
-device they raise.  The plain versions are ``ops/vjp.py::vjp_blocked`` and,
-for the segmented kernels, ``ops/vjp.py::vjp_segmented``.
+device they raise.  Each launch takes the build whose capacities hold its
+scene (``cuda_kernel.library``): a deeper stack, more shape nodes, a
+longer expression, more marching entities or more march checkpoints
+(one every 16 steps) than the default build's.  The plain versions are
+``ops/vjp.py::vjp_blocked`` and, for the segmented kernels,
+``ops/vjp.py::vjp_segmented``.
 """
 from __future__ import annotations
 
@@ -41,7 +45,6 @@ LAUNCHES = 0       # launches of trace_bwd made by vjp_cuda / train_step_cuda
 SEG_LAUNCHES = 0   # launches of the segmented kernels, K6 then K7 (one a call)
 
 MAX_TAPE = 63      # nodes of trace_bwd's tape, and of a segmented chunk
-MAX_MARCH_STEPS = 512   # march checkpoints of 16 steps, 32 of them (K4)
 BLOCK = (32, 8)    # the kernels' block: one column of partial sums per block
 SLOT_WORDS = 11    # a stack slot in the segmented carry (trace_seg.cu)
 BACKWARDS = ("auto", "tape", "segmented")
@@ -191,9 +194,6 @@ def _launch(static, floats, cam_row, H, W, rows, gin, norm, fused,
     global LAUNCHES, SEG_LAUNCHES
     device = cam_row.device
     kind = route(static, backward, chunk_trips)
-    if static.march_steps > MAX_MARCH_STEPS:
-        raise ValueError(f"march_steps {static.march_steps} exceeds the "
-                         f"backward kernel's {MAX_MARCH_STEPS}")
     sizes, n = grad_layout(static, floats)
     if tuple(gin.shape) != (rows, W, 3):
         raise ValueError(f"{'target' if fused else 'cotangent'} shape "
@@ -213,8 +213,7 @@ def _launch(static, floats, cam_row, H, W, rows, gin, norm, fused,
             torch.cuda.current_stream(device).cuda_stream)
     if kind == "tape":
         rc = _entry(CK.library("trace_bwd", static), False)(*args, *tail)
-        if rc != 0:
-            raise RuntimeError(f"trace_bwd launch failed: cudaError {rc}")
+        CK.check_launch("trace_bwd", rc)
         LAUNCHES += 1
     else:
         carry = _carry(static, rows, W, chunk_trips, device)
@@ -222,8 +221,7 @@ def _launch(static, floats, cam_row, H, W, rows, gin, norm, fused,
         rc = _entry(CK.library("trace_seg", static), True)(
             *args, chunk_trips, carry.data_ptr(), carry.numel(),
             acc.data_ptr(), acc.numel(), *tail)
-        if rc != 0:
-            raise RuntimeError(f"trace_seg launch failed: cudaError {rc}")
+        CK.check_launch("trace_seg", rc)
         SEG_LAUNCHES += 1
     return out, gtex
 

@@ -13,14 +13,25 @@ the tape backward and the segmented backward) are compiled twice: their
 ``_shapes`` libraries hold the builds for scenes with CSG, cylinders,
 perlin or textures.
 
+Five capacities of the kernels are compile-time parameters of each build
+(trace_common.cuh): the DFS stack's slots, the shape nodes of one entity,
+the VM instructions of one expression material, the entities of a
+marching scene and the backward's march checkpoints.  A scene within
+today's values takes the default build; a scene past one takes, built at
+first use, the build whose capacity is the next power of two that holds
+it (``capacities``; its library name lists the capacities it raises), so
+that a handful of builds serves every size and the default builds stay
+as they were.
+
 The scene is passed as data: ``encode_scene`` flattens the static topology
 into int32 arrays (the node encoding of ``oracle/native_oracle.py``, shape
 trees in post-order, so the kernel and the C++ oracle read one scene
 encoding, and the expression materials' programs of ``scene/expr.py`` with
 the operand index of every instruction, for the kernels' VM), and the float
 tables go in as the device tensors of ``tables_to_torch``, the textures'
-texels back to back in one buffer.  A scene beyond the kernels' fixed
-limits raises ``ValueError`` before any launch; nothing is approximated or
+texels back to back in one buffer.  Only a texture wider than
+MAX_TEX_SIDE raises ``ValueError`` before any launch, and a launch the
+card has not the memory for ``MemoryError``; nothing is approximated or
 cut.  Its plain version is ``ops/trace.render_image``.
 """
 from __future__ import annotations
@@ -57,10 +68,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-fPIC")
 # the _shapes libraries' builds (trace_common.cuh BUILD_SHAPES)
 SHAPES_FLAGS = ("-DTRACE_SHAPES_BUILDS",)
-MAX_SLOTS = 16     # the kernels' DFS stack capacity (trace_common.cuh)
-MAX_MARCH_ENTITIES = 32   # the march's side masks: one bit per entity
-MAX_EXPR = 128     # VM instructions of one material's four programs
-MAX_NODES = 32     # shape nodes of one entity: membership keeps a bit each
+# The capacities of a build (trace_common.cuh): name -> (the default
+# build's, the macro that sets it).  slots: the DFS stack's (max_depth + 1
+# a scene); nodes: shape nodes of one entity (membership's bits); expr: VM
+# instructions of one material's four programs; entities: entities of a
+# scene that marches (the side masks' bits and the side table); ckpts: the
+# backward's march checkpoints, one every MARCH_CB steps.
+CAPACITIES = {"slots": (16, "TRACE_MAX_SLOTS"),
+              "nodes": (32, "TRACE_MAX_NODES"),
+              "expr": (128, "TRACE_MAX_EXPR"),
+              "entities": (32, "TRACE_MAX_MARCH_ENTITIES"),
+              "ckpts": (32, "TRACE_MAX_MARCH_CK")}
+# the capacities each source's code reads; its library takes only those
+SOURCE_CAPACITIES = {"trace_fwd": ("slots", "nodes", "expr", "entities"),
+                     "trace_bwd": tuple(CAPACITIES),
+                     "trace_seg": tuple(CAPACITIES),
+                     "probe_march": ("entities",)}
+MARCH_CB = 16      # march steps a checkpoint (trace_common.cuh)
 MAX_TEX_SIDE = 16384   # texels along a texture side (float32 texel coords)
 # how a material's rays travel (trace_common.cuh MAT_*)
 MAT_MARCH = {"warp": 1, "expr": 2}
@@ -75,8 +99,26 @@ FLOAT_FIELDS = ("shape_vec", "shape_sc", "mat_ior", "surf_color",
                 "mat_warp_step", "portal_lin", "portal_tr", "mat_expr_params")
 
 
+def _source(name: str) -> str:
+    """The source name of library ``name``: SOURCES' key, its capacities
+    (``+nodes64`` ...) cut off."""
+    return name.split("+")[0]
+
+
+def capacity_flags(name: str) -> tuple:
+    """The -D flags of library ``name``'s capacities: one for each
+    ``+<capacity><value>`` part of its name."""
+    flags = []
+    for part in name.split("+")[1:]:
+        cap = part.rstrip("0123456789")
+        flags.append(f"-D{CAPACITIES[cap][1]}={int(part[len(cap):])}")
+    return tuple(flags)
+
+
 def _flags(name: str) -> tuple:
-    return NVCC_FLAGS + (SHAPES_FLAGS if name.endswith("_shapes") else ())
+    return (NVCC_FLAGS
+            + (SHAPES_FLAGS if _source(name).endswith("_shapes") else ())
+            + capacity_flags(name))
 
 
 def _nvcc() -> str:
@@ -91,16 +133,17 @@ def _library(name: str) -> str:
     hash of the source, the shared headers and the flags, so an edit to any
     of them builds anew and never loads a stale library."""
     h = hashlib.sha256(" ".join(_flags(name)).encode())
-    for path in (SOURCES[name],) + HEADERS:
+    for path in (SOURCES[_source(name)],) + HEADERS:
         with open(path, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names=tuple(SOURCES)) -> dict:
-    """Compile the named sources that are not built yet, one nvcc process
-    each, all started together; returns {name: library path}.  Raises with
-    nvcc's message when a build fails."""
+    """Compile the named libraries (SOURCES' keys, or ``library``'s names
+    of wider builds) that are not built yet, one nvcc process each, all
+    started together; returns {name: library path}.  Raises with nvcc's
+    message when a build fails."""
     libs = {n: _library(n) for n in names}
     todo = {n: lib for n, lib in libs.items() if not os.path.exists(lib)}
     if todo:
@@ -110,7 +153,7 @@ def build(names=tuple(SOURCES)) -> dict:
         for n, lib in todo.items():
             tmp = f"{lib[:-3]}-tmp{os.getpid()}.so"
             procs[n] = (tmp, subprocess.Popen(
-                [nvcc, *_flags(n), "-o", tmp, SOURCES[n]],
+                [nvcc, *_flags(n), "-o", tmp, SOURCES[_source(n)]],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         errors = []
         for n, (tmp, proc) in procs.items():
@@ -127,10 +170,48 @@ def build(names=tuple(SOURCES)) -> dict:
     return libs
 
 
+@functools.lru_cache(maxsize=256)
 def library(kernel: str, static) -> str:
-    """The library of ``kernel`` ('trace_fwd', 'trace_bwd' or 'trace_seg')
-    that holds the build ``static`` takes."""
-    return f"{kernel}_shapes" if has_shapes(static) else kernel
+    """The library of ``kernel`` ('trace_fwd', 'trace_bwd', 'trace_seg' or
+    'probe_march') that holds the build ``static`` takes: its _shapes
+    library where the scene has shapes beyond spheres and planes, with
+    each capacity the scene needs past the default build's
+    (``capacities``) appended as ``+<capacity><value>``."""
+    name = f"{kernel}_shapes" if (kernel != "probe_march"
+                                  and has_shapes(static)) else kernel
+    caps = dict(capacities(static))
+    return name + "".join(f"+{k}{caps[k]}" for k in SOURCE_CAPACITIES[kernel]
+                          if k in caps)
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def needs(static) -> dict:
+    """What the scene asks of each capacity (CAPACITIES): max_depth + 1
+    stack slots, the shape nodes of its largest entity, the VM
+    instructions of its longest expression material, and, where it
+    marches, its entities and ceil(march_steps / MARCH_CB) checkpoints."""
+    root = _encode_nodes(static)[0]
+    exprs = [len(expr_program([E.to_postfix(a)
+                               for a in static.mat_exprs[m]])[0])
+             for m, kind in enumerate(static.mat_kinds) if kind == "expr"]
+    march = marches(static)
+    return {"slots": static.max_depth + 1,
+            "nodes": int(np.diff(np.concatenate([[-1], root])).max()),
+            "expr": max(exprs, default=0),
+            "entities": len(static.entities) if march else 0,
+            "ckpts": -(-static.march_steps // MARCH_CB) if march else 0}
+
+
+@functools.lru_cache(maxsize=256)
+def capacities(static) -> tuple:
+    """The capacities the scene needs past the default build's, each the
+    next power of two that holds it -> ((name, value), ...) in CAPACITIES
+    order; () for a scene the default builds hold."""
+    return tuple((k, _pow2(n)) for k, n in needs(static).items()
+                 if n > CAPACITIES[k][0])
 
 
 @functools.lru_cache(maxsize=None)
@@ -234,25 +315,11 @@ def encode_scene(static):
     seed times 974711 mod 2^32, as bits; a texture surface's texture id)
     back to back, and the start of each.  ``scene_args`` appends tex_info,
     from the tables: per texture its offset in the texel buffer, its height
-    and width.  Raises ``ValueError`` for a ray tree deeper than the kernels'
-    stack, a marching scene of more entities than the march's side masks
-    hold, an entity of more shape nodes than their membership bits hold, or
-    an expression material longer than their VM holds."""
-    if static.max_depth + 1 > MAX_SLOTS:
-        raise ValueError(f"max_depth {static.max_depth} needs "
-                         f"{static.max_depth + 1} stack slots; the CUDA "
-                         f"kernel has {MAX_SLOTS}")
-    if marches(static) and len(static.entities) > MAX_MARCH_ENTITIES:
-        raise ValueError(f"{len(static.entities)} entities in a scene that "
-                         f"marches; the CUDA kernels' march holds "
-                         f"{MAX_MARCH_ENTITIES}")
+    and width.  Any scene encodes: ``library`` picks the build whose
+    capacities hold it."""
     ent_root, node_kind, node_row, cstart, ccount, child = _encode_nodes(
         static)
     ent_first = np.concatenate([[0], ent_root[:-1] + 1]).astype(np.int32)
-    for e, (a, b) in enumerate(zip(ent_first, ent_root)):
-        if b - a + 1 > MAX_NODES:
-            raise ValueError(f"entity {e} has {b - a + 1} shape nodes; the "
-                             f"CUDA kernels hold {MAX_NODES}")
     ents = static.entities
     perlin = static.surf_perlin or (None,) * len(static.surf_kinds)
     surf_aux = np.zeros((len(static.surf_kinds), 2), np.int64)
@@ -272,10 +339,6 @@ def encode_scene(static):
                      for c in range(4)]
             code, ends = expr_program([(eops[sp], evals[sp])
                                        for sp in spans])
-            if len(code) > MAX_EXPR:
-                raise ValueError(
-                    f"material {m}'s expressions take {len(code)} VM "
-                    f"instructions; the CUDA kernels hold {MAX_EXPR}")
             expr_code.append(code.reshape(-1))
         base = expr_off[-1]
         expr_off.extend(base + e for e in ends)
@@ -433,10 +496,23 @@ def launch_forward(static, floats, cam_row, H: int, W: int, rows: int,
         iptr, fptr, params, static.t_max, cam_row.data_ptr(), H, W, rows,
         out.data_ptr(), device.index,
         torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"trace_fwd launch failed: cudaError {rc}")
+    check_launch("trace_fwd", rc)
     LAUNCHES += 1
     return out
+
+
+CUDA_ERROR_MEMORY = 2   # cudaErrorMemoryAllocation
+
+
+def check_launch(kernel: str, rc: int) -> None:
+    """Raise for a launch's nonzero cudaError: ``MemoryError`` where the
+    card had not the memory for it (a wide build's local arrays over the
+    threads a launch keeps in flight), else ``RuntimeError``."""
+    if rc == CUDA_ERROR_MEMORY:
+        raise MemoryError(f"{kernel} launch failed: the device has not the "
+                          f"memory for it (cudaError {rc})")
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")
 
 
 def render_image_cuda(static, tables, cam, H: int, W: int, time=0.0,

@@ -208,10 +208,12 @@ def march_probe_plain(static, tables, org, d, stage: str) -> ProbeOut:
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
+def _entry(name: str):
+    """euclider_probe_march of library ``name`` (cuda_kernel.library: a
+    marching scene of more entities than the default build's takes a
+    wider one), built and loaded once."""
     from . import cuda_kernel as CK
-    fn = ctypes.CDLL(CK.build(("probe_march",))["probe_march"]
-                     ).euclider_probe_march
+    fn = ctypes.CDLL(CK.build((name,))[name]).euclider_probe_march
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, p, p, ctypes.c_float, p, i, i, p, p, i, p, p, p, p, p,
                    i, p]
@@ -292,11 +294,12 @@ def march_probe_cuda(static, tables, org, d, stage: str,
     steps = torch.empty(shape, dtype=torch.int32, device=device)
     ent = torch.empty(shape, dtype=torch.int32, device=device)
     dsv = torch.empty((), dtype=torch.float32, device=device)
-    rc = _entry()(iptr, fptr, params, static.t_max, cam.data_ptr(),
-                  STAGES.index(stage), WARP_MAT, org.data_ptr(), d.data_ptr(),
-                  n, out.data_ptr(), steps.data_ptr(), ent.data_ptr(),
-                  dsv.data_ptr(), None if check is None else check.data_ptr(),
-                  device.index, torch.cuda.current_stream(device).cuda_stream)
+    rc = _entry(CK.library("probe_march", static))(
+        iptr, fptr, params, static.t_max, cam.data_ptr(),
+        STAGES.index(stage), WARP_MAT, org.data_ptr(), d.data_ptr(), n,
+        out.data_ptr(), steps.data_ptr(), ent.data_ptr(), dsv.data_ptr(),
+        None if check is None else check.data_ptr(), device.index,
+        torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"probe_march launch failed: cudaError {rc}")
     LAUNCHES += 1

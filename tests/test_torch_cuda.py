@@ -159,7 +159,14 @@ def config7_smooth():
         else e for e in sc.entities))
 
 
+# the scenes past the kernels' old fixed limits (tools/limit_scenes.py):
+# each takes a wider build
+LIMIT_SCENES = ["config2_d24", "config2_d24_deep", "csg48", "config6_long",
+                "config5_crowd", "config5_fine"]
+
+
 def scene_on(name, device, **settings):
+    from euclider_tpu_torch.tools import limit_scenes
     sc = {"warp_gradient_scene": warp_gradient_scene,
           "expr_gradient_scene": expr_gradient_scene,
           "cylinder_test": cylinder_scene,
@@ -168,7 +175,9 @@ def scene_on(name, device, **settings):
           "spheres48": spheres_scene,
           "warp32": warp32_scene,
           "config2_deep": deep_scene,
-          "config2_deep_smooth": lambda: deep_scene(True)}.get(
+          "config2_deep_smooth": lambda: deep_scene(True),
+          **{n: (lambda n=n: limit_scenes.get_scene(n))
+             for n in LIMIT_SCENES}}.get(
               name, lambda: ett.get_scene(name))()
     if settings:
         sc = replace(sc, settings=replace(sc.settings, **settings))
@@ -178,12 +187,25 @@ def scene_on(name, device, **settings):
 
 
 def test_encoder_refuses_a_tree_deeper_than_the_stack():
-    static, _ = ett.compile_scene(replace(
-        ett.get_scene("config2_mirror_glass"),
-        settings=replace(ett.get_scene("config2_mirror_glass").settings,
-                         max_depth=cuda_kernel.MAX_SLOTS)))
-    with pytest.raises(ValueError, match="stack slots"):
-        cuda_kernel.encode_scene(static)
+    """The default build's stack holds max_depth + 1 <= 16 slots; a deeper
+    tree, once refused, encodes and takes the builds of 32 slots (the next
+    power of two), each kernel's library named for them, while config2
+    itself keeps the default builds."""
+    sc = ett.get_scene("config2_mirror_glass")
+    slots = cuda_kernel.CAPACITIES["slots"][0]
+    static, _ = ett.compile_scene(replace(sc, settings=replace(
+        sc.settings, max_depth=slots)))
+    cuda_kernel.encode_scene(static)
+    assert cuda_kernel.needs(static)["slots"] == slots + 1
+    assert cuda_kernel.capacities(static) == (("slots", 2 * slots),)
+    for kernel in ("trace_fwd", "trace_bwd", "trace_seg"):
+        name = cuda_kernel.library(kernel, static)
+        assert name == f"{kernel}+slots{2 * slots}"
+        assert cuda_kernel.capacity_flags(name) == (
+            f"-DTRACE_MAX_SLOTS={2 * slots}",)
+    static, _ = ett.compile_scene(sc)
+    assert cuda_kernel.capacities(static) == ()
+    assert cuda_kernel.library("trace_bwd", static) == "trace_bwd"
 
 
 @pytest.mark.cuda
@@ -196,7 +218,7 @@ def test_encoder_refuses_a_tree_deeper_than_the_stack():
                                   "config7_warp4d",
                                   "perlin_probe",
                                   "cylinder_test",
-                                  "warp32"])
+                                  "warp32", *LIMIT_SCENES])
 def test_kernel_matches_plain(cuda, name):
     static, tables, cam = scene_on(name, cuda)
     before = cuda_kernel.LAUNCHES
@@ -300,22 +322,25 @@ VJP_SLABS = {"config7_warp4d": (180, 320, 72, 16),
                                   "config5_warp_portal",
                                   "config3_csg_textured", "perlin_probe",
                                   "cylinder_smooth", "config4_hypersphere",
-                                  "config7_warp4d", "config7_smooth"])
+                                  "config7_warp4d", "config7_smooth",
+                                  *LIMIT_SCENES])
 def test_vjp_kernel_matches_plain(cuda, name):
     """The 4D scenes too: config4 on the frame, config7 (and config7 with
     smooth surfaces, whose warp parameters get a nonzero gradient) on a
-    slab whose rays march."""
+    slab whose rays march; and the scenes past the old fixed limits, each
+    through its wider build (config2_d24_deep through the segmented
+    kernels)."""
     from euclider_tpu_torch.ops import cuda_bwd, vjp
     static, tables, cam = scene_on(name, cuda)
     fh, fw, y0, rows = VJP_SLABS.get(name, (BH, BW, 0, BH))
     g = off_seams(cotangent((fh, fw, 3), 0, cuda), static, tables,
                   cam)[y0:y0 + rows]
-    before = cuda_bwd.LAUNCHES
+    before = cuda_bwd.LAUNCHES + cuda_bwd.SEG_LAUNCHES
     got = cuda_bwd.vjp_cuda(static, tables, cam, fh, fw, g, y0=y0,
                             rows=rows)
     ref = vjp.vjp_blocked(static, tables, cam, fh, fw, g, y0=y0, rows=rows)
     torch.cuda.synchronize()
-    assert cuda_bwd.LAUNCHES == before + 1
+    assert cuda_bwd.LAUNCHES + cuda_bwd.SEG_LAUNCHES == before + 1
     grads_close(ref, got)
     if name == "config7_smooth":
         assert float(ref[0].mat_warp_strength.abs().max()) > 0

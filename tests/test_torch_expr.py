@@ -422,15 +422,22 @@ def test_expr_program_replays_eval_ast(src):
 
 
 def test_encoder_takes_config6_and_refuses_a_long_program(compiled_scenes):
+    """config6 takes the default builds; a program past their 128 VM
+    instructions, once refused, encodes whole and takes the builds of
+    the next power of two."""
     _, static, _, _ = compiled_scenes["config6_expr_space"]
     ints, offsets = cuda_kernel.encode_scene(static)
     m = static.mat_kinds.index("expr")
     mat_warp = ints[offsets[7]:offsets[8]]
     assert mat_warp[m] == cuda_kernel.MAT_MARCH["expr"]
+    assert cuda_kernel.capacities(static) == ()
     long = tiny_expr_scene(ax=" + ".join(["x"] * 70), ir=ett.ir)
     static, _ = ett.compile_scene(long)
-    with pytest.raises(ValueError, match="VM instructions"):
-        cuda_kernel.encode_scene(static)
+    ints, offsets = cuda_kernel.encode_scene(static)
+    n = (offsets[10] - offsets[9]) // 4       # expr_code: 4 ints each
+    assert n == cuda_kernel.needs(static)["expr"] > 128
+    assert cuda_kernel.capacities(static) == (("expr", 256),)
+    assert cuda_kernel.library("trace_bwd", static) == "trace_bwd+expr256"
 
 
 def test_oracle_source_is_the_jax_package_s():

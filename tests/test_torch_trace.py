@@ -87,9 +87,9 @@ def test_row_slab_matches_full_frame(compiled_scenes, y0, rows):
 
 
 def beyond_limits(compiled_scenes, name):
-    """A library scene grown past one of the CUDA kernels' fixed limits:
-    config3's blob a union of MAX_NODES spheres (one node more than the
-    kernels' membership bits hold), perlin_probe's terrain textured by a
+    """A library scene grown past one of the CUDA kernels' limits:
+    config3's blob a union of 32 spheres (one node more than the default
+    build's membership bits hold), perlin_probe's terrain textured by a
     texture wider than MAX_TEX_SIDE.  -> (static, torch tables, camera)."""
     from dataclasses import replace
     from euclider_tpu.scene import ir
@@ -97,7 +97,7 @@ def beyond_limits(compiled_scenes, name):
     if name == "config3_csg_textured":
         blob = ir.Csg("union", tuple(
             ir.Sphere((0.04 * i, -0.1, -4.6), 0.3)
-            for i in range(cuda_kernel.MAX_NODES)))
+            for i in range(cuda_kernel.CAPACITIES["nodes"][0])))
         ents = tuple(replace(e, shape=blob) if e.name == "blob" else e
                      for e in sc.entities)
         sc = replace(sc, entities=ents)
@@ -113,15 +113,18 @@ def beyond_limits(compiled_scenes, name):
 
 @pytest.mark.parametrize("name", ["config3_csg_textured", "perlin_probe"])
 def test_cuda_encoder_refuses_unsupported_features(compiled_scenes, name):
-    """The kernels render every feature of the library scenes; what they
-    refuse, before any launch, is a scene beyond their fixed limits: an
-    entity of more shape nodes than their membership bits, a texture
-    larger than they index.  The plain version renders both."""
+    """The kernels render every feature of the library scenes; all they
+    refuse, before any launch, is a texture larger than they index.  An
+    entity of more shape nodes than the default build's membership bits,
+    once refused, encodes and takes the builds of 64.  The plain version
+    renders both."""
     static, tables, cam = beyond_limits(compiled_scenes, name)
     cuda_kernel.encode_scene(compiled_scenes[name][1])   # the scene itself
     if name == "config3_csg_textured":
-        with pytest.raises(ValueError, match="shape nodes"):
-            cuda_kernel.encode_scene(static)
+        cuda_kernel.encode_scene(static)
+        assert cuda_kernel.capacities(static) == (("nodes", 64),)
+        assert cuda_kernel.library("trace_fwd", static) == \
+            "trace_fwd_shapes+nodes64"
     else:
         cuda_kernel.encode_scene(static)
         with pytest.raises(ValueError, match="texels"):
