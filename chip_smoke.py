@@ -155,7 +155,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                16-row slab by phase 6's rule, its warp parameters'
                gradients nonzero (the march backward's drift from its
                checkpoints); each build's ptxas lines, each kernel's
-               device time and bound.
+               device time and bound.  config3_strips (textures of 2 x
+               40,961 and 40,961 x 2 texels, past the 16,384 a side the
+               kernels once took) in the default builds: its frame the
+               plain version's to the bit (max_abs_err 0), the slab's
+               textured hits past the old side counted.
+ 14. dtype   - float64 inputs, cast to float32 as the Pallas kernels cast
+               them, at 1280x720 on grad_probe and config3 (textures):
+               float64 tables and camera through
+               euclider_tpu_torch.render_image (K1) the float32 run's
+               frame to the bit, a float64 camera with float32 tables the
+               float32 camera's; vjp_cuda, train_step_cuda (float64 time)
+               and autograd through render_image_diff (float64 leaves)
+               give float64 gradients with the float32 run's bits, the
+               texels' (summed by atomicAdd) by phase 6's rule, the loss
+               float32 and the same; trace_fwd and trace_bwd launched on
+               this path; the cast's host cost: a frame and a fused step
+               of grad_probe, float32 beside float64 (CUDA events, median
+               of 5, two turns), and the wrapper's table check and camera
+               row alone (host clock, median of 200).
 The second-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -207,7 +225,7 @@ DEEP_SLABS = {"config2_deep": 328, "spheres48": 328}
 # reflections, the arch, the expression region, the ring and the warp region
 LIMIT_SLABS = dict.fromkeys(("config2_d24", "config2_d24_deep", "csg48",
                              "config6_long", "config5_crowd",
-                             "config5_fine"), 300)
+                             "config5_fine", "config3_strips"), 300)
 # config5_fine with smooth surfaces (on its own the warp's gradient is
 # zero almost everywhere) at other march lengths, on 16 rows from row 300:
 # the march backward's drift from its checkpoints
@@ -220,7 +238,9 @@ LIMIT_REFERENCE = "--limit-reference"   # a reference process of phase 13
 LIMIT_BATCHES = (("config5_fine", "config5_fine_smooth_2048", "config2_d24",
                   "csg48", "config6_long"),
                  ("config2_d24_deep", "config5_crowd",
-                  "config5_fine_smooth_1024"))
+                  "config5_fine_smooth_1024", "config3_strips"))
+# phase 14: float64 inputs, and the scene whose cast is timed
+DTYPE_SCENES = ("grad_probe", "config3_csg_textured")
 SEG_RTOL = 1e-5                      # segmented against the tape kernel
 H, W = 720, 1280
 TOL, MAX_BAD = 1e-4, 1e-3            # kernel vs plain on the card
@@ -1828,6 +1848,9 @@ def limit_scene(name, ref, device, card):
             f"{rec['bad_frac']:.6f} (limit {MAX_BAD:g})")
         assert rec["bad_frac"] <= MAX_BAD, \
             f"{name}: the kernel disagrees with the plain version"
+        if LS.LIMIT[name] == "texture side":   # texel addressing: bits
+            assert rec["max_abs_err"] == 0.0, \
+                f"{name}: the kernel samples other texels than plain"
     g = ref["g"].to(device)
     got = cuda_bwd.vjp_cuda(static, tables, cam, H, W, g, y0=y0, rows=rows)
     worst = (0.0, "", 0.0)
@@ -1890,9 +1913,10 @@ def limit_scene(name, ref, device, card):
                                               y0=y0, rows=rows), keys)
     rec["bwd_device_ms"] = sum(v or 0.0 for v in dev.values())
     rec["bwd_device_ms_by_kernel"] = dev
+    tex_bytes = 4 * sum(t.numel() for t in tables.textures)
     nodes, steps, marches, hits = ref["slab_work"]
     rec["bwd_bound_ms"], rec["bwd_bound_by"], ops = bound(
-        static, nodes, True, steps, marches, hits, pixels=rows * W)
+        static, nodes, True, steps, marches, hits, tex_bytes, rows * W)
     if bwd_k == "trace_seg":
         # K6 and K7: each the larger of its operations (the forward's half
         # of the backward's count, and all of it) and its carry's bytes
@@ -1906,7 +1930,7 @@ def limit_scene(name, ref, device, card):
             ["trace_fwd_kernel"])["trace_fwd_kernel"]
         nodes, steps, marches, hits = ref["frame_work"]
         rec["fwd_bound_ms"], rec["fwd_bound_by"], _ = bound(
-            static, nodes, False, steps, marches, hits)
+            static, nodes, False, steps, marches, hits, tex_bytes)
         say("time", f"{name} trace_fwd ({libs[fwd_k]}) {W}x{H}: "
             f"{rec['fwd_device_ms']:.4f} ms, bound {rec['fwd_bound_ms']:.4f}"
             f" ms ({rec['fwd_bound_by']}), plain {rec['plain_frame_ms']:.1f}"
@@ -1975,6 +1999,184 @@ def limits_phase(device, card, wait_builds):
         f"{time.perf_counter() - t0:.1f} s")
     return {"scenes": out, "training": training, "launches": launches,
             "ptxas": ptxas(*libs)}
+
+
+# --- phase 14 ----------------------------------------------------------------
+
+def as_float64(tables, cam):
+    """The tables (textures too) and the camera cast to float64."""
+    return (tables._replace(**{k: v.double() for k, v in tables._asdict()
+                               .items() if k != "textures"},
+                            textures=tuple(t.double()
+                                           for t in tables.textures)),
+            type(cam)(*(v.double() for v in cam)))
+
+
+def diff_grads(static, tables, cam, g):
+    """render_image_diff of leaves made from (tables, cam), differentiated
+    by autograd under g -> (the frame, (d_tables, d_cam))."""
+    import torch
+    from euclider_tpu_torch.ops.cuda_bwd import render_image_diff
+    from euclider_tpu_torch.ops.cuda_kernel import FLOAT_FIELDS
+    tl = [getattr(tables, k).clone().requires_grad_(True)
+          for k in FLOAT_FIELDS]
+    texs = [t.clone().requires_grad_(True) for t in tables.textures]
+    cl = [v.clone().requires_grad_(True) for v in cam]
+    img = render_image_diff(
+        static, tables._replace(**dict(zip(FLOAT_FIELDS, tl)),
+                                textures=tuple(texs)), type(cam)(*cl), H, W)
+    gs = torch.autograd.grad(img, tl + texs + cl, g, allow_unused=True)
+    gs = [torch.zeros_like(x) if d is None else d
+          for x, d in zip(tl + texs + cl, gs)]
+    n, m = len(FLOAT_FIELDS), len(texs)
+    return img.detach(), (tables._replace(**dict(zip(FLOAT_FIELDS, gs[:n])),
+                                          textures=tuple(gs[n:n + m])),
+                          type(cam)(*gs[n + m:]))
+
+
+def float32_run(got, ref):
+    """Gradients of float64 primals (got) against the float32 run's (ref),
+    (d_tables, d_cam) each: every leaf float64; the texels' (summed by
+    atomicAdd in no fixed order) by phase 6's rule, every other leaf the
+    float32 run's bits -> (all float64, other leaves' bits, the texels'
+    worst ratio to their tolerance)."""
+    import torch
+    f64, same, tex = True, True, 0.0
+    for (k, a), (_, b) in zip(leaves(*got), leaves(*ref)):
+        f64 &= a.dtype == torch.float64
+        if k.startswith("textures"):
+            e = float((a - b.double()).abs().max())
+            tex = max(tex, e / (GRAD_RTOL * max(float(b.abs().max()), 1.0)))
+        else:
+            same &= torch.equal(a, b.double())
+    return f64, same, tex
+
+
+def dtype_scene(name, device):
+    """Phase 14 for one scene -> (its record, its launches)."""
+    import torch
+    import euclider_tpu_torch as et
+    from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel
+    static, t32, c32 = load(name, device)
+    t64, c64 = as_float64(t32, c32)
+    floats = cuda_kernel._check_tables(static, t32, device)
+    assert cuda_bwd.grad_layout(static, floats)[1] <= 160, \
+        "entries past MAX_PARAMS are summed by atomics"
+    time64 = torch.tensor(0.0, dtype=torch.float64, device=device)
+    g = seeded((H, W, 3), 14, device)
+    target = seeded((H, W, 3), 15, device, "uniform")
+    # the float32 runs first: their launches do not count
+    frame = cuda_kernel.render_image_cuda(static, t32, c32, H, W)
+    vjp32 = cuda_bwd.vjp_cuda(static, t32, c32, H, W, g)
+    step32 = cuda_bwd.train_step_cuda(static, t32, c32, target, H, W)
+    diff32 = diff_grads(static, t32, c32, g)
+    torch.cuda.synchronize()
+    cuda_kernel.LAUNCHES = cuda_bwd.LAUNCHES = cuda_bwd.SEG_LAUNCHES = 0
+    got = et.render_image(static, t64, c64, H, W)
+    mixed = cuda_kernel.render_image_cuda(static, t32, c64, H, W)
+    vjp64 = cuda_bwd.vjp_cuda(static, t64, c64, H, W, g, time=time64)
+    step64 = cuda_bwd.train_step_cuda(static, t64, c64, target.double(), H,
+                                      W, time=time64)
+    diff64 = diff_grads(static, t64, c64, g)
+    torch.cuda.synchronize()
+    launches = {"trace_fwd": cuda_kernel.LAUNCHES,
+                "trace_bwd": cuda_bwd.LAUNCHES,
+                "trace_seg": cuda_bwd.SEG_LAUNCHES}
+    rec = {"frame_bits": got.dtype == torch.float32
+           and torch.equal(got, frame),
+           "frame_max_abs_err": float((got - frame).abs().max()),
+           "camera64_bits": torch.equal(mixed, frame),
+           "diff_frame_bits": torch.equal(diff64[0], diff32[0]),
+           "loss_bits": step64[0].dtype == torch.float32
+           and torch.equal(step64[0], step32[0]),
+           "time_grad_dtype": str(vjp64[2].dtype).split(".")[-1],
+           "launches": launches}
+    for path, a, b in (("vjp", vjp64[:2], vjp32[:2]),
+                       ("fused", step64[1:3], step32[1:3]),
+                       ("autograd", diff64[1], diff32[1])):
+        f64, same, tex = float32_run(a, b)
+        rec[path] = {"float64": f64, "bits": same, "texels_over_tol": tex}
+    say("dtype", f"{name} at {W}x{H}: float64 tables and camera through "
+        f"render_image: the float32 frame's bits {rec['frame_bits']} "
+        f"(max_abs_err {rec['frame_max_abs_err']:.3e}); float64 camera "
+        f"alone {rec['camera64_bits']}; render_image_diff's frame "
+        f"{rec['diff_frame_bits']}; fused loss {rec['loss_bits']}; "
+        f"gradients (float64, the float32 run's bits outside the texels, "
+        f"the texels' worst / tolerance): vjp {rec['vjp']}, fused "
+        f"{rec['fused']}, autograd {rec['autograd']}; d_time "
+        f"{rec['time_grad_dtype']}; launches {launches}")
+    ok = (rec["frame_bits"] and rec["camera64_bits"]
+          and rec["diff_frame_bits"] and rec["loss_bits"]
+          and rec["time_grad_dtype"] == "float64"
+          and all(rec[p]["float64"] and rec[p]["bits"]
+                  and rec[p]["texels_over_tol"] <= 1.0
+                  for p in ("vjp", "fused", "autograd")))
+    assert ok, f"{name}: float64 inputs are not the float32 run"
+    assert launches["trace_fwd"] >= 3 and launches["trace_bwd"] >= 3 and \
+        launches["trace_seg"] == 0, f"{name}: {launches}"
+    return rec, launches
+
+
+def host_ms(fn, n=200, warm=20):
+    """Median host time of fn alone (ms), each call after a synchronise."""
+    import torch
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def cast_cost(device, card):
+    """The float64 cast's host cost on grad_probe at 1280x720: a frame
+    (render_image_cuda) and a fused step (train_step_cuda) of float32 and
+    of float64 inputs (CUDA events, median of 5, turns float32, float64,
+    float64, float32), and the wrapper's table check and camera row alone
+    (host clock, median of 200) -> its record."""
+    from euclider_tpu_torch.ops import cuda_bwd, cuda_kernel
+    static, t32, c32 = load(DTYPE_SCENES[0], device)
+    t64, c64 = as_float64(t32, c32)
+    target = seeded((H, W, 3), 15, device, "uniform")
+    inputs = {"float32": (t32, c32), "float64": (t64, c64)}
+    calls = {
+        "frame": lambda t, c: cuda_kernel.render_image_cuda(static, t, c, H,
+                                                            W),
+        "fused_step": lambda t, c: cuda_bwd.train_step_cuda(
+            static, t, c, target, H, W),
+        "check_tables": lambda t, c: cuda_kernel._check_tables(static, t,
+                                                               device),
+        "pack_camera": lambda t, c: cuda_kernel._pack_camera(c, 0.0, 0,
+                                                             device)}
+    out = {}
+    for call, fn in calls.items():
+        timer = ((lambda f: events_ms(f, device))
+                 if call in ("frame", "fused_step") else host_ms)
+        got = {"float32": [], "float64": []}
+        for dt in ("float32", "float64", "float64", "float32"):
+            got[dt].append(timer(lambda: fn(*inputs[dt])))
+        out[call] = got
+        say("time", f"{DTYPE_SCENES[0]} {call} at {W}x{H}, ms, float32 / "
+            f"float64 (two turns; "
+            f"{'CUDA events' if timer is not host_ms else 'host clock'}): "
+            f"{got['float32'][0]:.4f} / {got['float64'][0]:.4f}, "
+            f"{got['float32'][1]:.4f} / {got['float64'][1]:.4f} ({card})")
+    return out
+
+
+def dtype_phase(device, card):
+    """Phase 14 -> {scene: record}, its launches and the cast's cost."""
+    out, launches = {}, {"trace_fwd": 0, "trace_bwd": 0, "trace_seg": 0}
+    for name in DTYPE_SCENES:
+        out[name], n = dtype_scene(name, device)
+        launches = {k: launches[k] + n[k] for k in launches}
+    say("dtype", f"launches on the dtype path {launches}")
+    return {"scenes": out, "launches": launches,
+            "cast_cost": cast_cost(device, card)}
 
 
 # --- phase 11 ----------------------------------------------------------------
@@ -2451,6 +2653,7 @@ def main() -> int:
     dist_rec, dist_launches = dist_check(device, card)
     limits = limits_phase(device, card, wait_limit_builds)
     lim = limits["scenes"]
+    dtype = dtype_phase(device, card)
 
     gp, c2 = times["grad_probe"], times[SCENES[1]]
     record = [{
@@ -2467,7 +2670,8 @@ def main() -> int:
         "launches": (fwd_launches + train_launches["trace_fwd"]
                      + sum(viewer_launches.values())
                      + dist_launches["trace_fwd"]
-                     + limits["launches"]["trace_fwd"]),
+                     + limits["launches"]["trace_fwd"]
+                     + dtype["launches"]["trace_fwd"]),
         "launches_by_scene": {"render_path": fwd_by_scene,
                               "training_path":
                               train_launches["trace_fwd_by_scene"],
@@ -2475,12 +2679,18 @@ def main() -> int:
                               "dist_path": dist_launches["trace_fwd"],
                               "limits_path": {
                                   n: r["launches"]["trace_fwd"]
-                                  for n, r in lim.items()}},
+                                  for n, r in lim.items()},
+                              "dtype_path": {
+                                  n: r["launches"]["trace_fwd"]
+                                  for n, r in dtype["scenes"].items()}},
         "limits": {n: {k: r.get(k) for k in (
             "libraries", "capacities", "passed", "max_abs_err", "bad_frac",
             "fwd_device_ms", "fwd_bound_ms", "fwd_bound_by",
             "plain_frame_ms")} for n, r in lim.items() if n in LIMIT_SLABS},
         "limits_ptxas": limits["ptxas"],
+        "dtype": {n: {k: v for k, v in r.items() if k not in (
+            "vjp", "fused", "autograd")} for n, r in dtype["scenes"].items()},
+        "cast_cost": dtype["cast_cost"],
         "viewer": viewer, "viewer_cli": viewer_cli_rec, "dist": dist_rec,
         "ptxas": ptxas("trace_fwd", "trace_fwd_shapes"),
         "max_abs_err": max(e[0] for e in errs.values()),
@@ -2512,14 +2722,21 @@ def main() -> int:
                   "where it fits, chosen by size (bwd_config), the march's "
                   "checkpoints recorded in the forward sweep",
         "launches": (train_launches["trace_bwd"] + dist_launches["trace_bwd"]
-                     + limits["launches"]["trace_bwd"]),
+                     + limits["launches"]["trace_bwd"]
+                     + dtype["launches"]["trace_bwd"]),
         "launches_by_scene": {"training_path":
                               train_launches["trace_bwd_by_scene"],
                               "dist_path": dist_launches["trace_bwd"],
                               "limits_path": {
                                   n: r["launches"]["trace_bwd"]
-                                  for n, r in lim.items()}},
+                                  for n, r in lim.items()},
+                              "dtype_path": {
+                                  n: r["launches"]["trace_bwd"]
+                                  for n, r in dtype["scenes"].items()}},
         "limits": {n: r for n, r in lim.items() if r["route"] == "tape"},
+        "dtype": {n: {k: r[k] for k in ("vjp", "fused", "autograd",
+                                        "time_grad_dtype", "loss_bits")}
+                  for n, r in dtype["scenes"].items()},
         "limits_training": limits["training"],
         "max_abs_err": max(b["vjp_err"] for b in bwd.values()),
         "ms": gp["bwd_device_ms"], "plain_ms": bwd["grad_probe"]["plain_ms"],

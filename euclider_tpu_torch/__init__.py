@@ -29,7 +29,9 @@ ranks of a ``torch.distributed`` group (one process a device) for the
 render and the training step (``train/inverse.py``'s ``mesh``);
 ``utils/checkpointing.py`` saves and restores parameters.  The plain
 render computes in the tables' dtype: ``cast_tables``/``cast_camera`` and
-``tables_to_torch(..., dtype=torch.float64)`` give the float64 path.
+``tables_to_torch(..., dtype=torch.float64)`` give the float64 path.  The
+CUDA kernels take such tables too and compute in float32, as the Pallas
+kernels do, with gradients in the tables' dtype.
 """
 from .scene import ir
 from .scene.compile import (CameraParams, SceneStatic, SceneTables,
@@ -45,8 +47,11 @@ from .train.inverse import (InverseParams, make_fused_value_and_grad,
 def render_image(static, tables, cam, H: int, W: int, time=0.0, y0: int = 0,
                  rows: int | None = None):
     """Render rows [y0, y0 + rows) of the H x W frame -> [rows or H, W, 3]
-    float32 on the tables' device.  CUDA tensors go through the CUDA kernel,
-    CPU tensors through the plain torch version."""
+    on the tables' device.  CUDA tensors go through the CUDA kernel, which
+    casts tables and camera of any floating dtype to float32 and returns
+    float32, as the Pallas kernel does; CPU tensors through the plain torch
+    version, in the tables' dtype.  A float64 render on the card is
+    ``ops.trace.render_image``."""
     if tables.surf_color.device.type == "cuda":
         from .ops.cuda_kernel import render_image_cuda
         return render_image_cuda(static, tables, cam, H, W, time, y0, rows)

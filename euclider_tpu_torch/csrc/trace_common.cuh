@@ -16,9 +16,11 @@
 // them (union, intersection, difference, symdiff, complement); uniform,
 // checker, smooth, perlin and texture surfaces; vacuum, dielectric,
 // attractor ('warp') and expression ('expr') materials, whose rays march
-// (ops/march.py); portals.  The Python wrappers refuse only a texture
-// beyond the kernels' texel coordinates before launching; a scene past a
-// capacity of the default build takes a wider build (below).
+// (ops/march.py); portals; textures of any size on a side.  The Python
+// wrappers cast every table and the camera to float32 and refuse, before
+// launching, only textures of 2^31 floats or more together (tex_cell's
+// int32 offsets); a scene past a capacity of the default build takes a
+// wider build (below).
 //
 // A CSG entity's shape tree is one post-order range of nodes
 // [ent_first, ent_root]; membership is one pass over it with one bit per

@@ -22,10 +22,14 @@ gradient comes from the kernels too, summed with atomics in its own buffer.
 forward kernel, then ``vjp_cuda``.
 
 The wrappers take CUDA tensors only and never fall back: on any other
-device they raise.  Each launch takes the build whose capacities hold its
-scene (``cuda_kernel.library``): a deeper stack, more shape nodes, a
-longer expression, more marching entities or more march checkpoints
-(one every 16 steps) than the default build's.  The plain versions are
+device they raise.  Tables, textures and camera of any floating dtype go
+in as float32 (``cuda_kernel._check_tables``, ``_pack_camera``), and the
+gradients come back in each primal's dtype, as the Pallas backward hands
+them back (``pallas_kernel._grads_from_rows``); the loss is float32.
+Each launch takes the build whose capacities hold its scene
+(``cuda_kernel.library``): a deeper stack, more shape nodes, a longer
+expression, more marching entities or more march checkpoints (one every
+16 steps) than the default build's.  The plain versions are
 ``ops/vjp.py::vjp_blocked`` and, for the segmented kernels,
 ``ops/vjp.py::vjp_segmented``.
 """
@@ -205,9 +209,8 @@ def _launch(static, floats, cam_row, H, W, rows, gin, norm, fused,
     partials = torch.empty(n * n_blocks, dtype=torch.float32, device=device)
     out = torch.zeros(n, dtype=torch.float32, device=device)
     gtex = torch.zeros_like(floats[-1])
-    cam_row = cam_row.detach().contiguous()
-    args = (iptr, fptr, params, static.t_max, sizes, cam_row.data_ptr(), H,
-            W, rows, gin.data_ptr(), float(norm), int(fused))
+    args = (iptr, fptr, params, static.t_max, sizes, CK.camera_ptr(cam_row),
+            H, W, rows, gin.data_ptr(), float(norm), int(fused))
     tail = (partials.data_ptr(), partials.numel(), out.data_ptr(),
             gtex.data_ptr(), device.index,
             torch.cuda.current_stream(device).cuda_stream)
@@ -236,25 +239,29 @@ def _split(static, flat, floats):
     return flat[:24], parts, flat[i]
 
 
-def _grads(static, tables, cam, flat, gtex, floats):
-    """(d_tables, d_cam, d_time, loss) with shapes matching the primals:
-    the inverse of _pack_camera and of the table order on the cotangents
-    (pallas_kernel._grads_from_rows), the texel buffer's gradient cut into
-    the textures'.  y0 gets no gradient."""
+def _grads(static, tables, cam, time, flat, gtex, floats):
+    """(d_tables, d_cam, d_time, loss) with shapes and dtypes matching the
+    primals: the inverse of _pack_camera and of the table order on the
+    cotangents (pallas_kernel._grads_from_rows), the texel buffer's
+    gradient cut into the textures', each cast from the kernels' float32
+    to its primal's dtype (d_time to the time's where it is a tensor; the
+    loss stays float32).  y0 gets no gradient."""
     dc, dts, loss = _split(static, flat, floats)
     d_tables, _ = zero_grads(tables, cam)
     texs, i = [], 0
     for t in tables.textures:
-        texs.append(gtex[i:i + t.numel()].view(t.shape))
+        texs.append(gtex[i:i + t.numel()].view(t.shape).to(t.dtype))
         i += t.numel()
-    d_tables = d_tables._replace(**dict(zip(FLOAT_FIELDS, dts)),
-                                 textures=tuple(texs))
-    d_cam = CameraParams(position=dc[0:4].view_as(cam.position),
-                         forward=dc[4:8].view_as(cam.forward),
-                         up=dc[8:12].view_as(cam.up),
-                         right=dc[12:16].view_as(cam.right),
-                         tan_half_fov=dc[16].view_as(cam.tan_half_fov))
-    return d_tables, d_cam, dc[17], loss
+    d_tables = d_tables._replace(**{
+        k: d.to(getattr(tables, k).dtype) for k, d in zip(FLOAT_FIELDS, dts)},
+        textures=tuple(texs))
+    d_cam = CameraParams(*(dc[a:b].view_as(c).to(c.dtype) for (a, b), c in
+                           zip(((0, 4), (4, 8), (8, 12), (12, 16), (16, 17)),
+                               cam)))
+    d_time = dc[17]
+    if isinstance(time, torch.Tensor):
+        d_time = d_time.to(time.dtype)
+    return d_tables, d_cam, d_time, loss
 
 
 def vjp_cuda(static, tables, cam, H: int, W: int, g, time=0.0, y0: int = 0,
@@ -270,7 +277,7 @@ def vjp_cuda(static, tables, cam, H: int, W: int, g, time=0.0, y0: int = 0,
     cam_row = CK._pack_camera(cam, time, y0, device)
     flat, gtex = _launch(static, floats, cam_row, H, W, R, g, 0.0, False,
                          CK.tex_shapes(tables), backward, chunk_trips)
-    return _grads(static, tables, cam, flat, gtex, floats)[:3]
+    return _grads(static, tables, cam, time, flat, gtex, floats)[:3]
 
 
 def train_step_cuda(static, tables, cam, target, H: int, W: int, time=0.0,
@@ -290,8 +297,8 @@ def train_step_cuda(static, tables, cam, target, H: int, W: int, time=0.0,
     cam_row = CK._pack_camera(cam, time, y0, device)
     flat, gtex = _launch(static, floats, cam_row, H, W, R, target, norm,
                          True, CK.tex_shapes(tables), backward, chunk_trips)
-    d_tables, d_cam, d_time, loss = _grads(static, tables, cam, flat, gtex,
-                                           floats)
+    d_tables, d_cam, d_time, loss = _grads(static, tables, cam, time, flat,
+                                           gtex, floats)
     return loss, d_tables, d_cam, d_time
 
 
@@ -332,7 +339,9 @@ def render_image_diff(static, tables, cam, H: int, W: int, time=0.0,
     of ``backward`` and ``chunk_trips``) as its backward.  CPU tables: the
     plain render with ``differentiable=True`` under autograd.  Gradients
     reach the float tables, the camera and ``time``; ``y0`` is a frame
-    coordinate and gets none."""
+    coordinate and gets none.  On CUDA tables of any floating dtype the
+    render is float32 and the cast to it is part of the graph, so that
+    autograd hands each leaf its gradient in its own dtype."""
     device = tables.surf_color.device
     R = H if rows is None else rows
     if device.type != "cuda":

@@ -29,10 +29,14 @@ trees in post-order, so the kernel and the C++ oracle read one scene
 encoding, and the expression materials' programs of ``scene/expr.py`` with
 the operand index of every instruction, for the kernels' VM), and the float
 tables go in as the device tensors of ``tables_to_torch``, the textures'
-texels back to back in one buffer.  Only a texture wider than
-MAX_TEX_SIDE raises ``ValueError`` before any launch, and a launch the
-card has not the memory for ``MemoryError``; nothing is approximated or
-cut.  Its plain version is ``ops/trace.render_image``.
+texels back to back in one buffer.  Tables, textures and the camera of
+any floating dtype are cast to float32 copies on the tables' device, as
+the Pallas kernel casts them (``pallas_kernel._table_views``,
+``_pack_camera``), and the kernels compute in float32.  Only textures of
+2^31 floats or more together (the kernels index the texel buffer with
+int32) raise ``ValueError`` before any launch, and a launch the card has
+not the memory for ``MemoryError``; nothing is approximated or cut.  Its
+plain version is ``ops/trace.render_image``.
 """
 from __future__ import annotations
 
@@ -85,7 +89,6 @@ SOURCE_CAPACITIES = {"trace_fwd": ("slots", "nodes", "expr", "entities"),
                      "trace_seg": tuple(CAPACITIES),
                      "probe_march": ("entities",)}
 MARCH_CB = 16      # march steps a checkpoint (trace_common.cuh)
-MAX_TEX_SIDE = 16384   # texels along a texture side (float32 texel coords)
 # how a material's rays travel (trace_common.cuh MAT_*)
 MAT_MARCH = {"warp": 1, "expr": 2}
 
@@ -409,45 +412,54 @@ def scene_args(static, floats, device, tex_shapes):
 
 def _pack_camera(cam, time, y0, device) -> torch.Tensor:
     """The 24-float camera row of pallas_kernel._pack_camera: position,
-    forward, up, right, tan_half_fov, time, y0, then padding."""
-    def scalar(x):
+    forward, up, right, tan_half_fov, time, y0, then padding; every field
+    cast to float32 on ``device`` whatever its dtype, as the Pallas kernel
+    casts it (differentiable: autograd maps the row's cotangent back to
+    each field in its own dtype)."""
+    def f32(x, n):
         if isinstance(x, torch.Tensor):
-            return x.to(device=device, dtype=torch.float32).reshape(1)
-        return torch.full((1,), float(x), dtype=torch.float32, device=device)
+            return x.to(device=device, dtype=torch.float32).reshape(n)
+        return torch.full((n,), float(x), dtype=torch.float32, device=device)
 
-    return torch.cat([cam.position.reshape(4), cam.forward.reshape(4),
-                      cam.up.reshape(4), cam.right.reshape(4),
-                      scalar(cam.tan_half_fov), scalar(time), scalar(y0),
+    return torch.cat([f32(cam.position, 4), f32(cam.forward, 4),
+                      f32(cam.up, 4), f32(cam.right, 4),
+                      f32(cam.tan_half_fov, 1), f32(time, 1), f32(y0, 1),
                       torch.zeros(5, dtype=torch.float32, device=device)])
 
 
+def float32_on(t, device, what: str) -> torch.Tensor:
+    """``t`` as the kernels read it: a contiguous float32 tensor on
+    ``device``, cast by a differentiable ``.to`` from any floating dtype
+    (itself when it is one already), as ``pallas_kernel._table_views``
+    casts every table.  Raises ``ValueError`` for a tensor on another
+    device or of a dtype that is not floating."""
+    if t.device != device or not t.is_floating_point():
+        raise ValueError(f"{what}: the CUDA kernel takes a floating dtype "
+                         f"on {device}, got {t.dtype} on {t.device}")
+    return t.to(torch.float32).contiguous()
+
+
 def texel_buffer(tables, device) -> torch.Tensor:
-    """The textures' texels back to back, the kernels' last float table
-    (one zero when the scene has none).  Raises ``ValueError`` for a
-    texture that is not [h, w, 3] float32 on ``device`` or whose side
-    exceeds MAX_TEX_SIDE."""
+    """The textures' texels back to back in float32, the kernels' last
+    float table (one zero when the scene has none).  Raises ``ValueError``
+    for a texture that is not [h, w, 3] of a floating dtype on ``device``,
+    and for textures of 2^31 floats or more together."""
     for i, t in enumerate(tables.textures):
-        if t.device != device or t.dtype != torch.float32:
-            raise ValueError(f"texture {i}: the CUDA kernel takes float32 on "
-                             f"{device}, got {t.dtype} on {t.device}")
         if t.dim() != 3 or t.shape[2] != 3 or min(t.shape[:2]) < 1:
             raise ValueError(f"texture {i}: shape {tuple(t.shape)} is not "
                              "[h, w, 3]")
-        if max(t.shape[:2]) > MAX_TEX_SIDE:
-            raise ValueError(f"texture {i}: {t.shape[0]} x {t.shape[1]} "
-                             f"texels; the CUDA kernels take at most "
-                             f"{MAX_TEX_SIDE} a side")
     if sum(t.numel() for t in tables.textures) >= 2 ** 31:
         raise ValueError("the textures hold 2^31 floats or more; the CUDA "
                          "kernels index them with int32")
     if not tables.textures:
         return torch.zeros(1, dtype=torch.float32, device=device)
-    return torch.cat([t.reshape(-1) for t in tables.textures])
+    return torch.cat([float32_on(t, device, f"texture {i}").reshape(-1)
+                      for i, t in enumerate(tables.textures)])
 
 
 def _check_tables(static, tables, device):
-    """The float tables in FLOAT_FIELDS order, checked, then the texel
-    buffer (``texel_buffer``)."""
+    """The float tables in FLOAT_FIELDS order, checked and cast to float32
+    (``float32_on``), then the texel buffer (``texel_buffer``)."""
     n_tex = 1 + max((t for k, t in zip(static.surf_kinds, static.surf_texture)
                      if k == "texture"), default=-1)
     if len(tables.textures) < n_tex:
@@ -471,13 +483,10 @@ def _check_tables(static, tables, device):
     out = []
     for name in FLOAT_FIELDS:
         t = getattr(tables, name)
-        if t.device != device or t.dtype != torch.float32:
-            raise ValueError(f"tables.{name}: the CUDA kernel takes float32 "
-                             f"on {device}, got {t.dtype} on {t.device}")
         if tuple(t.shape) != expect[name]:
             raise ValueError(f"tables.{name}: shape {tuple(t.shape)} does "
                              f"not match the scene's {expect[name]}")
-        out.append(t.contiguous())
+        out.append(float32_on(t, device, f"tables.{name}"))
     return out + [texel_buffer(tables, device)]
 
 
@@ -491,14 +500,24 @@ def launch_forward(static, floats, cam_row, H: int, W: int, rows: int,
     iptr, fptr, params, _ints = scene_args(static, floats, device,
                                            tex_shapes)
     out = torch.empty((rows, W, 3), dtype=torch.float32, device=device)
-    cam_row = cam_row.detach().contiguous()
     rc = _entry(library("trace_fwd", static))(
-        iptr, fptr, params, static.t_max, cam_row.data_ptr(), H, W, rows,
+        iptr, fptr, params, static.t_max, camera_ptr(cam_row), H, W, rows,
         out.data_ptr(), device.index,
         torch.cuda.current_stream(device).cuda_stream)
     check_launch("trace_fwd", rc)
     LAUNCHES += 1
     return out
+
+
+def camera_ptr(cam_row) -> int:
+    """The device address of a 24-float camera row (``_pack_camera``),
+    which the kernels read as ``const float*``: raises ``TypeError`` for
+    a row of any other dtype, shape or layout."""
+    if (cam_row.dtype != torch.float32 or cam_row.shape != (24,)
+            or not cam_row.is_contiguous()):
+        raise TypeError(f"camera row: the kernels read 24 contiguous "
+                        f"float32, got {tuple(cam_row.shape)} {cam_row.dtype}")
+    return cam_row.data_ptr()
 
 
 CUDA_ERROR_MEMORY = 2   # cudaErrorMemoryAllocation
@@ -520,6 +539,10 @@ def render_image_cuda(static, tables, cam, H: int, W: int, time=0.0,
     """Render rows [y0, y0 + rows) of the H x W frame with the CUDA kernel
     -> [rows or H, W, 3] float32 on the tables' device.
 
+    Tables, textures and camera of any floating dtype are cast to float32,
+    as ``render_image_pallas`` casts them, and the frame is float32 as
+    that one's is: float64 tables render the bits of the same tables cast
+    to float32.  A float64 render on the card is ``ops.trace.render_image``.
     Takes CUDA tensors only: on any other device it raises, and it never
     falls back to the plain version."""
     device = tables.surf_color.device

@@ -123,7 +123,9 @@ def cast_tables(tables: SceneTables, dtype) -> SceneTables:
     The plain render derives its compute dtype from these arrays (through
     ``tables_to_torch(..., dtype=torch.float64)``) — the CustomFloat
     f32/f64 genericity axis of the reference (SURVEY.md L0).  The CUDA
-    kernels are f32-only."""
+    kernels take tables of any floating dtype and compute in float32, as
+    the Pallas kernels do: they cast float64 tables to float32 and hand
+    back gradients in float64."""
     def cast(f):
         if isinstance(f, tuple):
             return tuple(np.asarray(x, dtype) for x in f)
@@ -371,7 +373,8 @@ def tables_to_torch(tables, device, dtype=torch.float32) -> SceneTables:
     """SceneTables (numpy, from this package or euclider_tpu) -> the same
     NamedTuple holding ``dtype`` tensors on ``device``.  The plain render
     computes in the tables' dtype (float64 is the JAX package's x64 path);
-    the CUDA kernels take float32 only."""
+    the CUDA kernels cast any floating dtype to float32, as the Pallas
+    kernels do, and hand back gradients in the tables' dtype."""
     device = torch.device(device)
     fields = {k: _to_torch(v, device, dtype)
               for k, v in tables._asdict().items() if k != "textures"}

@@ -383,7 +383,7 @@ def render(static, tables, cam, H, W, time=0.0, y0=0, rows=None,
                                                      time, y0)
     out = torch.zeros((R, W, 3), dtype=torch.float32)
     rc = _entry("fwd", asan, **_build_of(static, caps))(
-        iptr, fptr, params, static.t_max, cam_row.data_ptr(), H, W, R,
+        iptr, fptr, params, static.t_max, CK.camera_ptr(cam_row), H, W, R,
         out.data_ptr())
     if rc != 0:
         raise RuntimeError(f"harness_fwd: build {rc} is not compiled")
@@ -404,8 +404,8 @@ def vjp(static, tables, cam, H, W, g, time=0.0, y0=0, rows=None,
     acc = np.zeros(n, np.float64)
     gtex = torch.zeros_like(floats[-1])
     g = g.detach().to(torch.float32).contiguous()
-    args = (iptr, fptr, params, static.t_max, sizes, cam_row.data_ptr(), H,
-            W, R, g.data_ptr())
+    args = (iptr, fptr, params, static.t_max, sizes, CK.camera_ptr(cam_row),
+            H, W, R, g.data_ptr())
     build = _build_of(static, caps)
     if chunk_trips is None:
         got = _entry("bwd", asan, **build)(*args, acc.ctypes.data,
@@ -421,7 +421,7 @@ def vjp(static, tables, cam, H, W, g, time=0.0, y0=0, rows=None,
     if got != n:
         raise RuntimeError("the harness refused the scene")
     flat = torch.from_numpy(acc.astype(np.float32))
-    return CB._grads(static, tables, cam, flat, gtex, floats)[:3]
+    return CB._grads(static, tables, cam, time, flat, gtex, floats)[:3]
 
 
 def compare(sc, H, W, asan=False, seams=False, chunk_trips=None,

@@ -6,8 +6,10 @@ Until the kernels took a wider build for a scene that needs one
 that the JAX package renders and differentiates: a ray tree of more than
 16 stack slots, an entity of more than 32 shape nodes, an expression
 material of more than 128 VM instructions, a marching scene of more than
-32 entities, and a march of more than 512 steps in the backward.  Each
-scene here passes one of them, built from the port's own scene IR:
+32 entities, and a march of more than 512 steps in the backward.  They
+also refused a texture of more than 16,384 texels on a side, which needs
+no wider build.  Each scene here passes one of these limits, built from
+the port's own scene IR:
 
     config2_d24        config2 at max_depth 24, max_nodes 63 (the tape
                        backward), its glass sphere made more reflective
@@ -25,6 +27,11 @@ scene here passes one of them, built from the port's own scene IR:
                        warp step: the march checkpoints
     csg80, config5_crowd72   past 64 nodes and 64 marching entities (the
                        C++ oracle stops at 64), for the CPU tests
+    config3_strips     config3 with its blob textured by a strip of 2 x
+                       40,961 texels and its cut sphere by one of 40,961 x
+                       2, a walk from a fixed seed: the texture side (past
+                       2^15 texels, float32 texel coordinates keep 8
+                       fractional bits)
 
 ``passed`` counts, on the plain version's render of a slab, what shows
 the old limit passed there, and what of it the slab's pixels reach.  CPU
@@ -35,6 +42,7 @@ from __future__ import annotations
 import math
 from dataclasses import replace
 
+import numpy as np
 import torch
 
 OLD_SLOTS = 16          # the stack's old capacity
@@ -42,6 +50,8 @@ OLD_NODES = 32          # shape nodes of one entity
 OLD_EXPR = 128          # VM instructions of one material
 OLD_ENTITIES = 32       # entities of a marching scene
 OLD_MARCH_STEPS = 512   # march steps the backward held (16 x 32 checkpoints)
+OLD_TEX_SIDE = 16384    # texels on a side of a texture
+STRIP = (2, 40961)      # config3_strips' textures: texels across and along
 
 
 def _config2_glassy(max_nodes):
@@ -128,6 +138,46 @@ def _config5_fine():
                    settings=replace(sc.settings, march_steps=1280))
 
 
+def strip_texels(shape, rng) -> np.ndarray:
+    """[h, w, 3] float32 texels, row-major, a walk in [0.05, 0.95]: each
+    step 0.0036 to 0.0108 up or down (drawn from ``rng``) in each channel,
+    folded back at the ends, so that every texel differs from the one
+    before it and a wrong texel shows in the frame's bits.  A walk, not
+    independent draws: sampled by 32 x 24 pixels, independent texels
+    40,961 a strip make the geometry's gradients so large that the
+    camera's up vector, whose gradient is zero in 3D, sums them to float32
+    noise past the gradient rule (1.8 and 4.5 times it for two seeds of
+    config3_strips; the plain version's float32 sum against the harness's
+    float64).  The walk keeps it within a fifth of the rule."""
+    n = shape[0] * shape[1]
+    steps = rng.uniform(0.004, 0.012, (n, 3)) * rng.choice([-1.0, 1.0],
+                                                           (n, 3))
+    x = np.mod(0.5 + np.cumsum(steps, axis=0), 2.0)
+    tri = 1.0 - np.abs(x - 1.0)                   # folded into [0, 1]
+    return (0.05 + 0.9 * tri).reshape(shape + (3,)).astype(np.float32)
+
+
+def _config3_strips():
+    """config3 with its blob textured by a wide strip (texture 0, [2,
+    40961, 3]) and its cut sphere by a tall one (texture 1, [40961, 2,
+    3]), their texels a walk from a fixed seed (``strip_texels``).  The
+    floor keeps its checker: textured, its grazing far hits give
+    per-pixel gradients whose float32 noise alone reaches two thirds of
+    the gradient rule."""
+    from ..scene import ir
+    from ..scene.library import get_scene
+    sc = get_scene("config3_csg_textured")
+    rng = np.random.default_rng(16)
+    across, along = STRIP
+    wide = strip_texels((across, along), rng)
+    tall = strip_texels((along, across), rng)
+    ents = tuple(replace(e, surface=ir.TextureSurface(texture_id=1,
+                                                      uv_scale=2.0))
+                 if e.name == "cut_sphere" else e for e in sc.entities)
+    return replace(sc, name="config3_strips", entities=ents,
+                   textures=(wide.tolist(), tall.tolist()))
+
+
 BUILDERS = {
     "config2_d24": lambda: _config2_glassy(63),
     "config2_d24_deep": lambda: _config2_glassy(255),
@@ -137,6 +187,7 @@ BUILDERS = {
     "config5_fine": _config5_fine,
     "csg80": lambda: _csg(40, 37, "csg80"),
     "config5_crowd72": lambda: _config5_crowd(67, "config5_crowd72"),
+    "config3_strips": _config3_strips,
 }
 # the slab the CPU tests take of every scene, (H, W, y0, rows): rows where
 # each passes its old limit
@@ -145,7 +196,8 @@ SLAB = (24, 32, 8, 4)
 LIMIT = {"config2_d24": "stack", "config2_d24_deep": "stack",
          "csg48": "membership", "csg80": "membership", "config6_long": "vm",
          "config5_crowd": "side mask", "config5_crowd72": "side mask",
-         "config5_fine": "march checkpoints"}
+         "config5_fine": "march checkpoints",
+         "config3_strips": "texture side"}
 
 
 def get_scene(name: str):
@@ -217,13 +269,12 @@ def march_lengths(static, tables, cam, H, W, y0=0, rows=None
     return torch.cat(live) if live else torch.zeros(0, dtype=torch.int32)
 
 
-def entity_hits(static, tables, cam, H, W, y0=0, rows=None) -> list:
-    """Shaded nodes of the plain render of rows [y0, y0 + rows) that hit
-    each entity, marched or not -> [n_ent] ints."""
+def _shaded_hits(static, tables, cam, H, W, y0, rows, visit) -> None:
+    """Render rows [y0, y0 + rows) with the plain version, calling
+    ``visit(hit, out)`` on every shaded node: ``out`` its ``propagate``
+    result (hit, p, dir, ent, normal, u, v), ``hit`` its hits among the
+    node's active rays."""
     from ..ops import trace
-    rows = H if rows is None else rows
-    hits = torch.zeros(len(static.entities), dtype=torch.int64,
-                       device=tables.surf_color.device)
     shade_node, propagate = trace._shade_node, trace.propagate
     active = [None]
 
@@ -233,8 +284,7 @@ def entity_hits(static, tables, cam, H, W, y0=0, rows=None) -> list:
 
     def propagating(*args, **kw):
         out = propagate(*args, **kw)
-        hit = out[0] & active[0]
-        hits.add_(torch.bincount(out[3][hit].long(), minlength=len(hits)))
+        visit(out[0] & active[0], out)
         return out
 
     trace._shade_node, trace.propagate = shading, propagating
@@ -242,7 +292,50 @@ def entity_hits(static, tables, cam, H, W, y0=0, rows=None) -> list:
         trace.render_image(static, tables, cam, H, W, y0=y0, rows=rows)
     finally:
         trace._shade_node, trace.propagate = shade_node, propagate
+
+
+def entity_hits(static, tables, cam, H, W, y0=0, rows=None) -> list:
+    """Shaded nodes of the plain render of rows [y0, y0 + rows) that hit
+    each entity, marched or not -> [n_ent] ints."""
+    hits = torch.zeros(len(static.entities), dtype=torch.int64,
+                       device=tables.surf_color.device)
+
+    def visit(hit, out):
+        hits.add_(torch.bincount(out[3][hit].long(), minlength=len(hits)))
+
+    _shaded_hits(static, tables, cam, H, W, y0, rows, visit)
     return hits.tolist()
+
+
+def texel_hits(static, tables, cam, H, W, y0=0, rows=None) -> tuple:
+    """Shaded nodes of the plain render of rows [y0, y0 + rows) that hit a
+    textured entity -> (their count, the count of them whose bilinear
+    cell (shading.sample_texture's x0, y0) lies at a texel column or row
+    of OLD_TEX_SIDE or past it, that count by texture)."""
+    from ..ops import shading
+    hits = torch.zeros(2 + len(tables.textures), dtype=torch.int64,
+                       device=tables.surf_color.device)
+
+    def visit(hit, out):
+        ent, u, v = out[3], out[5], out[6]
+        for ei, e in enumerate(static.entities):
+            s = e.surface
+            if static.surf_kinds[s] != "texture":
+                continue
+            tid = static.surf_texture[s]
+            th, tw = tables.textures[tid].shape[:2]
+            sc = tables.surf_uv_scale[s]
+            x0 = torch.floor(shading.mod1(u * sc) * (tw - 1))
+            yc = torch.floor(shading.mod1(v * sc) * (th - 1))
+            on = hit & (ent == ei)
+            past = (on & ((x0 >= OLD_TEX_SIDE) | (yc >= OLD_TEX_SIDE))).sum()
+            hits[0] += on.sum()
+            hits[1] += past
+            hits[2 + tid] += past
+
+    _shaded_hits(static, tables, cam, H, W, y0, rows, visit)
+    textured, past, *by_texture = hits.tolist()
+    return textured, past, by_texture
 
 
 def passed(name, static, tables, cam, H, W, y0=0, rows=None) -> dict:
@@ -264,6 +357,14 @@ def passed(name, static, tables, cam, H, W, y0=0, rows=None) -> dict:
                 "count": needs(static)["nodes"],
                 "what": "shape nodes of the largest entity",
                 "hits": hits[0]}
+    if limit == "texture side":
+        textured, past, by_texture = texel_hits(static, tables, cam, H, W,
+                                                y0, rows)
+        return {"limit": limit, "old": OLD_TEX_SIDE, "count": past,
+                "what": "textured hits at a texel column or row of "
+                        f"{OLD_TEX_SIDE} or past it",
+                "textured_hits": textured, "by_texture": by_texture,
+                "sides": [list(t.shape[:2]) for t in tables.textures]}
     lengths = march_lengths(static, tables, cam, H, W, y0, rows)
     if limit == "vm":
         return {"limit": limit, "old": OLD_EXPR,
@@ -286,8 +387,8 @@ def passed(name, static, tables, cam, H, W, y0=0, rows=None) -> dict:
 def is_passed(rec: dict) -> bool:
     """Whether a ``passed`` record shows the old limit passed by the slab's
     pixels: the CSG body hit, the expression region marched, an entity past
-    the old count hit by the march."""
-    if rec["limit"] in ("stack", "march checkpoints"):
+    the old count hit by the march, a texel past the old side sampled."""
+    if rec["limit"] in ("stack", "march checkpoints", "texture side"):
         return rec["count"] > 0
     seen = {"membership": rec.get("hits"), "vm": rec.get("marches"),
             "side mask": min(rec.get("marches", 0),

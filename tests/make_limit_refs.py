@@ -3,6 +3,10 @@ each scene of euclider_tpu_torch/tools/limit_scenes.py, the reference that
 tests/test_torch_limits.py holds the port's plain render to.
 
     JAX_PLATFORMS=cpu python tests/make_limit_refs.py    # about 10 minutes
+    JAX_PLATFORMS=cpu python tests/make_limit_refs.py NAME ...
+
+Named scenes are rendered and written into the existing file, whose other
+scenes' arrays are kept as they are; with no name every scene is.
 
 For each scene, rows [y0, y0 + rows) of its H x W frame (limit_scenes.SLAB):
 the JAX package's camera rays of the slab (``<name>/org``, ``<name>/dir``,
@@ -57,6 +61,9 @@ def lax_slab(name):
 def main(names=None) -> int:
     from euclider_tpu_torch.tools import limit_scenes as LS
     out = {}
+    if names and os.path.exists(OUT):
+        with np.load(OUT) as f:
+            out = dict(f)
     for name in names or LS.BUILDERS:
         org, d, rgb = lax_slab(name)
         out.update({f"{name}/org": org, f"{name}/dir": d,

@@ -160,9 +160,10 @@ def config7_smooth():
 
 
 # the scenes past the kernels' old fixed limits (tools/limit_scenes.py):
-# each takes a wider build
+# each takes a wider build, but config3_strips (textures past 16,384 texels
+# on a side) the default one
 LIMIT_SCENES = ["config2_d24", "config2_d24_deep", "csg48", "config6_long",
-                "config5_crowd", "config5_fine"]
+                "config5_crowd", "config5_fine", "config3_strips"]
 
 
 def scene_on(name, device, **settings):
@@ -1042,3 +1043,117 @@ def test_sharded_path_at_world_size_one_over_nccl(cuda):
                    for a, x, b in zip(leaves(got[1]), xs, ref_g))
     finally:
         dist.destroy_process_group()
+
+
+# --- float64 inputs, cast to float32 as the Pallas kernels cast them ------
+
+FH, FW = 720, 1280         # chip_smoke.py's frame
+DTYPE_SCENES = ["grad_probe", "config3_csg_textured"]
+
+
+def as_float64(tables, cam):
+    """The tables (textures too) and the camera cast to float64."""
+    return (tables._replace(**{k: v.double() for k, v in tables._asdict()
+                               .items() if k != "textures"},
+                            textures=tuple(t.double()
+                                           for t in tables.textures)),
+            type(cam)(*(v.double() for v in cam)))
+
+
+def assert_float32_run(got, ref, static, tables):
+    """Gradient leaves of float64 primals (got) against the float32 run's
+    (ref): float64, the same bits but for the texels', which the kernels
+    sum by atomicAdd in no fixed order (held to the 1e-3 * max(max |ref|,
+    1) rule); the scene has no entry from MAX_PARAMS (160) on, the other
+    sums by atomics."""
+    from euclider_tpu_torch.ops import cuda_bwd
+    floats = cuda_kernel._check_tables(static, tables, tables.surf_color
+                                       .device)
+    assert cuda_bwd.grad_layout(static, floats)[1] <= 160
+    n_tex = len(tables.textures)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.dtype == torch.float64 and b.dtype == torch.float32
+        assert a.shape == b.shape
+        if n_tex and len(cuda_kernel.FLOAT_FIELDS) <= i < len(
+                cuda_kernel.FLOAT_FIELDS) + n_tex:
+            tol = 1e-3 * max(float(b.abs().max()), 1.0)
+            assert float((a - b.double()).abs().max()) <= tol
+        else:
+            assert torch.equal(a, b.double()), i
+
+
+def grad_leaves(d_tables, d_cam, d_time=None):
+    return ([getattr(d_tables, k) for k in cuda_kernel.FLOAT_FIELDS]
+            + list(d_tables.textures) + list(d_cam)
+            + ([d_time.reshape(1)] if d_time is not None else []))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", DTYPE_SCENES)
+def test_float64_tables_render_the_float32_bits(cuda, name):
+    """float64 tables and camera through render_image_cuda (and the
+    top-level render_image) at 1280x720: the float32 run's frame to the
+    bit, in float32; a float64 camera with float32 tables: the float32
+    camera's frame."""
+    static, tables, cam = scene_on(name, cuda)
+    t64, c64 = as_float64(tables, cam)
+    ref = cuda_kernel.render_image_cuda(static, tables, cam, FH, FW)
+    before = cuda_kernel.LAUNCHES
+    got = cuda_kernel.render_image_cuda(static, t64, c64, FH, FW)
+    top = ett.render_image(static, t64, c64, FH, FW)
+    mixed = cuda_kernel.render_image_cuda(static, tables, c64, FH, FW)
+    assert cuda_kernel.LAUNCHES == before + 3
+    for img in (got, top, mixed):
+        assert img.dtype == torch.float32 and torch.equal(img, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", DTYPE_SCENES)
+def test_float64_gradients_are_the_float32_run(cuda, name):
+    """vjp_cuda and train_step_cuda of float64 tables, camera and time at
+    1280x720: every gradient in float64, the float32 run's values
+    (assert_float32_run), the loss float32 and the same."""
+    from euclider_tpu_torch.ops import cuda_bwd
+    static, tables, cam = scene_on(name, cuda)
+    t64, c64 = as_float64(tables, cam)
+    time64 = torch.tensor(0.0, dtype=torch.float64, device=cuda)
+    g = cotangent((FH, FW, 3), 5, cuda)
+    ref = cuda_bwd.vjp_cuda(static, tables, cam, FH, FW, g)
+    got = cuda_bwd.vjp_cuda(static, t64, c64, FH, FW, g, time=time64)
+    assert_float32_run(grad_leaves(*got), grad_leaves(*ref), static, tables)
+    target = cotangent((FH, FW, 3), 6, cuda).sigmoid()
+    ref = cuda_bwd.train_step_cuda(static, tables, cam, target, FH, FW)
+    got = cuda_bwd.train_step_cuda(static, t64, c64, target.double(), FH, FW,
+                                   time=time64)
+    assert got[0].dtype == torch.float32 and torch.equal(got[0], ref[0])
+    assert_float32_run(grad_leaves(*got[1:]), grad_leaves(*ref[1:]), static,
+                       tables)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", DTYPE_SCENES)
+def test_render_image_diff_hands_float64_leaves_float64_gradients(cuda,
+                                                                  name):
+    """autograd through render_image_diff of float64 leaves (tables,
+    textures, camera) at 1280x720: a float32 frame, the float32 run's
+    bits, and each leaf's gradient in float64 with the float32 leaves'
+    values."""
+    from euclider_tpu_torch.ops import cuda_bwd
+    static, tables, cam = scene_on(name, cuda)
+    g = cotangent((FH, FW, 3), 8, cuda)
+    runs = []
+    for t, c in ((tables, cam), as_float64(tables, cam)):
+        tl = [getattr(t, k).clone().requires_grad_(True)
+              for k in cuda_kernel.FLOAT_FIELDS]
+        texs = [x.clone().requires_grad_(True) for x in t.textures]
+        cl = [v.clone().requires_grad_(True) for v in c]
+        img = cuda_bwd.render_image_diff(
+            static, t._replace(**dict(zip(cuda_kernel.FLOAT_FIELDS, tl)),
+                               textures=tuple(texs)), type(c)(*cl), FH, FW)
+        assert img.dtype == torch.float32
+        grads = torch.autograd.grad(img, tl + texs + cl, g,
+                                    allow_unused=True)
+        runs.append((img, [torch.zeros_like(x) if d is None else d
+                           for x, d in zip(tl + texs + cl, grads)]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert_float32_run(runs[1][1], runs[0][1], static, tables)

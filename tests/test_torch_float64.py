@@ -5,12 +5,11 @@ torch.float64)``) render in float64 and closer to the float64 oracle than
 the float32 render.  Torch has no global x64 flag, so no subprocess.
 """
 import numpy as np
-import pytest
 import torch
 
 import euclider_tpu_torch as ett
 from euclider_tpu_torch.oracle.cpu_oracle import render_oracle
-from euclider_tpu_torch.ops.cuda_kernel import _check_tables
+from euclider_tpu_torch.ops.cuda_kernel import FLOAT_FIELDS, _check_tables
 from euclider_tpu_torch.ops.trace import render_image, render_rays
 
 H, W = 12, 20
@@ -57,8 +56,16 @@ def test_render_rays_and_time_follow_the_tables_dtype():
 
 
 def test_cast_helpers_are_exported_and_the_kernels_stay_float32():
-    static, tables, _, t64, c64 = _f64("config1_sphere_room")
+    """The kernels compute in float32: their wrappers cast float64 tables
+    and textures to float32 (the bits of the same tables cast), as the
+    Pallas kernel does, and the float tables they read stay float32."""
+    static, tables, _, t64, c64 = _f64("config3_csg_textured")
     assert ett.cast_tables(tables, np.float64).shape_vec.dtype == np.float64
     assert all(v.dtype == torch.float64 for v in c64)
-    with pytest.raises(ValueError, match="float32"):
-        _check_tables(static, t64, t64.surf_color.device)
+    floats = _check_tables(static, t64, t64.surf_color.device)
+    t32 = ett.tables_to_torch(tables, "cpu")
+    assert all(f.dtype == torch.float32 for f in floats)
+    for f, k in zip(floats, FLOAT_FIELDS):
+        assert torch.equal(f, getattr(t64, k).to(torch.float32)), k
+        assert torch.equal(f, getattr(t32, k)), k
+    assert torch.equal(floats[-1], t32.textures[0].reshape(-1))

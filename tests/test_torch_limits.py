@@ -1,15 +1,17 @@
 """The scenes past the CUDA kernels' old fixed limits, on the CPU.
 
 Each scene of euclider_tpu_torch/tools/limit_scenes.py passes one of the
-five limits the kernels once refused (a stack of more than 16 slots, an
+six limits the kernels once refused (a stack of more than 16 slots, an
 entity of more than 32 shape nodes, an expression of more than 128 VM
 instructions, a marching scene of more than 32 entities, a march of more
-than 512 steps in the backward); csg80 and config5_crowd72 pass 64 nodes
-and 64 marching entities, past the C++ oracle's reach.  For each, on rows
-[8, 12) of its 32 x 24 frame (limit_scenes.SLAB):
+than 512 steps in the backward, a texture of more than 16,384 texels on a
+side); csg80 and config5_crowd72 pass 64 nodes and 64 marching entities,
+past the C++ oracle's reach.  For each, on rows [8, 12) of its 32 x 24
+frame (limit_scenes.SLAB):
 
   - the slab passes the old limit, by the plain render's own counts, and
-    the kernels take a build whose capacity holds the scene;
+    the kernels take a build whose capacity holds the scene (config3_strips,
+    past the texture side, the default build: no capacity holds a side);
   - the port's plain trace against the JAX package's lax trace, within
     1e-5 on every pixel;
   - the kernels' device code (tools/kernel_harness.py, g++, in the build of
@@ -75,11 +77,24 @@ def test_slab_passes_the_old_limit(name):
     """The slab's pixels pass the scene's old limit (a stack held more
     than 16 branches, a march ran past 512 steps, the CSG body or the
     expression region is reached, an entity past the 32nd is crossed by
-    the march), and every kernel takes a build whose capacity holds the
-    scene, encode_scene and route taking it as they take any other."""
+    the march, a texel past the 16,384th of a side is sampled), and every
+    kernel takes a build whose capacity holds the scene, encode_scene and
+    route taking it as they take any other; past the texture side, every
+    texture is sampled there, the default builds take the scene and
+    _check_tables its texel buffer whole."""
     static, tables, cam = load(name)
     rec = LS.passed(name, static, tables, cam, H, W, Y0, ROWS)
     assert LS.is_passed(rec), rec
+    if LS.LIMIT[name] == "texture side":
+        assert all(n > 0 for n in rec["by_texture"]), rec
+        assert all(max(t.shape[:2]) > LS.OLD_TEX_SIDE
+                   for t in tables.textures)
+        assert cuda_kernel.capacities(static) == ()
+        assert cuda_kernel.library("trace_bwd", static) == "trace_bwd_shapes"
+        buf = cuda_kernel._check_tables(static, tables, torch.device("cpu"))
+        assert torch.equal(buf[-1], torch.cat([t.reshape(-1)
+                                               for t in tables.textures]))
+        return
     cap = CAPACITY[LS.LIMIT[name]]
     need = cuda_kernel.needs(static)[cap]
     default = cuda_kernel.CAPACITIES[cap][0]

@@ -25,6 +25,7 @@ H, W = 16, 128   # the jit shapes of tests/test_pallas_parity.py
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens.npz")
 SLICE = ("config1_sphere_room", "config2_mirror_glass", "grad_probe",
          "fresnel_probe")
+OLD_TEX_SIDE = 16384   # texels a side the CUDA kernels once took at most
 
 
 def port_inputs(compiled_scenes, name):
@@ -90,7 +91,8 @@ def beyond_limits(compiled_scenes, name):
     """A library scene grown past one of the CUDA kernels' limits:
     config3's blob a union of 32 spheres (one node more than the default
     build's membership bits hold), perlin_probe's terrain textured by a
-    texture wider than MAX_TEX_SIDE.  -> (static, torch tables, camera)."""
+    texture one texel wider than the 16,384 a side the kernels once took.
+    -> (static, torch tables, camera)."""
     from dataclasses import replace
     from euclider_tpu.scene import ir
     sc = compiled_scenes[name][0]
@@ -102,7 +104,7 @@ def beyond_limits(compiled_scenes, name):
                      for e in sc.entities)
         sc = replace(sc, entities=ents)
     else:
-        tex = np.full((2, cuda_kernel.MAX_TEX_SIDE + 1, 3), 0.5, np.float32)
+        tex = np.full((2, OLD_TEX_SIDE + 1, 3), 0.5, np.float32)
         ents = tuple(replace(e, surface=ir.TextureSurface(texture_id=0))
                      if e.name == "terrain" else e for e in sc.entities)
         sc = replace(sc, entities=ents, textures=(tex.tolist(),))
@@ -113,11 +115,12 @@ def beyond_limits(compiled_scenes, name):
 
 @pytest.mark.parametrize("name", ["config3_csg_textured", "perlin_probe"])
 def test_cuda_encoder_refuses_unsupported_features(compiled_scenes, name):
-    """The kernels render every feature of the library scenes; all they
-    refuse, before any launch, is a texture larger than they index.  An
-    entity of more shape nodes than the default build's membership bits,
-    once refused, encodes and takes the builds of 64.  The plain version
-    renders both."""
+    """The kernels render every feature of the library scenes, and refuse
+    neither of these scenes, each once refused.  An entity of more shape
+    nodes than the default build's membership bits encodes and takes the
+    builds of 64; a texture past 16,384 texels on a side goes into the
+    texel buffer whole, in the default build.  The plain version renders
+    both."""
     static, tables, cam = beyond_limits(compiled_scenes, name)
     cuda_kernel.encode_scene(compiled_scenes[name][1])   # the scene itself
     if name == "config3_csg_textured":
@@ -127,7 +130,10 @@ def test_cuda_encoder_refuses_unsupported_features(compiled_scenes, name):
             "trace_fwd_shapes+nodes64"
     else:
         cuda_kernel.encode_scene(static)
-        with pytest.raises(ValueError, match="texels"):
-            cuda_kernel._check_tables(static, tables, torch.device("cpu"))
+        assert cuda_kernel.capacities(static) == ()
+        buf = cuda_kernel._check_tables(static, tables,
+                                        torch.device("cpu"))[-1]
+        assert buf.dtype == torch.float32
+        assert torch.equal(buf, tables.textures[0].reshape(-1))
     img = trace.render_image(static, tables, cam, 8, 8)
     assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
