@@ -5,8 +5,9 @@ The port's plain geometry and shading (ops/geometry.py, ops/shading.py) are
 held against the JAX functions they port on seeded numpy inputs; the plain
 render of the scenes that use them (config3_csg_textured, perlin_probe, the
 cylinder scene of tests/test_cylinder.py) against the lax render, the
-goldens and the float64 C++ oracle; and the plain backward against jit'd
-jax.vjp, the textures' texels included.
+goldens and the float64 C++ oracle; and the plain backward against
+jax.vjp, the textures' texels included.  The lax renders and the jax.vjp
+leaves are stored (tests/jax_refs.py).
 """
 import os
 from dataclasses import replace
@@ -28,9 +29,10 @@ from euclider_tpu_torch.ops import geometry as G
 from euclider_tpu_torch.ops import shading as S
 from euclider_tpu_torch.ops import trace
 from euclider_tpu_torch.ops import vec as V
-from euclider_tpu_torch.ops.vjp import FLOAT_FIELDS, vjp_blocked
+from euclider_tpu_torch.ops.vjp import vjp_blocked
 from euclider_tpu_torch.utils.validate import assert_oracle_match
 
+import jax_refs
 from conftest import assert_images_close
 from test_cylinder import _cyl_scene
 
@@ -266,13 +268,23 @@ def test_texture_sample_matches_jax_at_negative_uv():
 SCENES = ("config3_csg_textured", "perlin_probe", "cylinder_test")
 
 
+@jax_refs.stored("csg.lax", SCENES)
+def lax_ref(name):
+    """The lax render at 16 x 128, op by op: on a CPU that takes a fraction
+    of the time of its jit compile."""
+    sc = scene(name)
+    static, tables, cam, _, _ = compiled(sc)
+
+    def run():
+        with jax.disable_jit():
+            return {"rgb": et.render_image(static, tables, cam, 16, 128)}
+    return {"scene": sc, "H": 16, "W": 128}, run
+
+
 @pytest.mark.parametrize("name", SCENES)
 def test_plain_matches_lax(name):
-    """The lax render runs op by op: on a CPU that takes a fraction of the
-    time of its jit compile."""
     static, tables, cam, ttables, tcam = compiled(scene(name))
-    with jax.disable_jit():
-        ref = np.asarray(et.render_image(static, tables, cam, 16, 128))
+    ref = lax_ref.load(name)["rgb"]
     got = trace.render_image(static, ttables, tcam, 16, 128)
     # an ulp of the texel coordinate or of a probe point may move one
     # pixel: allow 0.2% of them, as tests/test_torch_trace.py does
@@ -306,42 +318,52 @@ def grad_case(name):
     return replace(sc, settings=replace(sc.settings, max_depth=2))
 
 
+def grad_cotangent():
+    return np.random.default_rng(7).normal(size=(16, 24, 3)).astype(
+        np.float32)
+
+
+@jax_refs.stored("csg.vjp", ["config3_csg_textured", "cylinder_smooth"])
+def vjp_ref(name):
+    """jax.vjp of the lax render at 16 x 24, op by op, as
+    tests/test_torch_grad.py runs it: on a CPU its jit compile of these
+    scenes' reverse pass takes longer than the op-by-op run (ROADMAP.md
+    Queue 3)."""
+    sc = grad_case(name)
+    static, tables, cam, _, _ = compiled(sc)
+    g = grad_cotangent()
+
+    def run():
+        t32 = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32), tables)
+        with jax.disable_jit():
+            _, vjp = jax.vjp(lambda t, c: et.render_image(static, t, c, 16,
+                                                          24, True), t32, cam)
+            return jax_refs.leaves(*vjp(jnp.asarray(g)))
+    return {"scene": sc, "H": 16, "W": 24, "seed": 7, "cotangent": g}, run
+
+
 @pytest.mark.parametrize("name", ["config3_csg_textured", "cylinder_smooth"])
 def test_vjp_matches_jax(name):
     """vjp_blocked against jax.vjp of the lax render at 16 x 24: every float
     table, every texel and the camera within 1e-3 * max(max |ref|, 1)
-    (tests/test_gradients.py's rule).  The JAX side runs op by op, as
-    tests/test_torch_grad.py runs it: on a CPU its jit compile of these
-    scenes' reverse pass takes longer than the op-by-op run (ROADMAP.md
-    Queue 3)."""
+    (tests/test_gradients.py's rule)."""
     static, tables, cam, ttables, tcam = compiled(grad_case(name))
     H, W = 16, 24
-    g = np.random.default_rng(7).normal(size=(H, W, 3)).astype(np.float32)
-    t32 = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32), tables)
-    with jax.disable_jit():
-        _, vjp = jax.vjp(
-            lambda t, c: et.render_image(static, t, c, H, W, True), t32, cam)
-        gt_ref, gc_ref = vjp(jnp.asarray(g))
+    g = grad_cotangent()
+    ref = vjp_ref.load(name)
     gt, gc, _ = vjp_blocked(static, ttables, tcam, H, W, torch.from_numpy(g))
-    names = (list(FLOAT_FIELDS) + [f"textures[{i}]" for i in
-                                   range(len(gt.textures))]
-             + [f"cam.{k}" for k in gc._fields])
-    ref = ([np.asarray(getattr(gt_ref, k)) for k in FLOAT_FIELDS]
-           + [np.asarray(t) for t in gt_ref.textures]
-           + [np.asarray(v) for v in gc_ref])
-    got = ([getattr(gt, k).numpy() for k in FLOAT_FIELDS]
-           + [t.numpy() for t in gt.textures] + [v.numpy() for v in gc])
-    assert len(ref) == len(got) == len(names)
-    for k, a, b in zip(names, ref, got):
-        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    got = jax_refs.leaves(gt, gc)
+    assert sorted(ref) == sorted(got)
+    for k, b in got.items():
+        a, b = np.asarray(ref[k], np.float64), np.asarray(b, np.float64)
         assert a.shape == b.shape, k
         tol = 1e-3 * max(np.abs(a).max(), 1.0)
         assert np.abs(a - b).max() <= tol, (k, np.abs(a - b).max(), tol)
     if name == "config3_csg_textured":
-        assert np.abs(ref[len(FLOAT_FIELDS)]).max() > 1e-2  # the texels
+        assert np.abs(ref["textures[0]"]).max() > 1e-2  # the texels
     else:
         # the cylinders' rows (centre and axis) get gradients
         rows = [e.shape[1] for e in static.entities if e.shape[0] ==
                 "cylinder"]
-        assert np.abs(ref[0][rows[0]]).max() > 1e-3
-        assert np.abs(ref[0][rows[0] + 1]).max() > 1e-3
+        assert np.abs(ref["shape_vec"][rows[0]]).max() > 1e-3
+        assert np.abs(ref["shape_vec"][rows[0] + 1]).max() > 1e-3

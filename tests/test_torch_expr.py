@@ -8,7 +8,8 @@ CUDA kernels' encoding of the expression programs (replayed by a Python VM)
 are held against their JAX counterparts on seeded inputs.  The plain
 versions are what the CUDA kernels' expression VM (csrc/trace_common.cuh,
 csrc/trace_bwd.cu) is held against on the card (tests/test_torch_cuda.py,
-chip_smoke.py).
+chip_smoke.py).  The lax renders and the jax.vjp leaves of the scenes are
+stored (tests/jax_refs.py).
 """
 import filecmp
 import math
@@ -34,6 +35,7 @@ from euclider_tpu_torch.oracle.native_oracle import render_native
 from euclider_tpu_torch.scene import expr as TE
 from euclider_tpu_torch.utils.validate import assert_oracle_match
 
+import jax_refs
 from conftest import assert_images_close
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -238,11 +240,21 @@ def test_make_accel_matches_jax():
 
 # --- the plain render -----------------------------------------------------------
 
+@jax_refs.stored("expr.lax", ["config6_expr_space"])
+def config6_ref(name):
+    """The jit'd lax render of config6 at 16 x 128."""
+    sc = et.get_scene(name)
+    static, tables, cam, _, _ = compiled(sc)
+    return ({"scene": sc, "H": 16, "W": 128},
+            lambda: {"rgb": et.render_image_jit(static, tables, cam, 16,
+                                                128)})
+
+
 def test_plain_config6_matches_lax(compiled_scenes):
     """The rule of tests/test_torch_trace.py at its shapes (16 x 128, the
     jit shape tests/test_expr_space.py renders config6 at)."""
     _, static, tables, cam = compiled_scenes["config6_expr_space"]
-    ref = np.asarray(et.render_image_jit(static, tables, cam, 16, 128))
+    ref = config6_ref.load("config6_expr_space")["rgb"]
     got = trace.render_image(static, ett.tables_to_torch(tables, "cpu"),
                              ett.camera_to_torch(cam, "cpu"), 16, 128)
     assert got.shape == (16, 128, 3) and got.dtype == torch.float32
@@ -271,15 +283,24 @@ def test_plain_config6_passes_oracle_gate(compiled_scenes):
                                label="config6_expr_space") >= 0.99
 
 
+@jax_refs.stored("expr.time", [0.0, 1.5])
+def time_ref(tm):
+    """tests/test_expr_space.py::test_scene_time_plumbs_to_expressions'
+    scene and shapes: the jit'd lax render at scene time ``tm``."""
+    sc = tiny_expr_scene(ax="p0 * sin(p1 * z + t)")
+    static, tables, cam, _, _ = compiled(sc)
+    return ({"scene": sc, "H": 12, "W": 16, "time": tm},
+            lambda: {"rgb": et.render_image_jit(static, tables, cam, 12, 16,
+                                                False, tm)})
+
+
 @pytest.mark.parametrize("tm", [0.0, 1.5])
 def test_render_time_matches_lax(tm):
-    """tests/test_expr_space.py::test_scene_time_plumbs_to_expressions'
-    scene and shapes: the port's render at scene time 0 and 1.5 against
-    lax within 1e-5, and time animates the field."""
+    """The port's render at scene time 0 and 1.5 against lax within 1e-5,
+    and time animates the field."""
     sc = tiny_expr_scene(ax="p0 * sin(p1 * z + t)")
     static, tables, cam, ttables, tcam = compiled(sc)
-    ref = np.asarray(et.render_image_jit(static, tables, cam, 12, 16, False,
-                                         tm))
+    ref = time_ref.load(tm)["rgb"]
     got = trace.render_image(static, ttables, tcam, 12, 16, tm).numpy()
     assert_images_close(ref, got, atol=1e-5, msg=f"torch-vs-lax t={tm}")
     other = trace.render_image(static, ttables, tcam, 12, 16, 1.5 - tm)
@@ -288,36 +309,50 @@ def test_render_time_matches_lax(tm):
 
 # --- gradients ----------------------------------------------------------------
 
+def vjp_case():
+    """The smooth-wall expression scene at scene time 0.3 (8 x 12, 24 march
+    steps) -> (scene, compiled, H, W, time, cotangent)."""
+    sc = tiny_expr_scene(ax="p0 * sin(p1 * z + t)", march=24)
+    H, W = 8, 12
+    g = np.random.default_rng(5).normal(size=(H, W, 3)).astype(np.float32)
+    return sc, compiled(sc), H, W, 0.3, g
+
+
+@jax_refs.stored("expr.vjp", ["tiny_expr"])
+def vjp_ref(_):
+    """jit'd jax.vjp of the lax render of vjp_case's scene."""
+    sc, (static, tables, cam, _, _), H, W, tm, g = vjp_case()
+
+    def run():
+        t32 = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32), tables)
+
+        @jax.jit
+        def jvjp(t, c, tm, g):
+            return jax.vjp(lambda t, c, tm: et.render_image(
+                static, t, c, H, W, True, tm), t, c, tm)[1](g)
+
+        return jax_refs.leaves(*jvjp(t32, cam, jnp.float32(tm),
+                                     jnp.asarray(g)))
+    return ({"scene": sc, "H": H, "W": W, "time": tm, "seed": 5,
+             "cotangent": g}, run)
+
+
 def test_vjp_matches_jax():
     """vjp_blocked against jit'd jax.vjp of the lax render on the smooth-wall
     expression scene at scene time 0.3 (8 x 12, 24 march steps): every leaf
     within 1e-3 * max(max |ref|, 1) (tests/test_gradients.py's rule),
     mat_expr_params and the time's gradient included, both nonzero."""
-    sc = tiny_expr_scene(ax="p0 * sin(p1 * z + t)", march=24)
-    static, tables, cam, ttables, tcam = compiled(sc)
-    H, W, tm = 8, 12, 0.3
-    g = np.random.default_rng(5).normal(size=(H, W, 3)).astype(np.float32)
-    t32 = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32), tables)
-
-    @jax.jit
-    def jvjp(t, c, tm, g):
-        return jax.vjp(lambda t, c, tm: et.render_image(
-            static, t, c, H, W, True, tm), t, c, tm)[1](g)
-
-    gt_ref, gc_ref, gtm_ref = jvjp(t32, cam, jnp.float32(tm), jnp.asarray(g))
-    gt, gc, gtm = vjp_blocked(static, ttables, tcam, H, W,
-                              torch.from_numpy(g), time=tm)
-    ref = ([np.asarray(getattr(gt_ref, k)) for k in FLOAT_FIELDS]
-           + [np.asarray(v) for v in gc_ref] + [np.asarray(gtm_ref)])
-    got = ([getattr(gt, k).numpy() for k in FLOAT_FIELDS]
-           + [v.numpy() for v in gc] + [gtm.numpy()])
-    for k, a, b in zip(FLOAT_FIELDS + tuple(gc._fields) + ("time",), ref,
-                       got):
-        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    _, (static, _, _, ttables, tcam), H, W, tm, g = vjp_case()
+    ref = vjp_ref.load("tiny_expr")
+    got = jax_refs.leaves(*vjp_blocked(static, ttables, tcam, H, W,
+                                       torch.from_numpy(g), time=tm))
+    assert sorted(ref) == sorted(got)
+    for k, b in got.items():
+        a, b = np.asarray(ref[k], np.float64), np.asarray(b, np.float64)
         tol = 1e-3 * max(np.abs(a).max(), 1.0)
         assert np.abs(a - b).max() <= tol, (k, np.abs(a - b).max(), tol)
-    assert np.abs(np.asarray(gt_ref.mat_expr_params)).max() > 1e-3
-    assert abs(float(gtm_ref)) > 1e-3
+    assert np.abs(ref["mat_expr_params"]).max() > 1e-3
+    assert abs(float(ref["time"])) > 1e-3
 
 
 def test_loss_fn_differentiates_the_scene_time():

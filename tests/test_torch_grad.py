@@ -6,8 +6,10 @@ True)`` under the same numpy cotangent, with the JAX package's own rule
 (``tests/test_gradients.py::_assert_grads_close``: per leaf, max |diff| <=
 1e-3 * max(max |ref|, 1)).  The JAX side runs with jit disabled: its compile
 of the reverse-mode bounce loop takes minutes on the CPU, its op-by-op run
-seconds.  Scenes are cut to ``max_depth=2`` (``test_gradients._depth2``),
-which already exercises both pushes and the loop.
+seconds.  Its leaves are stored (tests/jax_refs.py), and config4's are
+re-derived live.  Scenes are cut to ``max_depth=2``
+(``test_gradients._depth2``), which already exercises both pushes and the
+loop.
 """
 from dataclasses import replace
 
@@ -20,6 +22,7 @@ import torch
 import euclider_tpu as et
 
 import euclider_tpu_torch as ett
+import jax_refs
 from euclider_tpu_torch.ops import trace
 from euclider_tpu_torch.ops.vjp import FLOAT_FIELDS, vjp_blocked
 
@@ -28,11 +31,15 @@ PROBES = ("grad_probe", "fresnel_probe", "config2_mirror_glass",
           "config4_hypersphere")
 
 
+def depth2_scene(name):
+    sc = et.get_scene(name)
+    return replace(sc, settings=replace(sc.settings, max_depth=2))
+
+
 def depth2(name):
     """(static, numpy tables, numpy camera) of a library scene at depth 2,
     compiled by the JAX package."""
-    sc = et.get_scene(name)
-    sc = replace(sc, settings=replace(sc.settings, max_depth=2))
+    sc = depth2_scene(name)
     static, tables = et.compile_scene(sc)
     return static, tables, et.compile_camera(sc.camera)
 
@@ -70,20 +77,38 @@ def cotangent(seed):
         np.float32)
 
 
+@jax_refs.stored("grad.vjp", PROBES)
+def vjp_ref(name):
+    """jax.vjp of the lax render of the scene at depth 2 under cotangent(0):
+    the leaves by name (jax_refs.leaves)."""
+    static, tables, cam = depth2(name)
+    g = cotangent(0)
+    return ({"scene": depth2_scene(name), "H": H, "W": W, "seed": 0,
+             "cotangent": g},
+            lambda: jax_refs.leaves(*jax_vjp(static, tables, cam, g)))
+
+
 @pytest.mark.parametrize("name", PROBES)
 def test_vjp_matches_jax(name):
     static, tables, cam = depth2(name)
     g = cotangent(0)
-    gt_ref, gc_ref = jax_vjp(static, tables, cam, g)
+    ref = vjp_ref.load(name)
     tt, tc = to_port(tables, cam)
     gt, gc, gtm = vjp_blocked(static, tt, tc, H, W, torch.from_numpy(g),
                               block_rows=H)
-    assert_grads_close(leaves(gt_ref, gc_ref), leaves(gt, gc))
+    got = jax_refs.leaves(gt, gc)
+    assert sorted(ref) == sorted(got)
+    assert_grads_close([ref[k] for k in got], list(got.values()))
     assert float(gtm) == 0.0
     if name == "grad_probe":
         # every surface of grad_probe has fresnel 0: the Schlick skip of the
         # non-differentiable render would zero this leaf
-        assert np.abs(np.asarray(gt_ref.surf_fresnel)).min() > 1e-3
+        assert np.abs(ref["surf_fresnel"]).min() > 1e-3
+
+
+def test_vjp_reference_is_the_jax_vjp():
+    """The stored leaves are jax.vjp's, to the bit (the cheapest case)."""
+    jax_refs.assert_live_is_stored(vjp_ref, "config4_hypersphere")
 
 
 def test_differentiable_flag_keeps_pruned_gradients():

@@ -19,16 +19,15 @@ frame (limit_scenes.SLAB):
     backward, as tests/test_torch_harness.py holds the library scenes: the
     tape route, and the segmented route for config2_d24_deep.
 
-The lax reference is stored (tests/limit_refs.npz, written by
-tests/make_limit_refs.py): op by op it takes 10 to 145 s a scene, and the
-JAX package is frozen.  Two scenes re-derive it live.  The port traces the
-JAX package's own camera rays: each package's rays differ from the
-other's by an ulp, which a grazing hit on csg48's knobs or a chain of 20
+The lax reference is stored (``limits.slab`` in tests/jax_refs.npz,
+written by tests/make_jax_refs.py): op by op it takes 10 to 145 s a scene,
+and the JAX package is frozen.  Two scenes re-derive it live.  The port
+traces the JAX package's own camera rays: each package's rays differ from
+the other's by an ulp, which a grazing hit on csg48's knobs or a chain of 20
 internal reflections in config2_d24's glass amplifies past 1e-5 (csg48:
 13 of 128 pixels, up to 9.0e-5, where each casts its own rays; 6e-8 on
 the same rays).  The rays themselves are held within 1e-6.
 """
-import os
 import shutil
 
 import numpy as np
@@ -41,12 +40,10 @@ from euclider_tpu_torch.ops.vec import Vec
 from euclider_tpu_torch.tools import kernel_harness as KH
 from euclider_tpu_torch.tools import limit_scenes as LS
 
-import make_limit_refs
+import jax_refs
 
 H, W, Y0, ROWS = LS.SLAB
 NAMES = tuple(LS.BUILDERS)
-REFS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                    "limit_refs.npz")
 # the capacity each scene's limit is
 CAPACITY = {"stack": "slots", "membership": "nodes", "vm": "expr",
             "side mask": "entities", "march checkpoints": "ckpts"}
@@ -59,10 +56,33 @@ def load(name):
             ett.camera_to_torch(ett.compile_camera(sc.camera), "cpu"))
 
 
-@pytest.fixture(scope="module")
-def refs():
-    with np.load(REFS) as f:
-        return dict(f)
+@jax_refs.stored("limits.slab", NAMES)
+def slab_ref(name):
+    """The JAX package's camera rays of the scene's slab and its lax
+    colour of them, op by op (``jax.disable_jit``: the port's tests hold
+    against the op-by-op lax render, whose arithmetic is XLA's operation by
+    operation): ``org`` and ``dir`` [rows, W, 4], ``rgb`` [rows, W, 3]."""
+    sc = LS.get_scene(name)
+
+    def run():
+        import jax
+        import jax.numpy as jnp
+        import euclider_tpu as et
+        from euclider_tpu.ops import trace as jtrace
+        from euclider_tpu.scene import jsonio as jax_jsonio
+        from euclider_tpu_torch.scene import jsonio
+        jsc = jax_jsonio.scene_from_dict(jsonio.scene_to_dict(sc))
+        static, tables = et.compile_scene(jsc)
+        cam = et.compile_camera(jsc.camera)
+        yi, xi = np.mgrid[Y0:Y0 + ROWS, 0:W].astype(np.float32)
+        with jax.disable_jit():
+            org, d = jtrace.camera_rays(cam, jnp.asarray(xi),
+                                        jnp.asarray(yi), W, H)
+            rgb = jtrace.trace_batch(static, tables, org, d)
+        stack = lambda v: np.stack([np.asarray(c, np.float32) for c in v],
+                                   -1)
+        return {"org": stack(org), "dir": stack(d), "rgb": stack(rgb)}
+    return {"scene": sc, "slab": LS.SLAB}, run
 
 
 @pytest.fixture(scope="module")
@@ -113,18 +133,16 @@ def test_slab_passes_the_old_limit(name):
 
 
 @pytest.mark.parametrize("name", NAMES)
-def test_plain_matches_lax(refs, name):
+def test_plain_matches_lax(name):
     """The port's plain trace of the JAX package's camera rays of the slab
     against the JAX package's lax trace of them: within 1e-5 on every
     pixel; the port's own rays within 1e-6 of the JAX package's."""
-    assert str(refs[f"{name}/scene"]) == make_limit_refs.scene_hash(
-        LS.get_scene(name)), "tests/limit_refs.npz is stale: rerun " \
-        "tests/make_limit_refs.py"
+    refs = slab_ref.load(name)
     static, tables, cam = load(name)
-    org, d = (Vec(*(torch.from_numpy(refs[f"{name}/{k}"][..., i].copy())
+    org, d = (Vec(*(torch.from_numpy(refs[k][..., i].copy())
                     for i in range(4))) for k in ("org", "dir"))
     got = torch.stack(trace.trace_batch(static, tables, org, d), -1).numpy()
-    ref = refs[f"{name}/rgb"]
+    ref = refs["rgb"]
     assert got.shape == ref.shape == (ROWS, W, 3)
     err = np.abs(got - ref).max()
     assert err <= 1e-5, err
@@ -134,16 +152,14 @@ def test_plain_matches_lax(refs, name):
     po, pd = trace.camera_rays(cam, xi, yi, W, H)
     for k, v in (("org", po), ("dir", pd)):
         mine = torch.stack(tuple(v), -1).numpy()
-        assert np.abs(mine - refs[f"{name}/{k}"]).max() <= 1e-6, k
+        assert np.abs(mine - refs[k]).max() <= 1e-6, k
 
 
 @pytest.mark.parametrize("name", ["config6_long", "config2_d24"])
-def test_lax_reference_is_the_jax_render(refs, name):
+def test_lax_reference_is_the_jax_render(name):
     """The stored reference is the JAX package's op-by-op lax render of
     the slab, to the bit (the two scenes whose live render is cheapest)."""
-    org, d, rgb = make_limit_refs.lax_slab(name)
-    for k, a in (("org", org), ("dir", d), ("rgb", rgb)):
-        assert np.array_equal(a, refs[f"{name}/{k}"]), k
+    jax_refs.assert_live_is_stored(slab_ref, name)
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -5,7 +5,9 @@ finish), the plain render of config5 and config7 (ops/trace.py), its
 gradients, and the reversible-march probe (ops/probes.py) are held against
 their JAX counterparts on seeded inputs.  The plain versions are what the
 CUDA kernels (csrc/trace_fwd.cu, csrc/trace_bwd.cu, csrc/probe_rev.cu) are
-held against on the card (tests/test_torch_cuda.py, chip_smoke.py).
+held against on the card (tests/test_torch_cuda.py, chip_smoke.py).  The
+JAX package's lax renders and jax.vjp leaves are stored
+(tests/jax_refs.py).
 """
 import os
 from dataclasses import replace
@@ -24,10 +26,11 @@ from euclider_tpu.ops.vec import Vec as JVec
 import euclider_tpu_torch as ett
 from euclider_tpu_torch.ops import march, probes, trace
 from euclider_tpu_torch.ops.vec import Vec
-from euclider_tpu_torch.ops.vjp import FLOAT_FIELDS, vjp_blocked
+from euclider_tpu_torch.ops.vjp import vjp_blocked
 from euclider_tpu_torch.oracle.native_oracle import render_native
 from euclider_tpu_torch.utils.validate import assert_oracle_match
 
+import jax_refs
 from conftest import assert_images_close
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens.npz")
@@ -151,12 +154,22 @@ def test_march_finish_matches_jax(compiled_scenes):
                                    rtol=0, atol=1e-6)
 
 
+@jax_refs.stored("march.lax", WARP_SCENES)
+def lax_ref(name):
+    """The jit'd lax render of the library scene at 16 x 128."""
+    sc = et.get_scene(name)
+    static, tables = et.compile_scene(sc)
+    cam = et.compile_camera(sc.camera)
+    return ({"scene": sc, "H": 16, "W": 128},
+            lambda: {"rgb": et.render_image_jit(static, tables, cam, 16,
+                                                128)})
+
+
 @pytest.mark.parametrize("name", WARP_SCENES)
 def test_plain_matches_lax(compiled_scenes, name):
     """The rule of tests/test_torch_trace.py at its shapes (16 x 128, the
     jit shape tests/test_pallas_parity.py renders config5 at)."""
-    _, static, tables, cam = compiled_scenes[name]
-    ref = np.asarray(et.render_image_jit(static, tables, cam, 16, 128))
+    ref = lax_ref.load(name)["rgb"]
     got = trace.render_image(*port_inputs(compiled_scenes, name), 16, 128)
     assert got.shape == (16, 128, 3) and got.dtype == torch.float32
     assert_images_close(ref, got.numpy(), atol=1e-5, max_bad_frac=0.002,
@@ -213,9 +226,9 @@ def warp_gradient_scene(ir, march_steps):
 
 
 def gradient_case(case):
-    """(static, numpy tables, numpy camera, H, W), compiled by the JAX
-    package, cut to march_steps 23 (test_gradients.py:454-456).  The warp
-    scene is also cut to max_nodes 3, which no ray of it exceeds (its
+    """(scene, static, numpy tables, numpy camera, H, W), compiled by the
+    JAX package, cut to march_steps 23 (test_gradients.py:454-456).  The
+    warp scene is also cut to max_nodes 3, which no ray of it exceeds (its
     surfaces reflect nothing: region, march, wall), for the time of the
     op-by-op JAX reverse pass."""
     from euclider_tpu.scene import ir
@@ -228,7 +241,27 @@ def gradient_case(case):
                                           march_steps=23))
         H, W = 16, 24
     static, tables = et.compile_scene(sc)
-    return static, tables, et.compile_camera(sc.camera), H, W
+    return sc, static, tables, et.compile_camera(sc.camera), H, W
+
+
+def gradient_cotangent(H, W):
+    return np.random.default_rng(5).normal(size=(H, W, 3)).astype(np.float32)
+
+
+@jax_refs.stored("march.vjp", ["warp_scene", "config5"])
+def vjp_ref(case):
+    """jax.vjp of the lax render (jit disabled, as tests/test_torch_grad.py
+    runs it): the leaves by name."""
+    sc, static, tables, cam, H, W = gradient_case(case)
+    g = gradient_cotangent(H, W)
+
+    def run():
+        t32 = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32), tables)
+        with jax.disable_jit():
+            _, vjp = jax.vjp(lambda t, c: et.render_image(static, t, c, H, W,
+                                                          True), t32, cam)
+            return jax_refs.leaves(*vjp(jnp.asarray(g)))
+    return {"scene": sc, "H": H, "W": W, "seed": 5, "cotangent": g}, run
 
 
 @pytest.mark.parametrize("case", ["warp_scene", "config5"])
@@ -236,27 +269,21 @@ def test_vjp_matches_jax(case):
     """The port's autograd VJP against jax.vjp of the lax render (jit
     disabled, as tests/test_torch_grad.py runs it), every leaf within
     1e-3 * max(max |ref|, 1), the warp and portal tables included."""
-    static, tables, cam, H, W = gradient_case(case)
-    g = np.random.default_rng(5).normal(size=(H, W, 3)).astype(np.float32)
-    t32 = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32), tables)
-    with jax.disable_jit():
-        _, vjp = jax.vjp(
-            lambda t, c: et.render_image(static, t, c, H, W, True), t32, cam)
-        gt_ref, gc_ref = vjp(jnp.asarray(g))
+    _, static, tables, cam, H, W = gradient_case(case)
+    g = gradient_cotangent(H, W)
+    ref = vjp_ref.load(case)
     gt, gc, _ = vjp_blocked(static, ett.tables_to_torch(tables, "cpu"),
                             ett.camera_to_torch(cam, "cpu"), H, W,
                             torch.from_numpy(g))
-    ref = ([np.asarray(getattr(gt_ref, k)) for k in FLOAT_FIELDS]
-           + [np.asarray(v) for v in gc_ref])
-    got = [getattr(gt, k).numpy() for k in FLOAT_FIELDS] + [
-        v.numpy() for v in gc]
-    for k, a, b in zip(FLOAT_FIELDS + tuple(gc._fields), ref, got):
-        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    got = jax_refs.leaves(gt, gc)
+    assert sorted(ref) == sorted(got)
+    for k, b in got.items():
+        a, b = np.asarray(ref[k], np.float64), np.asarray(b, np.float64)
         tol = 1e-3 * max(np.abs(a).max(), 1.0)
         assert np.abs(a - b).max() <= tol, (k, np.abs(a - b).max(), tol)
     if case == "warp_scene":
         for k in WARP_FIELDS[:3]:      # the march really gets gradients
-            assert np.abs(np.asarray(getattr(gt_ref, k))).max() > 1e-3, k
+            assert np.abs(ref[k]).max() > 1e-3, k
 
 
 # --- the reversible-march probe -------------------------------------------------

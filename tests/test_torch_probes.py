@@ -13,7 +13,10 @@ entry points, euclider_tpu_torch.tools.mosaic_probe and .march_bisect,
 with --device cpu.  The kernels are held against these plain versions by
 tests/test_torch_harness.py (their device code on the CPU) and
 tests/test_torch_cuda.py (on the card, which also holds the wrappers'
-refusal of CPU tensors).  Each JAX reference is computed once per module.
+refusal of CPU tensors).  Each JAX reference of P2-P5 is computed once
+per module; P1's tool kernel tiles and the JAX package's march of each
+lane are stored (tests/jax_refs.py), and the fwd stage's tiles are
+re-derived live.
 """
 import os
 import sys
@@ -37,6 +40,8 @@ from euclider_tpu.ops.vec import Vec as JVec
 from euclider_tpu_torch.ops import march_probe as MP
 from euclider_tpu_torch.ops import probes as PR
 from euclider_tpu_torch.tools import march_bisect, mosaic_probe
+
+import jax_refs
 
 TOOLS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "tools")
@@ -215,42 +220,59 @@ def _march_kernel(stage, static, n_views):
     return kernel
 
 
-class MarchRefs:
-    """The rebuilt tool kernel's output tiles, computed per stage on first
-    use (both tiles through one compile), and each tile's lanes' (steps,
-    entity) from the JAX package's plain march."""
+def march_scene():
+    """The tool's scene in the JAX package's IR: config5 at max_depth 1 and
+    23 march steps (MP.probe_scene)."""
+    sc = et.get_scene(MP.SCENE)
+    return replace(sc, settings=replace(sc.settings, max_depth=MP.MAX_DEPTH,
+                                        march_steps=MP.MARCH_STEPS))
 
-    def __init__(self):
-        sc = et.get_scene(MP.SCENE)
-        sc = replace(sc, settings=replace(sc.settings,
-                                          max_depth=MP.MAX_DEPTH,
-                                          march_steps=MP.MARCH_STEPS))
-        self.static, self.tables = et.compile_scene(sc)
-        self.views = _table_views(jax.tree.map(
-            lambda a: jnp.asarray(a, jnp.float32), self.tables))
-        self.tiles = {"tool": MP.tool_tile(), "crossing": MP.crossing_tile()}
-        self.out = {}
 
-    def __call__(self, stage, tile):
-        if (stage, tile) not in self.out:
-            call = jax.jit(pl.pallas_call(
-                _march_kernel(stage, self.static, len(self.views)),
-                in_specs=[_spec(VMEM)] * (len(self.views) + 8),
-                out_specs=_spec(VMEM),
-                out_shape=jax.ShapeDtypeStruct((TH, TW), jnp.float32),
-                interpret=True))
-            for t, (org, d) in self.tiles.items():
-                rays = [a.numpy()[..., k] for a in (org, d) for k in range(4)]
-                self.out[stage, t] = np.asarray(call(*self.views, *rays))
-        return self.out[stage, tile]
+def tiles():
+    """The tool's and the crossing tile's rays, (org, d) as numpy
+    [TH, TW, 4] arrays."""
+    return {"tool": tuple(a.numpy() for a in MP.tool_tile()),
+            "crossing": tuple(a.numpy() for a in MP.crossing_tile())}
 
-    def march(self, tile):
-        """-> (steps, entity or -1) of each lane of the tile."""
-        org, d = self.tiles[tile]
-        o = JVec(*(jnp.asarray(org.numpy()[..., k]) for k in range(4)))
-        dd = JVec(*(jnp.asarray(d.numpy()[..., k]) for k in range(4)))
+
+def tile_inputs():
+    return {f"{t}.{k}": a for t, rays in tiles().items()
+            for k, a in zip(("org", "dir"), rays)}
+
+
+@jax_refs.stored("probes.march", MP.STAGES)
+def march_ref(stage):
+    """The rebuilt tool kernel's output tile of the stage, on each tile
+    (``tool``, ``crossing``) through one compile."""
+    sc = march_scene()
+
+    def run():
+        static, tables = et.compile_scene(sc)
+        views = _table_views(jax.tree.map(
+            lambda a: jnp.asarray(a, jnp.float32), tables))
+        call = jax.jit(pl.pallas_call(
+            _march_kernel(stage, static, len(views)),
+            in_specs=[_spec(VMEM)] * (len(views) + 8),
+            out_specs=_spec(VMEM),
+            out_shape=jax.ShapeDtypeStruct((TH, TW), jnp.float32),
+            interpret=True))
+        return {t: call(*views, *(a[..., k] for a in rays for k in range(4)))
+                for t, rays in tiles().items()}
+    return {"scene": sc, "stage": stage, **tile_inputs()}, run
+
+
+@jax_refs.stored("probes.lanes", ["tool", "crossing"])
+def lanes_ref(tile):
+    """Each lane's march by the JAX package's plain march: ``steps`` and
+    the ``entity`` it crossed, or -1."""
+    sc = march_scene()
+
+    def run():
+        static, tables = et.compile_scene(sc)
+        org, d = tiles()[tile]
+        o = JVec(*(jnp.asarray(org[..., k]) for k in range(4)))
+        dd = JVec(*(jnp.asarray(d[..., k]) for k in range(4)))
         mat = jnp.ones((TH, TW), jnp.int32)
-        static, tables = self.static, self.tables
         carry = JM.march_init(static, tables, o, dd,
                               JT.warp_mask(static, mat))
         body = JM.make_march_body(static, tables,
@@ -259,13 +281,11 @@ class MarchRefs:
         for _ in range(MP.MARCH_STEPS):
             carry = body(carry)
         hit, _, _, ent, _, _, _ = JM.march_finish(static, tables, o, carry)
-        return (np.asarray(jnp.round(carry[8] / jnp.float32(0.06))).astype(
-            int), np.where(np.asarray(hit) != 0, np.asarray(ent), -1))
-
-
-@pytest.fixture(scope="module")
-def march_refs():
-    return MarchRefs()
+        return {"steps": np.asarray(jnp.round(
+                    carry[8] / jnp.float32(0.06))).astype(int),
+                "entity": np.where(np.asarray(hit) != 0, np.asarray(ent),
+                                   -1)}
+    return {"scene": sc, "tile": tile, **tile_inputs()}, run
 
 
 @pytest.fixture(scope="module")
@@ -281,15 +301,15 @@ def _port(port_scene, tile, stage):
 
 @pytest.mark.parametrize("tile", ["tool", "crossing"])
 @pytest.mark.parametrize("stage", MP.STAGES)
-def test_march_plain_matches_the_tool_kernel(march_refs, port_scene, stage,
-                                             tile):
+def test_march_plain_matches_the_tool_kernel(port_scene, stage, tile):
     """Every lane within 1e-5 * max(max |ref|, 1) on the tool's tile and
     1e-4 * max(max |ref|, 1) on the crossing tile, leaving out the lanes
     whose march crossed at another step or another entity (at most 1% of
     the tile; counted)."""
-    ref = march_refs(stage, tile)
+    ref = march_ref.load(stage)[tile]
     got = _port(port_scene, tile, stage)
-    steps, ent = march_refs.march(tile)
+    lanes = lanes_ref.load(tile)
+    steps, ent = lanes["steps"], lanes["entity"]
     same = (got.steps.numpy() == steps) & (got.ent.numpy() == ent)
     assert (~same).sum() <= 0.01 * same.size, (~same).sum()
     rtol = 1e-5 if tile == "tool" else 1e-4
@@ -298,15 +318,22 @@ def test_march_plain_matches_the_tool_kernel(march_refs, port_scene, stage,
 
 
 @pytest.mark.parametrize("stage", MP.STAGES)
-def test_march_tool_tile_sums(march_refs, port_scene, stage):
+def test_march_tool_tile_sums(port_scene, stage):
     """The rebuilt kernel is the tool's: its tile sums are the ones
     tools/march_bisect.py STAGE --interpret prints, and so are the port's."""
-    assert f"{march_refs(stage, 'tool').sum():.4f}" == TOOL_SUMS[stage]
+    assert f"{march_ref.load(stage)['tool'].sum():.4f}" == TOOL_SUMS[stage]
     got = _port(port_scene, "tool", stage)
     assert f"{got.out.numpy().sum():.4f}" == TOOL_SUMS[stage]
 
 
-def test_crossing_tile_crosses(march_refs, port_scene):
+def test_tool_kernel_reference_is_the_jax_kernel():
+    """The stored tiles are the rebuilt tool kernel's, to the bit (the fwd
+    stage, the cheapest), and so are the lanes' marches."""
+    jax_refs.assert_live_is_stored(march_ref, "fwd")
+    jax_refs.assert_live_is_stored(lanes_ref, "crossing")
+
+
+def test_crossing_tile_crosses(port_scene):
     """On the crossing tile between 25% and 75% of the lanes cross a
     boundary within 23 steps, in the port and in the JAX package, and the
     normal makes sum(d shape_vec) nonzero; on the tool's tile no lane
@@ -314,7 +341,7 @@ def test_crossing_tile_crosses(march_refs, port_scene):
     got = _port(port_scene, "crossing", "vjp")
     share = float((got.ent >= 0).float().mean())
     assert 0.25 <= share < 0.75, share
-    assert share == float((march_refs.march("crossing")[1] >= 0).mean())
+    assert share == float((lanes_ref.load("crossing")["entity"] >= 0).mean())
     assert abs(float(got.dsv)) > 1.0, float(got.dsv)
     tool = _port(port_scene, "tool", "vjp")
     assert int((tool.ent >= 0).sum()) == 0 and float(tool.dsv) == 0.0

@@ -127,7 +127,10 @@ def test_cli_time_prints_the_render_meter_record(tmp_path, capsys):
                for ln in lines)
     rec = json.loads([ln for ln in lines if ln.startswith("{")][0])
     assert rec["frames"] == 2 and rec["label"] == "torch"
-    assert rec["mrays_per_s"] > 0
+    # the rate of the frames' mean time, rounded to 0.01 as the record
+    # rounds it: 48 rays a frame read 0.0 once a frame takes 10 ms
+    assert rec["ms_per_frame"] > 0
+    assert abs(rec["mrays_per_s"] - 48 / rec["ms_per_frame"] / 1e3) <= 0.005
     assert len(list(prof.iterdir())) == 1
 
 

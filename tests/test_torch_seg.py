@@ -6,7 +6,8 @@ chunks differentiated in reverse) is held against ``vjp_blocked`` on the
 cases of ``tests/test_gradients.py``'s segmented tests and on a tree past
 the tape kernel's 63 nodes, and against ``jax.vjp`` of the lax render, by
 that file's rule (per leaf, max |diff| <= 1e-3 * max(max |ref|, 1); the
-time within 1e-4).  The JAX side runs op by op (``test_torch_grad.py``).
+time within 1e-4).  The JAX side runs op by op (``test_torch_grad.py``),
+and its leaves are stored (``tests/jax_refs.py``).
 The kernels' device code is held against ``vjp_segmented`` in
 ``test_torch_harness.py``, the kernels on the card in
 ``test_torch_cuda.py``.
@@ -21,6 +22,8 @@ import euclider_tpu_torch as ett
 from euclider_tpu_torch.ops import cuda_bwd
 from euclider_tpu_torch.ops.vjp import (FLOAT_FIELDS, chunk_sizes,
                                         vjp_blocked, vjp_segmented)
+
+import jax_refs
 from test_torch_cuda import deep_scene
 
 H, W = 16, 24
@@ -90,33 +93,53 @@ def test_segmented_matches_blocked(settings, chunk_trips, sizes, seed):
     assert float(np.abs(np.asarray(ref[0].shape_vec)).max()) > 1.0
 
 
-def test_segmented_matches_jax():
-    """vjp_segmented against jax.vjp of the lax render on the same numpy
-    inputs: grad_probe at depth 2, chunks of one trip, 16x24."""
-    import jax
-    import jax.numpy as jnp
-
+def jax_case():
+    """grad_probe at depth 2, compiled by the JAX package -> (scene,
+    static, numpy tables, numpy camera)."""
     import euclider_tpu as et
 
     sc = et.get_scene("grad_probe")
     sc = replace(sc, settings=replace(sc.settings, max_depth=2))
     static, tables = et.compile_scene(sc)
-    cam = et.compile_camera(sc.camera)
+    return sc, static, tables, et.compile_camera(sc.camera)
+
+
+@jax_refs.stored("seg.vjp", ["grad_probe"])
+def vjp_ref(_):
+    """jax.vjp of the lax render of jax_case's scene at scene time 0 under
+    cotangent(3), op by op: the float tables, ``cam.<field>`` and time."""
+    sc, static, tables, cam = jax_case()
     g = cotangent(3)
-    t32 = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32), tables)
-    with jax.disable_jit():
-        _, vjp = jax.vjp(
-            lambda t, c, tt: et.render_image(static, t, c, H, W, True, tt),
-            t32, cam, jnp.float32(0.0))
-        gt_ref, gc_ref, gtm_ref = vjp(jnp.asarray(g))
+
+    def run():
+        import jax
+        import jax.numpy as jnp
+
+        import euclider_tpu as et
+
+        t32 = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32), tables)
+        with jax.disable_jit():
+            _, vjp = jax.vjp(
+                lambda t, c, tt: et.render_image(static, t, c, H, W, True,
+                                                 tt),
+                t32, cam, jnp.float32(0.0))
+            return jax_refs.leaves(*vjp(jnp.asarray(g)))
+    return {"scene": sc, "H": H, "W": W, "seed": 3, "cotangent": g}, run
+
+
+def test_segmented_matches_jax():
+    """vjp_segmented against jax.vjp of the lax render on the same numpy
+    inputs: grad_probe at depth 2, chunks of one trip, 16x24."""
+    _, static, tables, cam = jax_case()
+    g = cotangent(3)
+    ref = vjp_ref.load("grad_probe")
     gt, gc, gtm = vjp_segmented(static, ett.tables_to_torch(tables, "cpu"),
                                 ett.camera_to_torch(cam, "cpu"), H, W,
                                 torch.from_numpy(g), chunk_trips=1)
-    ref = ([np.asarray(getattr(gt_ref, k)) for k in FLOAT_FIELDS]
-           + [np.asarray(v) for v in gc_ref])
-    assert_grads_close(ref, [getattr(gt, k) for k in FLOAT_FIELDS]
-                       + list(gc))
-    assert abs(float(gtm_ref) - float(gtm)) <= 1e-4
+    assert_grads_close([ref[k] for k in FLOAT_FIELDS]
+                       + [ref[f"cam.{k}"] for k in gc._fields],
+                       [getattr(gt, k) for k in FLOAT_FIELDS] + list(gc))
+    assert abs(float(ref["time"]) - float(gtm)) <= 1e-4
 
 
 def test_segmented_matches_blocked_past_the_tape():

@@ -3,7 +3,8 @@
 The plain version is what the CUDA kernel is held against on the card, so
 it is held here against every reference the JAX package trusts: the lax
 render, the Pallas megakernel itself (interpret mode, as
-tests/test_pallas_parity.py runs it), and the committed goldens.
+tests/test_pallas_parity.py runs it), and the committed goldens.  The lax
+renders are stored (tests/jax_refs.py); config1's is re-derived live.
 """
 import os
 
@@ -19,6 +20,7 @@ from euclider_tpu_torch.ops import cuda_kernel, trace
 from euclider_tpu_torch.oracle.native_oracle import render_native
 from euclider_tpu_torch.utils.validate import assert_oracle_match
 
+import jax_refs
 from conftest import assert_images_close
 
 H, W = 16, 128   # the jit shapes of tests/test_pallas_parity.py
@@ -35,16 +37,31 @@ def port_inputs(compiled_scenes, name):
             ett.camera_to_torch(cam, "cpu"))
 
 
+@jax_refs.stored("trace.lax", SLICE)
+def lax_ref(name):
+    """The jit'd lax render of the library scene at H x W."""
+    sc = et.get_scene(name)
+    static, tables = et.compile_scene(sc)
+    cam = et.compile_camera(sc.camera)
+    return ({"scene": sc, "H": H, "W": W},
+            lambda: {"rgb": et.render_image_jit(static, tables, cam, H, W)})
+
+
 @pytest.mark.parametrize("name", SLICE)
 def test_plain_matches_lax(compiled_scenes, name):
-    _, static, tables, cam = compiled_scenes[name]
-    ref = np.asarray(et.render_image_jit(static, tables, cam, H, W))
+    ref = lax_ref.load(name)["rgb"]
     got = trace.render_image(*port_inputs(compiled_scenes, name), H, W)
     assert got.shape == (H, W, 3) and got.dtype == torch.float32
     # rsqrt and fused products may differ by an ulp between XLA and torch,
     # which can flip a silhouette pixel: allow 0.2% of pixels
     assert_images_close(ref, got.numpy(), atol=1e-5, max_bad_frac=0.002,
                         msg=f"torch-vs-lax {name}")
+
+
+def test_lax_reference_is_the_jax_render():
+    """The stored lax render is the JAX package's, to the bit (the cheapest
+    case)."""
+    jax_refs.assert_live_is_stored(lax_ref, "config1_sphere_room")
 
 
 def test_plain_matches_pallas_kernel(compiled_scenes):

@@ -5,7 +5,9 @@ The reference is the lax MSE loss under ``jax.value_and_grad`` and
 ``optax.adam``.  The
 scene is grad_probe cut to ``max_depth=1``: the training machinery is what
 is under test here, and the reverse sweep of deeper trees is held against
-``jax.vjp`` in tests/test_torch_grad.py.
+``jax.vjp`` in tests/test_torch_grad.py.  The JAX side's losses, gradients
+and tables are stored (tests/jax_refs.py); the three steps of ``problem``
+are re-derived live.
 """
 from dataclasses import replace
 
@@ -25,6 +27,8 @@ from euclider_tpu_torch.train.inverse import (InverseParams,
                                               make_fused_value_and_grad,
                                               make_train_step)
 
+import jax_refs
+
 H, W = 16, 24
 LR, STEPS = 2e-2, 3
 
@@ -37,12 +41,9 @@ def sphere_rows(static):
                          for e in static.entities])
 
 
-@pytest.fixture(scope="module")
-def problem():
-    """grad_probe at depth 1 with perturbed colours, a seeded target, and
-    three optax.adam steps of the lax loss on the spheres' rows of shape_vec
-    and on surf_color (the camera and the rest frozen): the losses, the
-    first gradients and the tables after each step."""
+def problem_case():
+    """grad_probe at depth 1 with perturbed colours and a seeded target ->
+    (scene, static, numpy tables, numpy camera, target)."""
     sc = et.get_scene("grad_probe")
     sc = replace(sc, settings=replace(sc.settings, max_depth=1))
     static, tables = et.compile_scene(sc)
@@ -51,32 +52,69 @@ def problem():
         [0.1, -0.05, 0.08, 0.0], np.float32))
     target = np.random.default_rng(11).uniform(size=(H, W, 3)).astype(
         np.float32)
+    return sc, static, tables, cam, target
+
+
+@jax_refs.stored("train.problem", ["grad_probe"])
+def problem_ref(_):
+    """Three optax.adam steps of the lax loss on the spheres' rows of
+    shape_vec and on surf_color (the camera and the rest frozen):
+    ``loss`` [STEPS], the first gradients (``grad/<field>``) and each
+    fitted table after each step (``after/<field>``, [STEPS, ...])."""
+    sc, static, tables, cam, target = problem_case()
     spheres = sphere_rows(static).numpy()
 
-    t32 = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32), tables)
+    def run():
+        t32 = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32), tables)
 
-    def loss_lax(fields):
-        img = et.render_image(static, t32._replace(**fields), cam, H, W, True)
-        return jnp.mean((img - target) ** 2)
+        def loss_lax(fields):
+            img = et.render_image(static, t32._replace(**fields), cam, H, W,
+                                  True)
+            return jnp.mean((img - target) ** 2)
 
-    # jitted once for the three steps (the persistent compilation cache of
-    # tests/conftest.py keeps it across runs)
-    value_and_grad = jax.jit(jax.value_and_grad(loss_lax))
-    tabs = {k: getattr(t32, k) for k in FLOAT_FIELDS}
-    opt = optax.adam(LR)
-    state = opt.init({k: tabs[k] for k in fit.FIT})
-    losses, grads, after = [], [], []
-    for _ in range(STEPS):
-        loss, g = value_and_grad(tabs)
-        grads.append({k: np.asarray(v) for k, v in g.items()})
-        g = {k: g[k] for k in fit.FIT}
-        g["shape_vec"] = g["shape_vec"] * spheres
-        fields = {k: tabs[k] for k in fit.FIT}
-        updates, state = opt.update(g, state, fields)
-        tabs.update(optax.apply_updates(fields, updates))
-        losses.append(float(loss))
-        after.append({k: np.asarray(tabs[k]) for k in fit.FIT})
-    return static, tables, cam, target, losses, grads[0], after
+        # jitted once for the three steps
+        value_and_grad = jax.jit(jax.value_and_grad(loss_lax))
+        tabs = {k: getattr(t32, k) for k in FLOAT_FIELDS}
+        opt = optax.adam(LR)
+        state = opt.init({k: tabs[k] for k in fit.FIT})
+        losses, grads, after = [], [], []
+        for _ in range(STEPS):
+            loss, g = value_and_grad(tabs)
+            grads.append({k: np.asarray(v) for k, v in g.items()})
+            g = {k: g[k] for k in fit.FIT}
+            g["shape_vec"] = g["shape_vec"] * spheres
+            fields = {k: tabs[k] for k in fit.FIT}
+            updates, state = opt.update(g, state, fields)
+            tabs.update(optax.apply_updates(fields, updates))
+            losses.append(np.asarray(loss))
+            after.append({k: np.asarray(tabs[k]) for k in fit.FIT})
+        out = {"loss": np.stack(losses)}
+        out.update((f"grad/{k}", v) for k, v in grads[0].items())
+        out.update((f"after/{k}", np.stack([a[k] for a in after]))
+                   for k in fit.FIT)
+        return out
+    return ({"scene": sc, "H": H, "W": W, "lr": LR, "steps": STEPS,
+             "colour": tables.surf_color, "target": target,
+             "spheres": spheres, "fit": list(fit.FIT)}, run)
+
+
+@pytest.fixture(scope="module")
+def problem():
+    """problem_case's inputs and problem_ref's stored outputs: the losses,
+    the first gradients and the tables after each step."""
+    _, static, tables, cam, target = problem_case()
+    ref = problem_ref.load("grad_probe")
+    losses = [float(v) for v in ref["loss"]]
+    grads = {k: ref[f"grad/{k}"] for k in FLOAT_FIELDS}
+    after = [{k: ref[f"after/{k}"][i] for k in fit.FIT}
+             for i in range(STEPS)]
+    return static, tables, cam, target, losses, grads, after
+
+
+def test_train_step_reference_is_the_jax_steps():
+    """The stored losses, gradients and tables are the three optax steps',
+    to the bit."""
+    jax_refs.assert_live_is_stored(problem_ref, "grad_probe")
 
 
 def port_params(tables, cam):
@@ -118,6 +156,71 @@ def test_adam_steps_track_optax(problem):
                                     if k not in fit.FIT]))
 
 
+EX_H, EX_W = 16, 64
+
+
+def example_case():
+    """examples/inverse_fit.py's scene at its one-device size -> (scene,
+    static, numpy tables, numpy camera)."""
+    sc = et.get_scene("grad_probe")
+    static, tables = et.compile_scene(sc)
+    return sc, static, tables, et.compile_camera(sc.camera)
+
+
+@jax_refs.stored("train.example", ["grad_probe"])
+def example_ref(_):
+    """examples/inverse_fit.py's first three steps: its target (the jit'd
+    lax render, ``target``), its perturbation of grad_probe
+    (``perturbed/<field>``), and its jit'd step (make_loss_fn on a
+    one-device mesh, optax.multi_transform with its labels): ``loss``
+    [STEPS] and the fitted tables after each step (``after/<field>``,
+    [STEPS, ...])."""
+    sc, static, tables, cam = example_case()
+
+    def run():
+        from euclider_tpu.parallel.mesh import make_mesh
+        from euclider_tpu.train.inverse import InverseParams as JParams
+        from euclider_tpu.train.inverse import make_loss_fn
+
+        t32 = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32), tables)
+        target = np.array(et.render_image_jit(static, t32, cam, EX_H, EX_W))
+        perturbed = t32._replace(
+            shape_vec=t32.shape_vec.at[0, 0].add(0.35).at[0, 2].add(-0.3),
+            surf_color=t32.surf_color.at[:, :3].add(0.15))
+        params = JParams(perturbed, cam)
+        loss_fn = make_loss_fn(static, EX_H, EX_W, make_mesh(1))
+        label = JParams(tables=type(t32)(*["opt" if f in fit.FIT
+                                           else "frozen"
+                                           for f in t32._fields]),
+                        cam="frozen")
+        opt = optax.multi_transform(
+            {"opt": optax.adam(LR), "frozen": optax.set_to_zero()}, label)
+        state = opt.init(params)
+
+        @jax.jit
+        def jstep(params, state):
+            loss, g = jax.value_and_grad(loss_fn)(params,
+                                                  jnp.asarray(target))
+            updates, state = opt.update(g, state, params)
+            return optax.apply_updates(params, updates), state, loss
+
+        out = {"target": target}
+        out.update((f"perturbed/{k}", np.asarray(getattr(perturbed, k)))
+                   for k in fit.FIT)
+        losses, after = [], []
+        for _ in range(STEPS):
+            params, state, loss = jstep(params, state)
+            losses.append(np.asarray(loss))
+            after.append({k: np.asarray(getattr(params.tables, k))
+                          for k in fit.FIT})
+        out["loss"] = np.stack(losses)
+        out.update((f"after/{k}", np.stack([a[k] for a in after]))
+                   for k in fit.FIT)
+        return out
+    return ({"scene": sc, "H": EX_H, "W": EX_W, "lr": LR, "steps": STEPS,
+             "fit": list(fit.FIT)}, run)
+
+
 def test_example_step_matches_jax():
     """Three steps of examples/inverse_fit.py at its one-device size (16 x
     64): its perturbation of grad_probe, its lax loss through make_loss_fn
@@ -130,57 +233,33 @@ def test_example_step_matches_jax():
     part after the first step (loss 2.1e-5 relative apart at step 2, 8.7e-4
     at step 3, on the CPU): the fitted floor normal tilts the
     far field, where pixel flips change the loss discontinuously."""
-    from euclider_tpu.parallel.mesh import make_mesh
-    from euclider_tpu.train.inverse import InverseParams as JParams
-    from euclider_tpu.train.inverse import make_loss_fn
-
-    H, W = 16, 64
-    sc = et.get_scene("grad_probe")
-    static, tables = et.compile_scene(sc)
-    cam = et.compile_camera(sc.camera)
-    tables = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32), tables)
-    target = np.array(et.render_image_jit(static, tables, cam, H, W))
-    perturbed = tables._replace(
-        shape_vec=tables.shape_vec.at[0, 0].add(0.35).at[0, 2].add(-0.3),
-        surf_color=tables.surf_color.at[:, :3].add(0.15))
-    params = JParams(perturbed, cam)
-    loss_fn = make_loss_fn(static, H, W, make_mesh(1))
-    label = JParams(tables=type(tables)(*["opt" if f in fit.FIT else "frozen"
-                                          for f in tables._fields]),
-                    cam="frozen")
-    opt = optax.multi_transform(
-        {"opt": optax.adam(LR), "frozen": optax.set_to_zero()}, label)
-    state = opt.init(params)
-
-    @jax.jit
-    def jstep(params, state):
-        loss, g = jax.value_and_grad(loss_fn)(params, jnp.asarray(target))
-        updates, state = opt.update(g, state, params)
-        return optax.apply_updates(params, updates), state, loss
-
+    _, static, tables, cam = example_case()
+    ref = example_ref.load("grad_probe")
+    target = ref["target"]
     truth = ett.tables_to_torch(tables, "cpu")
     port = InverseParams(fit.perturb(truth), ett.camera_to_torch(cam, "cpu"))
     for k in fit.FIT:
         assert np.array_equal(getattr(port.tables, k).numpy(),
-                              np.asarray(getattr(perturbed, k)))
+                              ref[f"perturbed/{k}"])
     frozen = [v.clone() for v in port.cam] + [
         getattr(port.tables, k).clone() for k in FLOAT_FIELDS
         if k not in fit.FIT]
-    step, _ = make_train_step(static, H, W, port, lr=LR, backend="torch",
-                              fit=dict.fromkeys(fit.FIT))
-    for _ in range(STEPS):
+    step, _ = make_train_step(static, EX_H, EX_W, port, lr=LR,
+                              backend="torch", fit=dict.fromkeys(fit.FIT))
+    for i in range(STEPS):
         with torch.no_grad():
             for k in fit.FIT:
-                getattr(port.tables, k).copy_(torch.from_numpy(
-                    np.array(getattr(params.tables, k))))
-        params, state, loss = jstep(params, state)
+                start = (ref[f"perturbed/{k}"] if i == 0
+                         else ref[f"after/{k}"][i - 1])
+                getattr(port.tables, k).copy_(torch.from_numpy(start))
+        loss = float(ref["loss"][i])
         got = step(torch.from_numpy(target))
-        assert abs(float(got) - float(loss)) <= 1e-5 * abs(float(loss))
+        assert abs(float(got) - loss) <= 1e-5 * abs(loss)
         for k in fit.FIT:
-            ref = np.asarray(getattr(params.tables, k))
-            np.testing.assert_allclose(getattr(port.tables, k).numpy(), ref,
+            want = ref[f"after/{k}"][i]
+            np.testing.assert_allclose(getattr(port.tables, k).numpy(), want,
                                        rtol=0,
-                                       atol=1e-5 * np.abs(ref).max())
+                                       atol=1e-5 * np.abs(want).max())
     assert all(torch.equal(a, b) for a, b in zip(
         frozen, list(port.cam) + [getattr(port.tables, k)
                                   for k in FLOAT_FIELDS if k not in fit.FIT]))
